@@ -1,5 +1,5 @@
 """Shared infrastructure of the solver cores (counterpart of
-:mod:`krypy_tpu.functional.common`, the subset CG needs).
+:mod:`krypy_tpu.functional.common`, the subset CG and GMRES need).
 
 Conventions follow the JAX package: vectors are 1-D ``(N,)`` tensors,
 operators are plain matvec callables ``(N,) -> (N,)``, and status codes
@@ -135,3 +135,36 @@ def system_dtype(*tensors):
             continue
         dt = t.dtype if dt is None else torch.promote_types(dt, t.dtype)
     return dt
+
+
+def givens(a, b):
+    """Branch-free complex-safe Givens coefficients ``(c, s, r)`` of two
+    0-dim tensors, with real ``c >= 0``, such that ``[[c, s], [-conj(s),
+    c]] @ [a, b] = [r, 0]``; computed on the tensors' device with no host
+    read.  Counterpart of ``krypy_tpu.functional.common.givens_traced``,
+    term for term."""
+    abs_a = a.abs()
+    abs_b = b.abs()
+    denom = torch.sqrt(abs_a ** 2 + abs_b ** 2)
+    safe = torch.where(denom == 0, 1.0, denom)
+    sign_a = torch.where(
+        abs_a == 0, 1.0 + 0.0 * a,
+        a / torch.where(abs_a == 0, 1.0, abs_a).to(a.dtype),
+    )
+    c = torch.where(abs_b == 0, 1.0,
+                    torch.where(abs_a == 0, 0.0, abs_a / safe))
+    s = torch.where(
+        abs_b == 0,
+        0.0 * a,
+        torch.where(
+            abs_a == 0,
+            b.conj() / torch.where(abs_b == 0, 1.0, abs_b).to(b.dtype),
+            sign_a * b.conj() / safe.to(a.dtype),
+        ),
+    )
+    r = torch.where(
+        abs_b == 0,
+        a,
+        torch.where(abs_a == 0, abs_b.to(a.dtype), sign_a * denom.to(a.dtype)),
+    )
+    return c, s, r

@@ -8,7 +8,11 @@ Counterparts of the three Pallas kernels in
   damped-Jacobi step, residual and collapsed presmooth;
 * :func:`stencil5_jacobi2` (K2): two fused damped-Jacobi sweeps;
 * :func:`stencil5_resrestrict_rows` (K3): residual plus full-weighting
-  row restriction.
+  row restriction;
+
+and the two thin entries over K1 on an unpadded grid (logical region =
+the whole buffer), :func:`stencil5_pipelined` and
+:func:`laplacian_2d_pipelined`, which launch K1 itself.
 
 Operands are flat ``(nx*ny,)`` tensors holding a row-major ``(nx, ny)``
 buffer whose top-left ``(nrows, ncols)`` corner is the logical Dirichlet
@@ -21,34 +25,21 @@ and follow the Pallas kernels' arithmetic term for term.
 
 import torch
 
+from ._launch import LAUNCHES, launch_counts, reset_launch_counts  # noqa: F401
+from ._launch import launch as _launch
+
 __all__ = [
     "stencil5_affine",
     "stencil5_jacobi2",
     "stencil5_resrestrict_rows",
+    "stencil5_pipelined",
+    "laplacian_2d_pipelined",
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
     "launch_counts",
     "reset_launch_counts",
 ]
-
-#: kernel launches per wrapper; incremented only where a CUDA kernel
-#: is launched
-LAUNCHES = {
-    "stencil5_affine": 0,
-    "stencil5_jacobi2": 0,
-    "stencil5_resrestrict_rows": 0,
-}
-
-
-def launch_counts():
-    """Copy of the per-kernel launch counters."""
-    return dict(LAUNCHES)
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _grouped(coeffs):
@@ -80,19 +71,6 @@ def _check(name, nx, ny, nrows, ncols, *tensors):
     if t0.device.type != "cpu":
         raise ValueError(f"{name}: unsupported device {t0.device}")
     return False
-
-
-def _launch(name, fn_name, args, device):
-    from . import _build
-
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -240,3 +218,23 @@ def stencil5_resrestrict_rows(u, g, *, nx, ny, coeffs, ncols, nrows):
         u.device,
     )
     return out
+
+
+def stencil5_pipelined(x, *, nx, ny, coeffs):
+    """K1 as the matvec of an unpadded ``nx x ny`` Dirichlet grid (flat
+    operand; the logical region is the whole buffer).  Counterpart of
+    ``krypy_tpu.kernels.stencil.stencil5_pipelined``; launches K1 and
+    counts as one ``stencil5_affine`` launch."""
+    return stencil5_affine(x, nx=nx, ny=ny, coeffs=coeffs)
+
+
+def laplacian_2d_pipelined(x, *, nx, ny, hx2=None, hy2=None):
+    """5-point Dirichlet Laplacian through :func:`stencil5_pipelined`.
+    Counterpart of ``krypy_tpu.kernels.stencil.laplacian_2d_pipelined``."""
+    hx2 = (1.0 / (nx + 1)) ** 2 if hx2 is None else hx2
+    hy2 = (1.0 / (ny + 1)) ** 2 if hy2 is None else hy2
+    return stencil5_pipelined(
+        x, nx=nx, ny=ny,
+        coeffs=(2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2,
+                -1.0 / hy2),
+    )

@@ -1,5 +1,5 @@
-"""Operators of the multigrid-CG slice (counterpart of the matching parts
-of :mod:`krypy_tpu.ops`).
+"""Operators of the multigrid-CG and north-star slices (counterpart of
+the matching parts of :mod:`krypy_tpu.ops`).
 
 Operators are plain callables on 1-D ``(N,)`` tensors that carry
 ``.shape`` (and ``.grid``, ``.nx_pad``, ``.ny_pad``, ``.diag`` where the
@@ -8,10 +8,15 @@ has no parameters.  Their output dtype follows the input vector.
 
 ``impl="torch"`` is the JAX package's ``impl="jnp"`` and ``impl="cuda"``
 its ``impl="pallas"``: on the cuda lane the fine multigrid levels and the
-padded float32 matvec go through the hand-written kernels of
+float32 stencil matvecs go through the hand-written kernels of
 :mod:`krypy_tpu_torch.kernels`, under the JAX package's dispatch rules
 (kernels only at ``n >= 256`` and on float32; float64 through the plain
 stencil).
+
+Every constructor takes ``device``, where the operator keeps its own
+tensors (``.diag``); it defaults to ``"cuda"``, the current CUDA device,
+and raises where torch sees no CUDA device.  Pass ``device="cpu"`` to
+build an operator on the CPU.
 """
 
 import torch
@@ -21,6 +26,7 @@ from . import kernels
 
 __all__ = [
     "poisson_2d",
+    "convection_diffusion_2d",
     "jacobi_preconditioner",
     "multigrid_poisson_preconditioner",
     "pad_cols_width",
@@ -37,17 +43,49 @@ def _check_impl(impl):
         raise ValueError(f"unknown impl {impl!r} (expected one of {_IMPLS})")
 
 
-def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cpu"):
+def _device(device):
+    """Resolve an operator's ``device``: a bare ``"cuda"`` is the current
+    CUDA device (a CUDA tensor always reports its index).  Raises where
+    torch sees no CUDA device, rather than building CPU tensors."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} but torch sees no CUDA device; "
+                "pass device='cpu' to build the operator on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _kernel_matvec(nx, ny, coeffs, kernel):
+    """Unpadded ``impl="cuda"`` stencil matvec: ``kernel`` (an entry over
+    K1 on the whole ``(nx, ny)`` buffer) on float32 input, the plain
+    grouped-difference stencil otherwise."""
+    coeffs = tuple(float(c) for c in coeffs)
+
+    def matvec(x):
+        if x.dtype == torch.float32:
+            return kernel(x)
+        return _stencil5_padded(x.reshape(nx, ny), coeffs, nx, ny).reshape(-1)
+
+    return matvec
+
+
+def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda"):
     """5-point Laplacian on an nx x ny interior grid of the unit square,
     Dirichlet boundaries; SPD, N = nx*ny.
 
     ``pad_cols=True`` returns the grid-padded operator on
     ``(pad_rows_width(nx) * pad_cols_width(ny),)`` vectors whose pads are
-    zero; with ``impl="cuda"`` its float32 matvec is the K1 kernel.  The
-    unpadded ``impl="cuda"`` lane is not ported yet (ROADMAP.md queue B).
-    ``device`` places ``.diag``.
+    zero.  With ``impl="cuda"`` the float32 matvec is the K1 kernel on
+    either layout (unpadded: :func:`~krypy_tpu_torch.kernels.stencil.
+    laplacian_2d_pipelined`), other dtypes the plain grouped-difference
+    stencil.  ``device`` places ``.diag``.
     """
     _check_impl(impl)
+    device = _device(device)
     ny = nx if ny is None else ny
     hx2 = (1.0 / (nx + 1)) ** 2
     hy2 = (1.0 / (ny + 1)) ** 2
@@ -70,24 +108,90 @@ def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cpu"):
         return matvec
 
     if impl == "cuda":
-        raise NotImplementedError(
-            "the unpadded impl='cuda' Poisson lane (JAX "
-            "laplacian_2d_pipelined) is not ported yet (ROADMAP.md queue "
-            "B); use pad_cols=True"
+        matvec = _kernel_matvec(
+            nx, ny, (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2),
+            lambda x: kernels.laplacian_2d_pipelined(x, nx=nx, ny=ny,
+                                                     hx2=hx2, hy2=hy2),
         )
-
-    def matvec(x):
-        u = x.reshape(nx, ny)
-        ux = (2.0 * u
-              - F.pad(u[:-1, :], (0, 0, 1, 0))
-              - F.pad(u[1:, :], (0, 0, 0, 1))) / hx2
-        uy = (2.0 * u
-              - F.pad(u[:, :-1], (1, 0))
-              - F.pad(u[:, 1:], (0, 1))) / hy2
-        return (ux + uy).reshape(-1)
+    else:
+        def matvec(x):
+            u = x.reshape(nx, ny)
+            ux = (2.0 * u
+                  - F.pad(u[:-1, :], (0, 0, 1, 0))
+                  - F.pad(u[1:, :], (0, 0, 0, 1))) / hx2
+            uy = (2.0 * u
+                  - F.pad(u[:, :-1], (1, 0))
+                  - F.pad(u[:, 1:], (0, 1))) / hy2
+            return (ux + uy).reshape(-1)
 
     matvec.shape = (nx * ny, nx * ny)
     matvec.diag = torch.full((nx * ny,), dval, dtype=torch.float64,
+                             device=device)
+    return matvec
+
+
+def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
+                            impl="torch", pad_cols=False, device="cuda"):
+    """Nonsymmetric convection-diffusion operator ``-eps * Lap(u) +
+    w . grad(u)`` with first-order upwind convection (wind components
+    non-negative), Dirichlet boundaries; N = nx*ny.
+
+    The stencil's up (row i-1) and left (column j-1) coefficients carry
+    the upwind terms, so ``cu != cd`` and ``cl != cr``.  ``pad_cols=True``
+    is the grid-padded operator (K1 on float32 with ``impl="cuda"``, the
+    plain grouped stencil otherwise); unpadded, ``impl="cuda"`` runs K1
+    through :func:`~krypy_tpu_torch.kernels.stencil.stencil5_pipelined` on
+    float32 and ``impl="torch"`` is the JAX ``impl="jnp"`` formula
+    ``eps * Lap(x) + wx * dx(u) + wy * dy(u)``.  ``device`` places
+    ``.diag``.
+    """
+    _check_impl(impl)
+    device = _device(device)
+    ny = nx if ny is None else ny
+    hx = 1.0 / (nx + 1)
+    hy = 1.0 / (ny + 1)
+    hx2, hy2 = hx * hx, hy * hy
+    wx, wy = wind
+    coeffs = (
+        eps * (2.0 / hx2 + 2.0 / hy2) + wx / hx + wy / hy,
+        -eps / hx2 - wx / hx,
+        -eps / hx2,
+        -eps / hy2 - wy / hy,
+        -eps / hy2,
+    )
+
+    if pad_cols:
+        matvec, nx_pad, ny_pad = _padded_stencil_matvec(nx, ny, coeffs,
+                                                        impl)
+        Np = nx_pad * ny_pad
+        matvec.shape = (Np, Np)
+        matvec.grid = (nx, ny)
+        matvec.nx_pad, matvec.ny_pad = nx_pad, ny_pad
+        dg = torch.ones((nx_pad, ny_pad), dtype=torch.float64,
+                        device=device)
+        dg[:nx, :ny] = coeffs[0]
+        matvec.diag = dg.reshape(-1)
+        return matvec
+
+    if impl == "cuda":
+        matvec = _kernel_matvec(
+            nx, ny, coeffs,
+            lambda x: kernels.stencil5_pipelined(x, nx=nx, ny=ny,
+                                                 coeffs=coeffs),
+        )
+    else:
+        lap = poisson_2d(nx, ny, device=device)
+
+        def matvec(x):
+            u = x.reshape(nx, ny)
+            # upwind differences (wind components assumed non-negative)
+            dux = (u - F.pad(u[:-1, :], (0, 0, 1, 0))) / hx
+            duy = (u - F.pad(u[:, :-1], (1, 0))) / hy
+            conv = wx * dux + wy * duy
+            return eps * lap(x) + conv.reshape(-1)
+
+    matvec.shape = (nx * ny, nx * ny)
+    matvec.diag = torch.full((nx * ny,), coeffs[0], dtype=torch.float64,
                              device=device)
     return matvec
 
@@ -224,14 +328,16 @@ def _prolong_bilinear_1d(c, axis):
 
 
 def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
-                      impl, scale=1.0, device=torch.device("cpu")):
+                      impl, scale=1.0, device="cuda"):
     """Grid-padded V-cycle with damped-Jacobi smoothing (counterpart of
     the JAX ``_multigrid_padded``): every level lives in an ``(n_pad,
     pad128(n))`` buffer.  With ``impl="cuda"``, float32 levels with
     ``n >= 256`` run the kernels: K1 for the step, residual and collapsed
     presmooth, K2 for post-smoothing pairs, K3 for residual plus row
     restriction; every other leg is plain torch.  ``scale`` is folded
-    into the final post-smoothing sweep."""
+    into the final post-smoothing sweep.  The operator applies only to
+    vectors on ``device``."""
+    device = _device(device)
 
     def step_fn(n, R, P, h2, dtype_is_f32, s=1.0):
         diag = 4.0 / h2
@@ -370,7 +476,7 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
 def multigrid_poisson_preconditioner(
     nx, nu_pre=2, nu_post=2, omega=0.8, coarsest=7, coarse_sweeps=20,
     coarse_solver=None, impl="torch", smoother="jacobi", pad_cols=False,
-    scale=1.0, device="cpu",
+    scale=1.0, device="cuda",
 ):
     r"""Geometric multigrid V-cycle preconditioner for the 2-D Dirichlet
     Poisson operator (``nx = 2^k - 1``): damped-Jacobi smoothing,
@@ -383,7 +489,8 @@ def multigrid_poisson_preconditioner(
     1`` raise ``ValueError``: the JAX padded lane runs one sweep too many
     there (ROADMAP.md queue C).  The operator makes no tensors of its own
     and runs in the dtype of the vector it is applied to, which must lie
-    on ``device`` (a bare ``"cuda"`` is the current CUDA device).
+    on ``device`` (default ``"cuda"``, the current CUDA device; raises
+    where torch sees none).
     """
     _check_impl(impl)
     if (nx + 1) & nx != 0:
@@ -405,11 +512,6 @@ def multigrid_poisson_preconditioner(
             "the padded V-cycle needs nu_pre >= 2 and coarse_sweeps >= 1 "
             f"(got nu_pre={nu_pre}, coarse_sweeps={coarse_sweeps})"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        # a CUDA tensor always reports its index: "cuda" means the
-        # current device
-        device = torch.device("cuda", torch.cuda.current_device())
     return _multigrid_padded(
         nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps, impl,
         scale=scale, device=device,

@@ -43,7 +43,7 @@ def _rhs(n, seed):
 def test_cg_poisson_jacobi_matches_jax():
     nx = 15
     b = _rhs(nx * nx, 0)
-    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx)
+    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx, device="cpu")
     rj = JF.cg(Aj, jnp.asarray(b), M=jops.jacobi_preconditioner(Aj),
                tol=1e-10, maxiter=200)
     rt = F.cg(At, _t(b), M=ops.jacobi_preconditioner(At), tol=1e-10,
@@ -58,11 +58,12 @@ def test_cg_padded_multigrid_matches_jax():
                                       nx))
     kw = dict(coarsest=7, coarse_sweeps=12, pad_cols=True)
     Aj = jops.poisson_2d(nx, pad_cols=True)
-    At = ops.poisson_2d(nx, pad_cols=True)
+    At = ops.poisson_2d(nx, pad_cols=True, device="cpu")
     rj = JF.cg(Aj, jnp.asarray(bp),
                M=jops.multigrid_poisson_preconditioner(nx, **kw),
                tol=1e-10, maxiter=40)
-    rt = F.cg(At, _t(bp), M=ops.multigrid_poisson_preconditioner(nx, **kw),
+    rt = F.cg(At, _t(bp),
+              M=ops.multigrid_poisson_preconditioner(nx, device="cpu", **kw),
               tol=1e-10, maxiter=40)
     assert int(rt.status) == F.CONVERGED
     _compare(rj, rt)
@@ -71,7 +72,7 @@ def test_cg_padded_multigrid_matches_jax():
 def test_cg_maxiter_status():
     nx = 15
     b = _rhs(nx * nx, 2)
-    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx)
+    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx, device="cpu")
     rj = JF.cg(Aj, jnp.asarray(b), tol=1e-12, maxiter=7)
     rt = F.cg(At, _t(b), tol=1e-12, maxiter=7)
     assert int(rt.status) == F.MAXITER and int(rt.niter) == 7
@@ -87,7 +88,7 @@ def test_cg_x0_ml_mr_exact_solution_match_jax(explicit):
     b, x0 = _rhs(N, 3), _rhs(N, 4)
     d = np.full(N, 8.0 * (nx + 1) ** 2)
     s = 1.0 / np.sqrt(d)
-    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx)
+    Aj, At = jops.poisson_2d(nx), ops.poisson_2d(nx, device="cpu")
     lap1 = (np.diag(np.full(nx, 2.0)) - np.diag(np.ones(nx - 1), 1)
             - np.diag(np.ones(nx - 1), -1)) * (nx + 1) ** 2
     dense = np.kron(lap1, np.eye(nx)) + np.kron(np.eye(nx), lap1)
@@ -122,7 +123,7 @@ def test_cg_weighted_inner_product_matches_jax():
 def test_cg_column_rhs_shape():
     nx = 7
     b = _rhs(nx * nx, 6)[:, None]
-    rt = F.cg(ops.poisson_2d(nx), _t(b), tol=1e-10, maxiter=60)
+    rt = F.cg(ops.poisson_2d(nx, device="cpu"), _t(b), tol=1e-10, maxiter=60)
     assert tuple(rt.x.shape) == b.shape
     rj = JF.cg(jops.poisson_2d(nx), jnp.asarray(b), tol=1e-10, maxiter=60)
     _compare(rj, rt)
@@ -134,8 +135,8 @@ def test_cg_stagnation_returns_best_iterate():
     as the JAX core does."""
     nx = 31
     kw = dict(coarsest=7, coarse_sweeps=12, pad_cols=True)
-    At = ops.poisson_2d(nx, pad_cols=True)
-    Mt = ops.multigrid_poisson_preconditioner(nx, **kw)
+    At = ops.poisson_2d(nx, pad_cols=True, device="cpu")
+    Mt = ops.multigrid_poisson_preconditioner(nx, device="cpu", **kw)
     bp = np.asarray(jops.pad_grid_vec(
         jnp.asarray(_rhs(nx * nx, 7)), nx, nx)).astype(np.float32)
     common = dict(tol=1e-12, maxiter=60, stagnation_window=3,
@@ -160,7 +161,7 @@ def test_cg_stagnation_returns_best_iterate():
 
 
 def test_cg_unported_options_raise():
-    A, b = ops.poisson_2d(7), torch.ones(49, dtype=torch.float64)
+    A, b = ops.poisson_2d(7, device="cpu"), torch.ones(49, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         F.cg(A, b, variant="1r")
     for hook in ("operator_override", "projected_r0", "correct_xk",

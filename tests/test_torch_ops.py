@@ -58,7 +58,7 @@ def test_padded_poisson_matches_jax(nx, ny):
     rng = np.random.default_rng(1 + nx)
     xp = _padded(rng, nx, ny)
     Aj = jops.poisson_2d(nx, ny, pad_cols=True)
-    At = ops.poisson_2d(nx, ny, pad_cols=True)
+    At = ops.poisson_2d(nx, ny, pad_cols=True, device="cpu")
     assert At.shape == Aj.shape and At.grid == Aj.grid
     assert (At.nx_pad, At.ny_pad) == (Aj.nx_pad, Aj.ny_pad)
     np.testing.assert_array_equal(interop.to_numpy(At.diag),
@@ -74,7 +74,7 @@ def test_poisson_matches_jax(nx, ny):
     rng = np.random.default_rng(2 + nx)
     x = _grid_vec(rng, nx, ny)
     Aj = jops.poisson_2d(nx, ny)
-    At = ops.poisson_2d(nx, ny)
+    At = ops.poisson_2d(nx, ny, device="cpu")
     assert At.shape == Aj.shape
     _close64(interop.to_numpy(At(interop.from_numpy(x, "cpu"))),
              np.asarray(Aj(jnp.asarray(x))))
@@ -86,8 +86,8 @@ def test_padded_cuda_lane_float64_is_plain():
     nx = 31
     rng = np.random.default_rng(5)
     x = interop.from_numpy(_padded(rng, nx, nx), "cpu")
-    a = ops.poisson_2d(nx, pad_cols=True, impl="cuda")(x)
-    b = ops.poisson_2d(nx, pad_cols=True, impl="torch")(x)
+    a = ops.poisson_2d(nx, pad_cols=True, impl="cuda", device="cpu")(x)
+    b = ops.poisson_2d(nx, pad_cols=True, impl="torch", device="cpu")(x)
     assert a.dtype == torch.float64
     assert torch.equal(a, b)
 
@@ -96,7 +96,8 @@ def test_padded_cuda_lane_float64_is_plain():
 def test_padded_vcycle_float64_matches_jax(nx):
     kw = dict(coarsest=7, coarse_sweeps=12, pad_cols=True)
     Mj = jops.multigrid_poisson_preconditioner(nx, impl="jnp", **kw)
-    Mt = ops.multigrid_poisson_preconditioner(nx, impl="torch", **kw)
+    Mt = ops.multigrid_poisson_preconditioner(nx, impl="torch", device="cpu",
+                                              **kw)
     assert Mt.shape == Mj.shape and Mt.grid == Mj.grid
     rng = np.random.default_rng(4 + nx)
     rp = _padded(rng, nx, nx)
@@ -112,7 +113,7 @@ def test_padded_vcycle_scale_fold_matches_jax(nu_post):
     kw = dict(coarsest=7, coarse_sweeps=12, pad_cols=True, scale=s,
               nu_post=nu_post)
     Mj = jops.multigrid_poisson_preconditioner(nx, **kw)
-    Mt = ops.multigrid_poisson_preconditioner(nx, **kw)
+    Mt = ops.multigrid_poisson_preconditioner(nx, device="cpu", **kw)
     rp = _padded(np.random.default_rng(11), nx, nx)
     _close64(interop.to_numpy(Mt(interop.from_numpy(rp, "cpu"))),
              np.asarray(Mj(jnp.asarray(rp))))
@@ -129,7 +130,8 @@ def test_padded_vcycle_cuda_lane_matches_pallas(nu_post):
     kw = dict(nu_pre=2, nu_post=nu_post, coarsest=255, coarse_sweeps=2,
               pad_cols=True, scale=1.0 if nu_post == 2 else 3.0)
     Mj = jops.multigrid_poisson_preconditioner(nx, impl="pallas", **kw)
-    Mt = ops.multigrid_poisson_preconditioner(nx, impl="cuda", **kw)
+    Mt = ops.multigrid_poisson_preconditioner(nx, impl="cuda", device="cpu",
+                                              **kw)
     rp = _padded(np.random.default_rng(23), nx, nx, np.float32)
     want = np.asarray(Mj(jnp.asarray(rp)))
     got = interop.to_numpy(Mt(interop.from_numpy(rp, "cpu")))
@@ -141,7 +143,7 @@ def test_padded_vcycle_cuda_lane_matches_pallas(nu_post):
 def test_jacobi_preconditioner_matches_jax():
     nx = 15
     Aj = jops.poisson_2d(nx, pad_cols=True)
-    At = ops.poisson_2d(nx, pad_cols=True)
+    At = ops.poisson_2d(nx, pad_cols=True, device="cpu")
     rp = _padded(np.random.default_rng(6), nx, nx)
     Mt = ops.jacobi_preconditioner(At)
     assert Mt.shape == At.shape
@@ -154,7 +156,7 @@ def test_cast_matvec_keeps_system_dtype():
     """torch promotes a float64 diagonal times a float32 vector to
     float64, as JAX does; cast_matvec pins the result back to float32.
     A 0-dim float64 factor does not promote in torch at all."""
-    At = ops.poisson_2d(7, pad_cols=True)
+    At = ops.poisson_2d(7, pad_cols=True, device="cpu")
     M = ops.jacobi_preconditioner(At)
     x32 = torch.ones(At.shape[0], dtype=torch.float32)
     assert M(x32).dtype == torch.float64
@@ -179,10 +181,38 @@ def test_multigrid_rejects_unported_and_faulty_options():
     for kw in (dict(nu_pre=1), dict(nu_pre=0), dict(coarse_sweeps=0)):
         with pytest.raises(ValueError):
             ops.multigrid_poisson_preconditioner(15, pad_cols=True, **kw)
-    with pytest.raises(NotImplementedError):
-        ops.poisson_2d(15, impl="cuda")
     with pytest.raises(ValueError):
         ops.poisson_2d(15, impl="pallas")
+    with pytest.raises(ValueError):
+        ops.convection_diffusion_2d(15, impl="pallas", device="cpu")
+
+
+_CONSTRUCTORS = {
+    "poisson": lambda **kw: ops.poisson_2d(15, **kw),
+    "poisson_padded": lambda **kw: ops.poisson_2d(15, pad_cols=True, **kw),
+    "convdiff": lambda **kw: ops.convection_diffusion_2d(15, **kw),
+    "convdiff_padded": lambda **kw: ops.convection_diffusion_2d(
+        15, pad_cols=True, **kw),
+    "multigrid": lambda **kw: ops.multigrid_poisson_preconditioner(
+        15, coarsest=7, pad_cols=True, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONSTRUCTORS))
+def test_constructors_default_to_cuda(name):
+    """An operator is built on the CUDA device unless the caller asks
+    for the CPU: where torch sees no CUDA device the default raises
+    (it does not quietly build CPU tensors); where it sees one, the
+    operator's tensors lie there."""
+    make = _CONSTRUCTORS[name]
+    assert make(device="cpu").shape[0] > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        return
+    op = make()
+    x = torch.ones(op.shape[0], dtype=torch.float64, device="cuda")
+    assert op(x).device.type == "cuda"
 
 
 @pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])

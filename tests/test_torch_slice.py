@@ -48,10 +48,11 @@ def _jax_solve(nx, impl, compiled=True):
 
 
 def _torch_solve(nx, impl, compiled=True):
-    lap = ops.poisson_2d(nx)
-    lap32 = ops.poisson_2d(nx, pad_cols=True, impl=impl)
+    lap = ops.poisson_2d(nx, device="cpu")
+    lap32 = ops.poisson_2d(nx, pad_cols=True, impl=impl, device="cpu")
     M = ops.multigrid_poisson_preconditioner(
-        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl)
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl,
+        device="cpu")
 
     def inner(r32):
         r32 = ops.pad_grid_vec(r32, nx, nx)
@@ -106,7 +107,7 @@ def test_compiled_refine_warms_once():
     an operator/solver pair and reports it as warm_s; later calls are
     not warmed again."""
     nx = 31
-    lap = ops.poisson_2d(nx)
+    lap = ops.poisson_2d(nx, device="cpu")
     calls = []
 
     def inner(r32):

@@ -61,26 +61,27 @@ def cg(
     :param maxiter: iteration cap (default N).
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
+    :param operator_override: deflation hook: replaces the iteration
+      operator :math:`M_l A M_r` (the projected operator).
+    :param projected_r0: deflation hook: maps the left-preconditioned
+      initial residual to its projected form.
+    :param correct_xk: deflation hook: applied to each candidate solution
+      before its residual is evaluated, and to the returned one.
     :param stagnation_window: if > 0, stop when the relative residual has
       not improved below 99% of its best value for this many consecutive
       iterations, and return the BEST iterate (x0 itself if the residual
       never improved).
     :return: :class:`~krypy_tpu_torch.functional.common.SolveResult`.
 
-    ``variant="1r"``, ``fused_deflation`` and the deflation hooks
-    (``operator_override``, ``projected_r0``, ``correct_xk``) raise
-    ``NotImplementedError``.
+    Every hook's output is cast to the system dtype.  ``variant="1r"``
+    and ``fused_deflation`` raise ``NotImplementedError``.
     """
     if variant == "1r":
         raise NotImplementedError(f"cg variant='1r' {_NOT_PORTED}")
     if variant not in ("classic", "auto"):
         raise ValueError(f"unknown cg variant {variant!r}")
-    for name, hook in (("fused_deflation", fused_deflation),
-                       ("operator_override", operator_override),
-                       ("projected_r0", projected_r0),
-                       ("correct_xk", correct_xk)):
-        if hook is not None:
-            raise NotImplementedError(f"cg {name}= {_NOT_PORTED}")
+    if fused_deflation is not None:
+        raise NotImplementedError(f"cg fused_deflation= {_NOT_PORTED}")
 
     flat = b.ndim == 1
     bv = b.reshape(-1)
@@ -94,6 +95,11 @@ def cg(
     A_mv, M_mv, Ml_mv, Mr_mv = (
         cast_matvec(as_matvec(f), dtype) for f in (A, M, Ml, Mr)
     )
+    # the deflation hooks obey the system-dtype contract too
+    operator_override, projected_r0, correct_xk = (
+        cast_matvec(f, dtype)
+        for f in (operator_override, projected_r0, correct_xk)
+    )
     x0v = (torch.zeros(N, dtype=dtype, device=dev) if x0 is None
            else x0.reshape(-1).to(dtype))
     exact = (None if exact_solution is None
@@ -105,6 +111,8 @@ def cg(
     tol_r = np_real(tol)
 
     def MlAMr(v):
+        if operator_override is not None:
+            return operator_override(v)
         return apply(Ml_mv, A_mv(apply(Mr_mv, v)))
 
     def residual_norm(x):
@@ -113,12 +121,15 @@ def cg(
         return norm_from_pair(pair, Mlr, MMlr)
 
     def xk_of(y):
-        return x0v + apply(Mr_mv, y)
+        xk = x0v + apply(Mr_mv, y)
+        return xk if correct_xk is None else correct_xk(xk)
 
     Mlb = apply(Ml_mv, bv)
     MMlb_norm = norm_from_pair(pair, Mlb, apply(M_mv, Mlb))
 
     Mlr = apply(Ml_mv, bv - A_mv(x0v))
+    if projected_r0 is not None:
+        Mlr = projected_r0(Mlr)
     MMlr = apply(M_mv, Mlr)
     MMlr_norm = norm_from_pair(pair, Mlr, MMlr)
     rel = np_real(safe_div(MMlr_norm, MMlb_norm).item())

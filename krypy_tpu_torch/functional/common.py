@@ -73,8 +73,9 @@ def cast_matvec(mv, dtype):
 def make_inner(ip):
     """Build the inner-product forms used by the cores.
 
-    :param ip: ``None`` (Euclidean) or a matrix ``B`` (2-D tensor or
-      matvec callable exposing ``.shape``) for :math:`x^* B y`.
+    :param ip: ``None`` (Euclidean), a matrix ``B`` (2-D tensor or
+      matvec callable exposing ``.shape``) for :math:`x^* B y`, or a
+      scalar callable ``ip(x, y)`` on 1-D vectors.
     :return: ``(pair, rows)``: ``pair(x, y) -> 0-dim tensor`` and
       ``rows(V, w) -> (m,)`` for every row of ``V``.
     """
@@ -98,10 +99,16 @@ def make_inner(ip):
 
         return pair, rows
 
-    raise NotImplementedError(
-        "scalar-callable inner products are not ported yet "
-        "(ROADMAP.md queue A, slice 3)"
-    )
+    if callable(ip):
+        def pair(x, y):
+            return ip(x, y)
+
+        def rows(V, w):
+            return torch.stack([ip(v, w) for v in V])
+
+        return pair, rows
+
+    raise TypeError(f"cannot interpret inner product of type {type(ip)}")
 
 
 def norm_from_pair(pair, x, y=None):

@@ -1,6 +1,8 @@
 """Preconditioned GMRES and restarted GMRES (counterpart of
-:mod:`krypy_tpu.functional.gmres`, the ``cgs2`` and ``cgs2_fused``
-schemes).
+:mod:`krypy_tpu.functional.gmres`: the batched classical Gram-Schmidt
+schemes ``cgs``/``cgs2``, their kernel forms ``cgs_pallas``/``cgs2_pallas``
+and ``cgs2_fused``, the dual basis of ``M``, the deflation hooks and
+``return_internal``).
 
 The JAX core runs a solve as one ``lax.while_loop``.  Here the same body
 runs as a plain Python loop, as :mod:`~krypy_tpu_torch.functional.cg`
@@ -12,20 +14,23 @@ the explicit residual (read on the iterations where the JAX body
 computes it).  Every stop rule is compared in the system's real dtype,
 so the iteration counts agree with the JAX package.
 
-The Krylov basis lives in a zeroed ``(maxiter+1, N)`` row-major buffer.
-``ortho="cgs2"`` sweeps the whole buffer with masked rows (two passes of
-batched classical Gram-Schmidt); ``ortho="cgs2_fused"`` runs the three
-prefix-sweep kernels of :mod:`krypy_tpu_torch.kernels.orthogonalize` over
-the ``k + 1`` active rows only.  The JAX package's static prefix buckets
-are not ported: ``rows`` is a run-time argument, and the rows past ``k``
-that a bucket adds are zero with zero mask, so the arithmetic is the
-same.
+The Krylov basis lives in a zeroed ``(maxiter+1, N)`` row-major buffer
+``V``; with ``M`` a second one, the dual basis ``P`` with ``V = M P``,
+along which the projections subtract.  ``ortho="cgs"``/``"cgs2"`` sweep
+the whole buffer with masked rows (one or two passes of batched classical
+Gram-Schmidt); the kernel schemes of
+:mod:`krypy_tpu_torch.kernels.orthogonalize` read the ``k + 1`` active
+rows only: ``"cgs_pallas"``/``"cgs2_pallas"`` run K7 (``cgs_project``)
+once or twice, ``"cgs2_fused"`` the three prefix sweeps K4-K6.  The JAX
+package's static prefix buckets and full-height masked kernel sweep are
+not ported: ``rows`` is a run-time argument, and the rows past ``k`` are
+zero with zero mask, so the arithmetic is the same.
 """
 
 import numpy as np
 import torch
 
-from ..kernels.orthogonalize import cgs2_fused, max_rows
+from ..kernels.orthogonalize import cgs2_fused, cgs_project, max_rows
 from .common import (
     BREAKDOWN,
     CONVERGED,
@@ -45,30 +50,42 @@ from .common import (
 __all__ = ["gmres", "restarted_gmres"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A, item 7)"
+#: Gram-Schmidt passes per iteration of each ported scheme
+_PASSES = {"cgs": 1, "cgs2": 2, "cgs_pallas": 1, "cgs2_pallas": 2,
+           "cgs2_fused": 2}
+#: the schemes that run a kernel, and the kernel whose row limit binds
+_KERNEL_OF = {"cgs_pallas": "cgs_project", "cgs2_pallas": "cgs_project",
+              "cgs2_fused": "apply_project"}
 #: the JAX package's other schemes
-_UNPORTED_ORTHO = ("cgs", "mgs", "dmgs", "bmgs", "bmgs2", "cgs_pallas",
-                   "cgs2_pallas", "cgs2_1r")
+_UNPORTED_ORTHO = ("mgs", "dmgs", "bmgs", "bmgs2", "cgs2_1r")
 
 
-def _resolve_ortho(ortho, dtype, device, rows):
+def _resolve_ortho(ortho, dtype, device, rows, with_M=False):
     """The port's ``ortho="auto"`` rule: ``cgs2_fused`` for a float32
     system on a CUDA device whose ``rows``-row basis fits the kernels
-    (Euclidean inner product, no ``M``, no ``basis_dtype``: the only
-    forms ported), ``cgs2`` otherwise.  An explicit ``cgs2_fused`` on a
-    CUDA device with a basis taller than the kernels take raises here,
-    before the first iteration."""
-    limit = max_rows(torch.empty(0, dtype=dtype).element_size())
+    (Euclidean inner product, no ``M``, no ``basis_dtype``), ``cgs2``
+    otherwise.  An explicit kernel scheme on a CUDA device with a basis
+    taller than its kernels take raises here, before the first
+    iteration; so does ``cgs2_fused`` with ``M`` (it has no dual-basis
+    form)."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
     if ortho == "auto":
         if dtype == torch.float32 and device.type == "cuda" and \
-                rows <= limit:
+                not with_M and rows <= max_rows(itemsize):
             return "cgs2_fused"
         return "cgs2"
-    if ortho == "cgs2_fused" and device.type == "cuda" and rows > limit:
+    if ortho == "cgs2_fused" and with_M:
         raise ValueError(
-            f"gmres ortho='cgs2_fused': a basis of maxiter + 1 = {rows} rows "
-            f"exceeds the kernels' {limit} at {dtype}; use ortho='cgs2' or "
-            f"a smaller maxiter")
-    if ortho in ("cgs2", "cgs2_fused"):
+            "ortho='cgs2_fused' does not support the dual-basis form "
+            "required by M; use ortho='cgs2' or 'cgs2_pallas'")
+    if ortho in _KERNEL_OF and device.type == "cuda":
+        limit = max_rows(itemsize, _KERNEL_OF[ortho])
+        if rows > limit:
+            raise ValueError(
+                f"gmres ortho={ortho!r}: a basis of maxiter + 1 = {rows} "
+                f"rows exceeds the kernels' {limit} at {dtype}; use "
+                f"ortho='cgs2' or a smaller maxiter")
+    if ortho in _PASSES:
         return ortho
     if ortho in _UNPORTED_ORTHO:
         raise NotImplementedError(f"gmres ortho={ortho!r} {_NOT_PORTED}")
@@ -98,48 +115,66 @@ def gmres(
     basis_dtype=None,
     fused_deflation=None,
 ):
-    r"""Solve :math:`M_l A M_r y = M_l b`, :math:`x = M_r y` with
+    r"""Solve :math:`M M_l A M_r y = M M_l b`, :math:`x = M_r y` with
     preconditioned GMRES.
 
     :param A: matvec callable or 2-D tensor.
     :param b: right-hand side ``(N,)`` (or ``(N, 1)``, returned likewise);
       its dtype (promoted with ``x0``'s) is the system dtype.
+    :param M: optional preconditioner that changes the inner product
+      (self-adjoint, positive definite): the Krylov basis is orthonormal
+      in :math:`\langle x, M^{-1} y\rangle`, kept as two bases
+      ``V = M P``.
     :param Ml,Mr: optional left/right preconditioner matvecs.
     :param x0: optional initial guess.
-    :param tol: relative residual tolerance (of the left-preconditioned
+    :param tol: relative residual tolerance (of the preconditioned
       residual).
     :param maxiter: iteration cap, which is also the basis height (default
       N).
-    :param ortho: ``"cgs2"`` (two passes of batched CGS over the full
-      buffer), ``"cgs2_fused"`` (K4 -> K5 -> K6 over the active prefix) or
-      ``"auto"``: ``"cgs2_fused"`` for a float32 system on a CUDA device
-      whose ``maxiter + 1`` basis rows fit the kernels (at most
+    :param ortho: ``"cgs"``/``"cgs2"`` (one/two passes of batched CGS over
+      the full buffer), ``"cgs_pallas"``/``"cgs2_pallas"`` (K7 once/twice
+      over the active prefix; the kernel schemes that take ``M`` and the
+      capture hook), ``"cgs2_fused"`` (K4 -> K5 -> K6 over the active
+      prefix; no ``M``) or ``"auto"``: ``"cgs2_fused"`` for a float32
+      system without ``M`` on a CUDA device whose ``maxiter + 1`` basis
+      rows fit the kernels (at most
       :func:`~krypy_tpu_torch.kernels.orthogonalize.max_rows`, 1709 in
-      float32), ``"cgs2"`` otherwise (the only eligible forms: Euclidean
-      inner product, no ``M``, no ``basis_dtype``).  ``"cgs2_fused"`` on
-      a CUDA device with a taller basis raises ``ValueError``.
+      float32), ``"cgs2"`` otherwise.  A kernel scheme on a CUDA device
+      with a taller basis than its kernels take raises ``ValueError``.
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
     :param progress: print the relative residual of each iteration.
-    :return: :class:`~krypy_tpu_torch.functional.common.SolveResult`;
-      ``status`` is CONVERGED, MAXITER, or BREAKDOWN when the Krylov space
-      became invariant.
+    :param operator_with_capture: deflation hook: replaces the iteration
+      operator with a callable ``v -> (w, cap)``; ``cap`` (shape
+      ``(capture_width,)``) is recorded per iteration into row k of the
+      ``C`` buffer (the Gram column :math:`\langle U, M_l A M_r
+      v_k\rangle`).
+    :param projected_r0: deflation hook: maps the left-preconditioned
+      initial residual to its projected form.
+    :param correct_xk: deflation hook: applied to each candidate solution
+      before its residual is evaluated, and to the returned one.
+    :param return_internal: also return the final state as a dictionary
+      with the JAX package's keys: ``V``, ``P`` (None without ``M``), the
+      raw Hessenberg ``H``, the rotated ``R``, ``y``, ``C``,
+      ``MMlr0_norm``, ``MMlb_norm``.
+    :return: :class:`~krypy_tpu_torch.functional.common.SolveResult`
+      (and the dictionary, with ``return_internal``); ``status`` is
+      CONVERGED, MAXITER, or BREAKDOWN when the Krylov space became
+      invariant.
 
-    ``M``, ``ip``, ``basis_dtype``, the deflation hooks
-    (``operator_with_capture``/``capture_width``, ``projected_r0``,
-    ``correct_xk``, ``fused_deflation``), ``return_internal`` and the
-    other ``ortho`` schemes raise ``NotImplementedError``.
+    Every hook's output is cast to the system dtype.  ``ip`` with a
+    kernel scheme raises ``ValueError``; ``ip`` otherwise,
+    ``basis_dtype``, ``fused_deflation`` and the other ``ortho`` schemes
+    raise ``NotImplementedError``.
     """
-    for name, val in (("M", M), ("ip", ip), ("basis_dtype", basis_dtype),
-                      ("operator_with_capture", operator_with_capture),
-                      ("projected_r0", projected_r0),
-                      ("correct_xk", correct_xk),
+    if ip is not None and ortho in _KERNEL_OF:
+        raise ValueError(
+            "the kernel orthogonalization schemes support the Euclidean "
+            "inner product only; use ortho='cgs2' with ip")
+    for name, val in (("ip", ip), ("basis_dtype", basis_dtype),
                       ("fused_deflation", fused_deflation)):
         if val is not None:
             raise NotImplementedError(f"gmres {name}= {_NOT_PORTED}")
-    if capture_width or return_internal:
-        raise NotImplementedError(
-            f"gmres capture_width/return_internal {_NOT_PORTED}")
 
     flat = b.ndim == 1
     bv = b.reshape(-1)
@@ -147,13 +182,19 @@ def gmres(
     m = N if maxiter is None else int(maxiter)
     dev = bv.device
     dtype = system_dtype(bv, x0)
-    ortho = _resolve_ortho(ortho, dtype, dev, m + 1)
+    with_M = M is not None
+    ortho = _resolve_ortho(ortho, dtype, dev, m + 1, with_M)
+    passes = _PASSES[ortho]
 
     pair, rows = make_inner(None)
     bv = bv.to(dtype)
-    A_mv, Ml_mv, Mr_mv = (
-        cast_matvec(as_matvec(f), dtype) for f in (A, Ml, Mr)
+    A_mv, M_mv, Ml_mv, Mr_mv = (
+        cast_matvec(as_matvec(f), dtype) for f in (A, M, Ml, Mr)
     )
+    # the deflation hooks obey the system-dtype contract too (they can
+    # close over wider operators and bases)
+    projected_r0 = cast_matvec(projected_r0, dtype)
+    correct_xk = cast_matvec(correct_xk, dtype)
     x0v = (torch.zeros(N, dtype=dtype, device=dev) if x0 is None
            else x0.reshape(-1).to(dtype))
     exact = (None if exact_solution is None
@@ -165,24 +206,42 @@ def gmres(
     tol_r = np_real(tol)
     brk = breakdown_threshold(dtype)
 
-    def MlAMr(v):
-        return apply(Ml_mv, A_mv(apply(Mr_mv, v)))
+    def iteration_op(v):
+        """The operator that drives the Arnoldi iteration (projected when
+        deflating) and the captured Gram column, if any."""
+        if operator_with_capture is not None:
+            w, cap = operator_with_capture(v)
+            return w.to(dtype), cap.to(dtype)
+        return apply(Ml_mv, A_mv(apply(Mr_mv, v))), None
 
     def residual_norm(x):
-        return norm_from_pair(pair, apply(Ml_mv, bv - A_mv(x)))
+        Mlr = apply(Ml_mv, bv - A_mv(x))
+        return norm_from_pair(pair, Mlr, apply(M_mv, Mlr))
 
-    MMlb_norm = norm_from_pair(pair, apply(Ml_mv, bv))
+    Mlb = apply(Ml_mv, bv)
+    MMlb_norm = norm_from_pair(pair, Mlb, apply(M_mv, Mlb))
     Mlr0 = apply(Ml_mv, bv - A_mv(x0v))
-    MMlr0_norm = norm_from_pair(pair, Mlr0)
+    if projected_r0 is not None:
+        Mlr0 = projected_r0(Mlr0)
+    MMlr0 = apply(M_mv, Mlr0)
+    MMlr0_norm = norm_from_pair(pair, Mlr0, MMlr0)
     rel0 = safe_div(MMlr0_norm, MMlb_norm)
 
+    v0 = ((MMlr0_norm > 0).to(real_dtype)
+          * safe_div(torch.ones_like(MMlr0_norm), MMlr0_norm))
     V = torch.zeros((m + 1, N), dtype=dtype, device=dev)
-    V[0] = Mlr0 * ((MMlr0_norm > 0).to(real_dtype)
-                   * safe_div(torch.ones_like(MMlr0_norm), MMlr0_norm))
+    V[0] = MMlr0 * v0
+    P = None
+    if with_M:
+        P = torch.zeros((m + 1, N), dtype=dtype, device=dev)
+        P[0] = Mlr0 * v0
+    basis = P if with_M else V
+    H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
     R = torch.zeros((m + 1, m), dtype=dtype, device=dev)
     Q = torch.eye(m + 1, dtype=dtype, device=dev)
     y = torch.zeros(m + 1, dtype=dtype, device=dev)
     y[0] = MMlr0_norm.to(dtype)
+    C = torch.zeros((m, int(capture_width)), dtype=dtype, device=dev)
     hsq = torch.zeros((), dtype=real_dtype, device=dev)
     row_idx = torch.arange(m + 1, device=dev)
 
@@ -190,23 +249,30 @@ def gmres(
         """x_k = x0 + Mr (V[:m]^T yy) with a masked triangular solve of
         the leading kk x kk system: rows/columns >= kk get a unit diagonal
         and a zero right-hand side, so the fixed-shape solve yields the
-        exact kk-dimensional solution."""
+        exact kk-dimensional solution; then the deflation correction."""
         col_mask = row_idx[:m] < kk
         Rk = R[:m, :m] + torch.diag(
             torch.where(col_mask, 0.0, 1.0).to(dtype))
         rhs = torch.where(col_mask, y[:m], 0.0)
         yy = torch.linalg.solve_triangular(Rk, rhs[:, None], upper=True)
-        return x0v + apply(Mr_mv, yy[:, 0] @ V[:m])
+        xk = x0v + apply(Mr_mv, yy[:, 0] @ V[:m])
+        return xk if correct_xk is None else correct_xk(xk)
 
     def orthogonalize(w, k):
-        """``(w_orth, h)``: two Gram-Schmidt passes against rows 0..k."""
+        """``(w_orth, h)``: ``passes`` Gram-Schmidt passes against rows
+        0..k of V, subtracting along the dual basis P when M is
+        present."""
         mask = (row_idx <= k).to(real_dtype)
         if ortho == "cgs2_fused":
             return cgs2_fused(V, w.contiguous(), mask, rows=k + 1)
         h = torch.zeros(m + 1, dtype=dtype, device=dev)
-        for _ in range(2):
-            coeffs = rows(V, w) * mask
-            w = w - coeffs @ V
+        for _ in range(passes):
+            if ortho in ("cgs_pallas", "cgs2_pallas"):
+                w, coeffs = cgs_project(V, w.contiguous(), mask, basis,
+                                        rows=k + 1)
+            else:
+                coeffs = rows(V, w) * mask
+                w = w - coeffs @ basis
             h = h + coeffs
         return w, h
 
@@ -224,8 +290,12 @@ def gmres(
 
     k = 0
     while rel > tol_r and k < m and not invariant:
-        w, h = orthogonalize(MlAMr(V[k]), k)
-        hnew = norm_from_pair(pair, w)
+        w, cap = iteration_op(V[k])
+        if cap is not None and capture_width > 0:
+            C[k] = cap
+        w, h = orthogonalize(w, k)
+        Mw = apply(M_mv, w)
+        hnew = norm_from_pair(pair, w, Mw)
         # invariance detection on the relative subdiagonal, with the
         # Frobenius norm of H carried incrementally
         hsq = hsq + torch.sum(h.abs() ** 2) + hnew ** 2
@@ -233,7 +303,10 @@ def gmres(
         h[k + 1] = hnew.to(dtype)
         inv_h = torch.where(inv_t, 0.0,
                             safe_div(torch.ones_like(hnew), hnew))
-        V[k + 1] = w * inv_h
+        V[k + 1] = Mw * inv_h
+        if with_M:
+            P[k + 1] = w * inv_h
+        H[:, k] = h
 
         # the k previous rotations in ONE small matvec against their
         # accumulated product (rows >= k of Q are still identity)
@@ -279,13 +352,19 @@ def gmres(
         err_t = torch.full((m + 1,), float("nan"), dtype=real_dtype,
                            device=dev)
         err_t[: len(errs)] = torch.stack(errs)
-    return SolveResult(
+    result = SolveResult(
         x=x if flat else x[:, None],
         resnorms=res_t,
         niter=torch.tensor(k, dtype=torch.int64, device=dev),
         status=torch.tensor(status, dtype=torch.int64, device=dev),
         errnorms=err_t,
     )
+    if return_internal:
+        return result, {
+            "V": V, "P": P, "H": H, "R": R, "y": y, "C": C,
+            "MMlr0_norm": MMlr0_norm, "MMlb_norm": MMlb_norm,
+        }
+    return result
 
 
 def restarted_gmres(A, b, *, max_restarts=0, maxiter=None, tol=1e-5,

@@ -46,6 +46,9 @@ for _sfx in ("f32", "f64"):
         f"krypy_apply_project_{_sfx}": [_P] * 7 + [_L] + [_I] * 4 + [_P],
         # V, w, c, out, N, rows, blocks, threads, stream
         f"krypy_update_prefix_{_sfx}": [_P] * 4 + [_L] + [_I] * 3 + [_P],
+        # V, B, w, mask, partial, w_out, coeffs, N, rows, m, blocks,
+        # threads, stream
+        f"krypy_cgs_project_{_sfx}": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     })
 
 _lib = None

@@ -17,6 +17,7 @@ LAUNCHES = {
     "project_prefix": 0,
     "apply_project": 0,
     "update_prefix": 0,
+    "cgs_project": 0,
 }
 
 

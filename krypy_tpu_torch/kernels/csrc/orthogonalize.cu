@@ -1,6 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels for the fused two-pass classical
-// Gram-Schmidt (CGS2) of the GMRES basis: the three prefix-sweep kernels
-// that ortho="cgs2_fused" composes, K4 -> K5 -> K6.
+// Hand-written Hopper (sm_90a) kernels for the classical Gram-Schmidt
+// orthogonalization of the GMRES basis: the three prefix-sweep kernels
+// that ortho="cgs2_fused" composes, K4 -> K5 -> K6, and the two-phase
+// projection K7 (cgs_project) behind ortho="cgs_pallas"/"cgs2_pallas",
+// which may subtract along a second (dual) basis.
 //
 // Layout: V is a row-major (m, N) basis; only its leading `rows` rows
 // (the active Krylov prefix, a run-time argument) are read, straight out
@@ -55,8 +57,9 @@ __device__ __forceinline__ void write_block_partials(const T* wacc,
   }
 }
 
-// K4, first pass.  Replaces krypy_tpu/kernels/orthogonalize.py:
-// project_prefix (_project_prefix_kernel): the per-block partials of
+// K4, first pass, and phase 0 of K7.  Replaces
+// krypy_tpu/kernels/orthogonalize.py:project_prefix
+// (_project_prefix_kernel): the per-block partials of
 //   c_r = sum_n V[r, n] w[n],  r < rows.
 //
 // Bound: device memory.  It reads the V prefix once (rows * N elements)
@@ -68,10 +71,10 @@ __device__ __forceinline__ void write_block_partials(const T* wacc,
 // measured slower on the H100.)  Left for later: 16-byte vector loads and
 // a TMA/cp.async pipeline.
 template <typename T>
-__global__ void project_partial_kernel(const T* __restrict__ V,
-                                       const T* __restrict__ w,
-                                       T* __restrict__ partial, int64_t N,
-                                       int rows) {
+__device__ __forceinline__ void project_partials(const T* __restrict__ V,
+                                                 const T* __restrict__ w,
+                                                 T* __restrict__ partial,
+                                                 int64_t N, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* wacc = reinterpret_cast<T*>(smem_raw);  // [nwarps][rows]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -103,7 +106,15 @@ __global__ void project_partial_kernel(const T* __restrict__ V,
   write_block_partials(wacc, partial, rows, nwarps);
 }
 
-// Second pass of K4 and K5: c[r] = (sum over blocks of partial[b][r]) *
+template <typename T>
+__global__ void project_partial_kernel(const T* __restrict__ V,
+                                       const T* __restrict__ w,
+                                       T* __restrict__ partial, int64_t N,
+                                       int rows) {
+  project_partials(V, w, partial, N, rows);
+}
+
+// Second pass of K4, K5 and K7: c[r] = (sum over blocks of partial[b][r]) *
 // mask[r] for r < rows, c[r] = 0 for rows <= r < m.  One block per r; each
 // thread adds a strided run of blocks in order, then a fixed shared-memory
 // tree.  The mask multiplies the finished sum (the Pallas kernels multiply
@@ -184,18 +195,20 @@ __global__ void apply_project_partial_kernel(const T* __restrict__ V,
   write_block_partials(wacc, partial, rows, nwarps);
 }
 
-// K6.  Replaces krypy_tpu/kernels/orthogonalize.py:update_prefix
-// (_update_kernel):  out = w - sum_r c[r] V[r, :].
+// K6, and phase 1 of K7.  Replaces
+// krypy_tpu/kernels/orthogonalize.py:update_prefix (_update_kernel):
+//   out = w - sum_r c[r] V[r, :].
 //
 // Bound: device memory, (rows + 2) * N elements (the V prefix and w
 // read once, out written once), 2 flops per V element.  Purely
 // column-parallel: one thread per column, c broadcast from shared
 // memory, no reduction.
 template <typename T>
-__global__ void update_kernel(const T* __restrict__ V,
-                              const T* __restrict__ w,
-                              const T* __restrict__ c, T* __restrict__ out,
-                              int64_t N, int rows) {
+__device__ __forceinline__ void update_columns(const T* __restrict__ V,
+                                               const T* __restrict__ w,
+                                               const T* __restrict__ c,
+                                               T* __restrict__ out,
+                                               int64_t N, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);  // [rows]
   for (int i = threadIdx.x; i < rows; i += blockDim.x) cs[i] = c[i];
@@ -210,6 +223,39 @@ __global__ void update_kernel(const T* __restrict__ V,
   }
 }
 
+template <typename T>
+__global__ void update_kernel(const T* __restrict__ V,
+                              const T* __restrict__ w,
+                              const T* __restrict__ c, T* __restrict__ out,
+                              int64_t N, int rows) {
+  update_columns(V, w, c, out, N, rows);
+}
+
+// K7.  Replaces krypy_tpu/kernels/orthogonalize.py:cgs_project (_kernel):
+// one classical Gram-Schmidt pass with an optional dual basis,
+//   c_r = (sum_n V[r, n] w[n]) * mask[r],   w' = w - sum_r c_r B[r, :],
+// r < rows, where B is V itself or a second (m, N) basis (GMRES with an
+// inner-product-changing preconditioner M keeps V = M B).
+//
+// The Pallas kernel is ONE call over a (2, n_tiles) grid that walks its
+// column tiles in order and carries c in a VMEM scratch from phase 0 to
+// phase 1.  Hopper's blocks run side by side and share nothing, so the
+// sum over column tiles is a step of its own: phase 0 writes per-block
+// partials (K4's sweep of V), a fixed-order second pass sums them into
+// the coefficient output (masked, zero past `rows`, so the caller can add
+// it to a full-height Hessenberg column), and phase 1 is column-parallel
+// over B with c in shared memory (K6's sweep).  Three launches on one
+// stream; no float atomics, so a repeated call gives the same bits.
+//
+// Bound: device memory, 4 flops per basis element.  The function must
+// move (2 rows + 2) * N elements with a dual basis (the V and B prefixes
+// and w read once, w' written once) and (rows + 2) * N with B = V; this
+// design sweeps twice, so it moves (2 rows + 3) * N either way (w is read
+// in both phases, and with B = V the prefix too: at 26 x 4096^2 it is far
+// larger than the L2).  Left for later: one cooperative launch with a
+// grid-wide barrier between the phases, 16-byte loads, a TMA pipeline.
+// The host function cgs_project below launches K4's project_partial_kernel,
+// reduce_partials_kernel and K6's update_kernel.
 template <typename T>
 size_t apply_project_smem(int rows, int threads) {
   return sizeof(T) * (size_t)rows * (1 + threads / 32 + threads);
@@ -271,6 +317,30 @@ int update_prefix(const T* V, const T* w, const T* c, T* out, long long N,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int cgs_project(const T* V, const T* B, const T* w, const T* mask,
+                T* partial, T* w_out, T* coeffs, long long N, int rows,
+                int m, int blocks, int threads, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem0 = sizeof(T) * (size_t)(threads / 32) * rows;
+  const size_t smem1 = sizeof(T) * (size_t)rows;
+  cudaError_t err = allow_smem(project_partial_kernel<T>, smem0);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(update_kernel<T>, smem1);
+  if (err != cudaSuccess) return (int)err;
+  project_partial_kernel<T><<<blocks, threads, smem0, s>>>(
+      V, w, partial, (int64_t)N, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(partial, blocks,
+                                                          rows, mask, coeffs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  update_kernel<T><<<blocks, threads, smem1, s>>>(
+      B, w, coeffs, w_out, (int64_t)N, rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -294,6 +364,13 @@ extern "C" {
                                    T* out, long long N, int rows, int blocks, \
                                    int threads, void* stream) {               \
     return update_prefix<T>(V, w, c, out, N, rows, blocks, threads, stream);  \
+  }                                                                           \
+  int krypy_cgs_project_##SUFFIX(const T* V, const T* B, const T* w,          \
+                                 const T* mask, T* partial, T* w_out,         \
+                                 T* coeffs, long long N, int rows, int m,     \
+                                 int blocks, int threads, void* stream) {     \
+    return cgs_project<T>(V, B, w, mask, partial, w_out, coeffs, N, rows, m,  \
+                          blocks, threads, stream);                           \
   }
 
 KRYPY_ORTHO_ENTRIES(float, f32)

@@ -1,9 +1,10 @@
-"""Prefix-sweep CGS2 kernels: CUDA wrappers and their plain PyTorch
-versions.
+"""Gram-Schmidt kernels of the GMRES basis: CUDA wrappers and their plain
+PyTorch versions.
 
-Counterparts of the three Pallas kernels in
-``krypy_tpu/kernels/orthogonalize.py`` that ``ortho="cgs2_fused"`` runs,
-over the leading ``rows`` rows of a row-major ``(m, N)`` basis ``V``:
+Counterparts of the Pallas kernels in
+``krypy_tpu/kernels/orthogonalize.py``.  The three that
+``ortho="cgs2_fused"`` runs, over the leading ``rows`` rows of a
+row-major ``(m, N)`` basis ``V``:
 
 * :func:`project_prefix` (K4): ``c = (conj(V[:rows]) w) * mask``, one
   sweep of the prefix;
@@ -13,8 +14,15 @@ over the leading ``rows`` rows of a row-major ``(m, N)`` basis ``V``:
 * :func:`update_prefix` (K6): ``w - c[:rows]^T V[:rows]``;
 
 and :func:`cgs2_fused`, their composition K4 -> K5 -> K6: two-pass
-classical Gram-Schmidt in three sweeps of the prefix.  Coefficient
-vectors have length m, zero past ``rows``.
+classical Gram-Schmidt in three sweeps of the prefix.  And the one behind
+``ortho="cgs_pallas"``/``"cgs2_pallas"``:
+
+* :func:`cgs_project` (K7): one classical Gram-Schmidt pass, ``c =
+  (conj(V[:rows]) w) * mask`` and ``w - c^T B[:rows]`` with ``B`` either
+  ``V`` or a second (dual) basis, the only kernel that serves GMRES with
+  an inner-product-changing preconditioner ``M`` (``V = M B``).
+
+Coefficient vectors have length m, zero past ``rows``.
 
 ``rows`` is a run-time argument (the JAX package's static prefix buckets
 and Mosaic tile rules are not ported), and N needs no particular
@@ -33,6 +41,8 @@ __all__ = [
     "apply_project",
     "update_prefix",
     "cgs2_fused",
+    "cgs_project",
+    "cgs_project_torch",
     "project_prefix_torch",
     "apply_project_torch",
     "update_prefix_torch",
@@ -58,10 +68,12 @@ _SMEM_MAX = 232448
 def _smem(kernel, rows, threads, itemsize):
     """Dynamic shared memory of one block, as ``orthogonalize.cu`` asks
     for it: K4 the warp totals, K5 also the coefficients and the staged
-    column tile, K6 the coefficients."""
+    column tile, K6 the coefficients, K7 the larger of its two phases'
+    (K4's)."""
     per_row = {"project_prefix": threads // 32,
                "apply_project": 1 + threads // 32 + threads,
-               "update_prefix": 1}[kernel]
+               "update_prefix": 1,
+               "cgs_project": threads // 32}[kernel]
     return itemsize * rows * per_row
 
 
@@ -80,20 +92,23 @@ def launch_config(N, rows, itemsize, kernel):
     if _smem(kernel, rows, threads, itemsize) > _SMEM_MAX:
         raise ValueError(
             f"{kernel}: rows={rows} do not fit one block's shared memory "
-            f"at {itemsize}-byte elements (at most {max_rows(itemsize)} "
-            f"rows for the three kernels)"
+            f"at {itemsize}-byte elements (at most "
+            f"{max_rows(itemsize, kernel)} rows)"
         )
     blocks = max(1, min(-(-N // threads), MAX_BLOCKS))
     return blocks, threads
 
 
-def max_rows(itemsize):
-    """The tallest prefix that all three kernels launch on at
-    ``itemsize``-byte elements: 1709 float32 or 854 float64 rows.  K5's
-    staged tile at its smallest block (one warp) is the binding limit;
-    a GMRES basis of ``maxiter + 1`` rows above it cannot run
-    ``cgs2_fused`` on the card."""
-    return _SMEM_MAX // _smem("apply_project", 1, 32, itemsize)
+def max_rows(itemsize, kernel="apply_project"):
+    """The tallest prefix that ``kernel`` launches on at
+    ``itemsize``-byte elements.  The default is the limit of the three
+    prefix sweeps together, 1709 float32 or 854 float64 rows: K5's staged
+    tile at its smallest block (one warp) binds, and a GMRES basis of
+    ``maxiter + 1`` rows above it cannot run ``cgs2_fused`` on the card.
+    ``"cgs_project"`` (K7, its phase 0 at full block width) takes 7264
+    float32 or 3632 float64 rows."""
+    threads = 32 if kernel == "apply_project" else THREADS
+    return _SMEM_MAX // _smem(kernel, 1, threads, itemsize)
 
 
 def _check(name, V, rows, vecs, coeffs):
@@ -157,6 +172,14 @@ def apply_project_torch(V, w, c, mask, rows):
 def update_prefix_torch(V, w, c, rows):
     """Plain version of K6: ``w - c[:rows] @ V[:rows]``."""
     return w - c[:rows] @ V[:rows]
+
+
+def cgs_project_torch(V, w, mask, basis, rows):
+    """Plain version of K7: ``(w - c @ basis[:rows], c padded to m)``
+    with ``c = (conj(V[:rows]) w) * mask[:rows]``; two products in the
+    input's dtype."""
+    c = (V[:rows].conj() @ w) * mask[:rows]
+    return w - c @ basis[:rows], _padded(c, V.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -238,3 +261,37 @@ def cgs2_fused(V, w, mask, *, rows=None):
     c1 = project_prefix(V, w, mask, rows=rows)
     w1, c2 = apply_project(V, w, c1, mask, rows=rows)
     return update_prefix(V, w1, c2, rows=rows), c1 + c2
+
+
+def cgs_project(V, w, mask, basis=None, *, rows=None):
+    """K7: one classical Gram-Schmidt projection pass over the leading
+    ``rows`` rows, ``c = (conj(V[:rows]) w) * mask`` and ``w_orth = w -
+    c^T B[:rows]``; returns ``(w_orth, c)`` with ``c`` of length m, zero
+    past ``rows``.  ``basis`` is the ``(m, N)`` basis to subtract along
+    (default ``V``; the dual basis P of GMRES with ``M``, where ``V = M
+    P``).  Counterpart of ``krypy_tpu.kernels.orthogonalize.cgs_project``;
+    ``rows`` (default m) replaces its full-height masked sweep."""
+    mask = _mask(mask, V)
+    B = V if basis is None else basis
+    rows, cuda = _check("cgs_project", V, rows, (w,), (mask,))
+    if B.shape != V.shape or B.dtype != V.dtype or B.device != V.device \
+            or not B.is_contiguous():
+        raise ValueError(
+            "cgs_project: basis must be contiguous and match V's shape, "
+            f"dtype and device, got {tuple(B.shape)} {B.dtype} {B.device}")
+    if not cuda:
+        return cgs_project_torch(V, w, mask, B, rows)
+    m, N = V.shape
+    blocks, threads = launch_config(N, rows, V.element_size(),
+                                   "cgs_project")
+    partial = torch.empty(blocks * rows, dtype=V.dtype, device=V.device)
+    w_out = torch.empty(N, dtype=V.dtype, device=V.device)
+    c = torch.empty(m, dtype=V.dtype, device=V.device)
+    _launch(
+        "cgs_project", f"krypy_cgs_project_{_SUFFIX[V.dtype]}",
+        (V.data_ptr(), B.data_ptr(), w.data_ptr(), mask.data_ptr(),
+         partial.data_ptr(), w_out.data_ptr(), c.data_ptr(), N, rows, m,
+         blocks, threads),
+        V.device,
+    )
+    return w_out, c

@@ -1,7 +1,7 @@
 """How the card holds a kernel against its plain version: the tolerances
 that ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use, and the
-faults that the prefix-sweep check must reject.  Nothing here launches a
-kernel; it only compares tensors.
+faults that the prefix-sweep and projection checks must reject.  Nothing
+here launches a kernel; it only compares tensors.
 
 Stencil kernels K1-K3 (:func:`fma_atol`): nvcc contracts multiply-adds to
 FMA, which skips roundings the plain version makes, so the two differ by
@@ -24,11 +24,17 @@ float64 value.
     float32-summed coefficient misses it by orders of magnitude
     (:meth:`PrefixCheck.faults` plants each).  The mask scales the
     tolerance, so a masked-out coefficient must be exactly 0.
+
+The projection pass K7 (:class:`ProjectCheck`): its coefficients as K4's,
+and ``w - c B[:rows]`` elementwise as above, with ``c`` the coefficients
+that came with it (the kernel applies its own), so that a wrong basis, a
+dropped row or a foreign coefficient vector shows in ``w'`` while the
+coefficients' own summation error does not.
 """
 
 import torch
 
-__all__ = ["fma_atol", "PrefixCheck"]
+__all__ = ["fma_atol", "PrefixCheck", "ProjectCheck"]
 
 
 def fma_atol(want, want64):
@@ -38,6 +44,13 @@ def fma_atol(want, want64):
     the same plain version in float64, ``want64``)."""
     own = float((want.double() - want64).abs().max())
     return max(2e-7 * float(want.abs().max()), 4.0 * own)
+
+
+def _padded32_sum(V64, x, mask64, m):
+    """``(V x) * mask`` summed in float32, back in float64 and padded to
+    m: the planted fault for float64 inputs."""
+    c = (V64.float() @ x.float()) * mask64.float()
+    return torch.nn.functional.pad(c.double(), (0, m - c.shape[0]))
 
 
 class PrefixCheck:
@@ -131,13 +144,8 @@ class PrefixCheck:
                 got, update_prefix=(w2 + missing,))),
         ]
         if self.V.dtype == torch.float64:
-            V32 = self.V64.float()
-            mask32 = self.mask64.float()
-            pad = self.m - rows
-
             def f32_sum(x):
-                c = (V32 @ x.float()) * mask32
-                return torch.nn.functional.pad(c.double(), (0, pad))
+                return _padded32_sum(self.V64, x, self.mask64, self.m)
 
             faults += [
                 ("c summed in float32", "project_prefix c", dict(
@@ -145,6 +153,81 @@ class PrefixCheck:
                 ("c2 summed in float32", "apply_project c2", dict(
                     got, apply_project=(w1, f32_sum(w1)))),
             ]
+        return faults
+
+    def assert_faults_caught(self, got):
+        """Raise ``AssertionError`` if a planted fault passes; return how
+        many were planted."""
+        faults = self.faults(got)
+        for label, output, bad in faults:
+            if output not in self.failures(bad):
+                raise AssertionError(f"planted fault passed the check: "
+                                     f"{label}")
+        return len(faults)
+
+
+class ProjectCheck:
+    """K7 on one set of inputs ``(V, w, mask, rows, basis)``, held to its
+    float64 values (module docstring).  ``plain`` and ``got`` are the
+    pair ``(w_out, c)`` as the wrapper returns it; ``basis=None`` means
+    ``V``."""
+
+    def __init__(self, V, w, mask, rows, plain, basis=None):
+        self.rows, self.m = rows, V.shape[0]
+        self.eps = torch.finfo(V.dtype).eps
+        self.V, self.w, self.distinct = V, w, basis is not None
+        self.V64 = V[:rows].double()
+        self.B64 = self.V64 if basis is None else basis[:rows].double()
+        self.Babs = self.B64.abs()
+        self.mask64 = mask[:rows].double()
+        self.w64 = w.double()
+        self.c_exact = (self.V64 @ self.w64) * self.mask64
+        own = float((plain[1][:rows].double() - self.c_exact).abs().max())
+        self.t_c = (2 * self.eps * (self.V64.abs() @ self.w64.abs())
+                    + 4 * own) * self.mask64.abs()
+
+    def failures(self, got):
+        """Which of ``"w_out"`` and ``"c"`` miss their float64 values
+        (``c`` also when a row past ``rows`` is not 0)."""
+        w_out, c = got
+        rows = self.rows
+        bad = []
+        if not bool(torch.all(c[rows:] == 0)) or not bool(torch.all(
+                (c[:rows].double() - self.c_exact).abs() <= self.t_c)):
+            bad.append("c")
+        c64 = c[:rows].double()
+        tol = 2 * (rows + 1) * self.eps * (self.w64.abs()
+                                           + c64.abs() @ self.Babs)
+        if not bool(torch.all(
+                (w_out.double() - (self.w64 - c64 @ self.B64)).abs()
+                <= tol)):
+            bad.append("w_out")
+        return bad
+
+    def faults(self, got):
+        """``(label, output, faulty got)`` for each planted fault: the
+        coefficients zeroed, the largest one dropped, ``w_out`` missing
+        that row's update, ``w_out`` taken along ``V`` where the basis
+        differs from it, and, for float64 inputs, the coefficients summed
+        in float32.  :meth:`failures` must name ``output`` for each."""
+        w_out, c = got
+        rows = self.rows
+        j = int(c[:rows].abs().argmax())
+        dropped = c.clone()
+        dropped[j] = 0
+        B_j = self.B64[j].to(w_out.dtype)
+        faults = [
+            ("c zeroed", "c", (w_out, torch.zeros_like(c))),
+            ("c row dropped", "c", (w_out, dropped)),
+            ("w_out row dropped", "w_out", (w_out + c[j] * B_j, c)),
+        ]
+        if self.distinct:
+            faults.append(("V in place of the basis", "w_out",
+                           (self.w - c[:rows] @ self.V[:rows], c)))
+        if self.V.dtype == torch.float64:
+            faults.append(("c summed in float32", "c", (
+                w_out, _padded32_sum(self.V64, self.w, self.mask64,
+                                     self.m))))
         return faults
 
     def assert_faults_caught(self, got):

@@ -10,9 +10,11 @@ Counterparts of the three Pallas kernels in
 * :func:`stencil5_resrestrict_rows` (K3): residual plus full-weighting
   row restriction;
 
-and the two thin entries over K1 on an unpadded grid (logical region =
-the whole buffer), :func:`stencil5_pipelined` and
-:func:`laplacian_2d_pipelined`, which launch K1 itself.
+and the thin entries over K1 on an unpadded grid (logical region = the
+whole buffer), which launch K1 itself: :func:`stencil5_pipelined`,
+:func:`laplacian_2d_pipelined`, and :func:`laplacian_2d_kernel` with its
+operator constructor :func:`laplacian_2d` (K10, the JAX package's older
+manual-copy Laplacian kernel, which its pipelined kernel superseded).
 
 Operands are flat ``(nx*ny,)`` tensors holding a row-major ``(nx, ny)``
 buffer whose top-left ``(nrows, ncols)`` corner is the logical Dirichlet
@@ -34,6 +36,8 @@ __all__ = [
     "stencil5_resrestrict_rows",
     "stencil5_pipelined",
     "laplacian_2d_pipelined",
+    "laplacian_2d_kernel",
+    "laplacian_2d",
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
@@ -238,3 +242,31 @@ def laplacian_2d_pipelined(x, *, nx, ny, hx2=None, hy2=None):
         coeffs=(2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2,
                 -1.0 / hy2),
     )
+
+
+def laplacian_2d_kernel(x, *, nx, ny, hx2=None, hy2=None):
+    """K10: the Dirichlet 5-point Laplacian of the flat vector ``x`` (grid
+    ``nx`` x ``ny``) through K1.  Counterpart of
+    ``krypy_tpu.kernels.stencil.laplacian_2d_kernel``, whose row-block
+    argument and ``nx % 8`` rule belong to its TPU tiling and are not
+    carried over; counts as one ``stencil5_affine`` launch."""
+    return laplacian_2d_pipelined(x, nx=nx, ny=ny, hx2=hx2, hy2=hy2)
+
+
+def laplacian_2d(nx, ny=None, device="cuda"):
+    """Operator constructor over :func:`laplacian_2d_kernel`: a matvec
+    closure with ``.shape`` and ``.diag`` (drop-in for
+    :func:`krypy_tpu_torch.ops.poisson_2d`).  Counterpart of
+    ``krypy_tpu.kernels.stencil.laplacian_2d``; ``device`` places
+    ``.diag``."""
+    ny = nx if ny is None else ny
+
+    def matvec(x):
+        return laplacian_2d_kernel(x, nx=nx, ny=ny)
+
+    matvec.shape = (nx * ny, nx * ny)
+    hx2 = (1.0 / (nx + 1)) ** 2
+    hy2 = (1.0 / (ny + 1)) ** 2
+    matvec.diag = torch.full((nx * ny,), 2.0 / hx2 + 2.0 / hy2,
+                             dtype=torch.float64, device=device)
+    return matvec

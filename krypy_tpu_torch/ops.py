@@ -1,5 +1,5 @@
-"""Operators of the multigrid-CG and north-star slices (counterpart of
-the matching parts of :mod:`krypy_tpu.ops`).
+"""Operators of the multigrid-CG, north-star and deflation slices
+(counterpart of the matching parts of :mod:`krypy_tpu.ops`).
 
 Operators are plain callables on 1-D ``(N,)`` tensors that carry
 ``.shape`` (and ``.grid``, ``.nx_pad``, ``.ny_pad``, ``.diag`` where the
@@ -25,8 +25,10 @@ import torch.nn.functional as F
 from . import kernels
 
 __all__ = [
+    "diagonal",
     "poisson_2d",
     "convection_diffusion_2d",
+    "shifted_laplacian_2d",
     "jacobi_preconditioner",
     "multigrid_poisson_preconditioner",
     "pad_cols_width",
@@ -70,6 +72,22 @@ def _kernel_matvec(nx, ny, coeffs, kernel):
             return kernel(x)
         return _stencil5_padded(x.reshape(nx, ny), coeffs, nx, ny).reshape(-1)
 
+    return matvec
+
+
+def diagonal(d):
+    """diag(d) as a matvec; ``d`` is an ``(N,)`` tensor and the operator
+    lives on its device.  Keeps the JAX operator's family attributes
+    (``family``, ``params``, ``rebuild``), by which a sequence of
+    diagonals can be told to be one operator family."""
+    def matvec(x):
+        return d * x
+
+    matvec.diag = d
+    matvec.shape = (d.shape[0], d.shape[0])
+    matvec.family = "diagonal"
+    matvec.params = d
+    matvec.rebuild = lambda p: (lambda x: p * x)
     return matvec
 
 
@@ -192,6 +210,46 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
 
     matvec.shape = (nx * ny, nx * ny)
     matvec.diag = torch.full((nx * ny,), coeffs[0], dtype=torch.float64,
+                             device=device)
+    return matvec
+
+
+def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
+                         device="cuda"):
+    """Shifted Laplacian ``Lap - sigma I`` (indefinite for sigma inside
+    the spectrum) on an nx x ny Dirichlet grid.  ``impl="cuda"`` folds
+    the shift into the stencil's centre coefficient and runs K1 through
+    :func:`~krypy_tpu_torch.kernels.stencil.stencil5_pipelined` on
+    float32 (the plain grouped stencil on other dtypes);
+    ``impl="torch"`` is ``poisson_2d(x) - sigma x``.  ``mesh=`` (the
+    sharded stencil) raises ``NotImplementedError``.  ``device`` places
+    ``.diag``."""
+    _check_impl(impl)
+    if mesh is not None:
+        raise NotImplementedError(
+            "shifted_laplacian_2d mesh= is not ported yet (ROADMAP.md "
+            "queue B, K8)")
+    device = _device(device)
+    ny = nx if ny is None else ny
+    hx2 = (1.0 / (nx + 1)) ** 2
+    hy2 = (1.0 / (ny + 1)) ** 2
+    dval = 2.0 / hx2 + 2.0 / hy2 - sigma
+
+    if impl == "cuda":
+        coeffs = (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2)
+        matvec = _kernel_matvec(
+            nx, ny, coeffs,
+            lambda x: kernels.stencil5_pipelined(x, nx=nx, ny=ny,
+                                                 coeffs=coeffs),
+        )
+    else:
+        lap = poisson_2d(nx, ny, device=device)
+
+        def matvec(x):
+            return lap(x) - sigma * x
+
+    matvec.shape = (nx * ny, nx * ny)
+    matvec.diag = torch.full((nx * ny,), dval, dtype=torch.float64,
                              device=device)
     return matvec
 

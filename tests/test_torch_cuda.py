@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version, and the multigrid-CG and north-star solves through the
-kernels.
+PyTorch version, and the multigrid-CG, north-star and deflated solves
+through the kernels.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The module imports neither jax nor the JAX package, so on a machine
@@ -22,17 +22,22 @@ versions (cuBLAS): each output is held to its float64 value by
 :class:`krypy_tpu_torch.kernels.parity.PrefixCheck` (its docstring
 derives the tolerances), and each test also plants faults (a zeroed or
 dropped coefficient or update, a float32 sum of float64 inputs) that the
-check must reject.
+check must reject.  The projection pass K7 is held likewise by
+:class:`krypy_tpu_torch.kernels.parity.ProjectCheck`.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from krypy_tpu_torch import functional as F, interop, kernels, ops
+from krypy_tpu_torch import functional as F, interop, kernels, ops, suite
 from krypy_tpu_torch.kernels import orthogonalize as korth
 from krypy_tpu_torch.kernels import stencil as kst
-from krypy_tpu_torch.kernels.parity import PrefixCheck, fma_atol
+from krypy_tpu_torch.kernels.parity import (
+    PrefixCheck,
+    ProjectCheck,
+    fma_atol,
+)
 from krypy_tpu_torch.northstar import cd_coeffs, make_northstar
 
 pytestmark = pytest.mark.cuda
@@ -215,6 +220,151 @@ def test_prefix_kernels_raise_on_other_dtypes(cuda_device):
                                                   device=cuda_device))
 
 
+# (m, N, rows, k): small, ragged, past the 1024-block cap, a tall prefix
+# (over 48 KB of shared memory in phase 0), and config 4's basis
+PROJECT_SHAPES = [(9, 256, 8, 5), (5, 1000, 5, 2), (26, 4097, 13, 10),
+                  (8, 600001, 8, 6), (2000, 3001, 2000, 1990),
+                  (26, 4096 ** 2, 13, 10), (26, 4096 ** 2, 26, 23)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dual", [False, True], ids=["basis=V", "basis=B"])
+@pytest.mark.parametrize("shape", PROJECT_SHAPES, ids=str)
+def test_cgs_project_matches_plain(cuda_device, shape, dual, dtype):
+    """K7 held to float64 (coefficients and ``w'``), its coefficients
+    zero past ``rows`` and where the mask is zero, each planted fault
+    rejected, one launch counted."""
+    m, N, rows, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + N + rows)
+    V, B = (torch.randn(m, N, generator=gen, device=cuda_device,
+                        dtype=dtype) / N ** 0.5 for _ in range(2))
+    w = torch.randn(N, generator=gen, device=cuda_device, dtype=dtype)
+    mask = (torch.arange(m, device=cuda_device) <= k).to(dtype)
+    basis = B if dual else None
+    before = kernels.launch_counts()
+    got = korth.cgs_project(V, w, mask, basis, rows=rows)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["cgs_project"] == before["cgs_project"] + 1
+    assert all(after[n] == before[n] for n in after if n != "cgs_project")
+    plain = korth.cgs_project_torch(V, w, mask, B if dual else V, rows)
+    check = ProjectCheck(V, w, mask, rows, plain, basis)
+    assert check.failures(got) == []
+    assert torch.all(got[1][mask == 0] == 0) and got[1].shape == (m,)
+    assert check.assert_faults_caught(got) == 3 + dual + (
+        dtype == torch.float64)
+
+
+def test_cgs_project_is_deterministic(cuda_device):
+    """No float atomics: the same call gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    V, B = (torch.randn(26, 1 << 20, generator=gen, device=cuda_device)
+            for _ in range(2))
+    w = torch.randn(1 << 20, generator=gen, device=cuda_device)
+    mask = torch.ones(26, device=cuda_device)
+    for basis in (None, B):
+        a = korth.cgs_project(V, w, mask, basis, rows=13)
+        b = korth.cgs_project(V, w, mask, basis, rows=13)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cgs_project_raises_on_bad_operands(cuda_device):
+    for dtype in (torch.complex64, torch.float16):
+        V = torch.zeros(4, 64, dtype=dtype, device=cuda_device)
+        w = torch.zeros(64, dtype=dtype, device=cuda_device)
+        with pytest.raises(TypeError):
+            korth.cgs_project(V, w, torch.ones(4), rows=2)
+    V = torch.zeros(4, 64, device=cuda_device)
+    w = torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError):
+        korth.cgs_project(V, w, torch.ones(4), rows=5)
+    with pytest.raises(ValueError):
+        korth.cgs_project(V, w, torch.ones(4), V.double())
+    with pytest.raises(ValueError):
+        korth.cgs_project(V, w, torch.ones(4), V.cpu())
+    top = korth.max_rows(4, "cgs_project")
+    tall = torch.zeros(top + 1, 64, device=cuda_device)
+    korth.cgs_project(tall, w, torch.ones(top + 1), rows=top)
+    with pytest.raises(ValueError, match="shared memory"):
+        korth.cgs_project(tall, w, torch.ones(top + 1), rows=top + 1)
+
+
+@pytest.mark.parametrize("nx,ny", [(1024, 1024), (1021, 1000), (13, 10)])
+def test_laplacian_2d_kernel_matches_plain(cuda_device, nx, ny):
+    """K10, the entry over K1, against the plain Poisson operator, also
+    where the row count is no multiple of 8."""
+    gen = torch.Generator(device=cuda_device).manual_seed(nx)
+    x = torch.randn(nx * ny, generator=gen, device=cuda_device)
+    plain = ops.poisson_2d(nx, ny, impl="torch", device=cuda_device)
+    before = kernels.launch_counts()["stencil5_affine"]
+    got = kernels.laplacian_2d_kernel(x, nx=nx, ny=ny)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["stencil5_affine"] == before + 1
+    want, want64 = plain(x), plain(x.double())
+    np.testing.assert_allclose(interop.to_numpy(got), interop.to_numpy(want),
+                               rtol=2e-6, atol=fma_atol(want, want64))
+    op = kernels.laplacian_2d(nx, ny)
+    assert op.shape == (nx * ny, nx * ny) and op.diag.is_cuda
+    assert torch.equal(op(x), got)
+
+
+def test_deflated_gmres_through_k7_matches_plain_lane(cuda_device):
+    """Config 4 at nx=511: the harvest, six Ritz vectors and the refined
+    deflated solve on the kernel lane (K1-K3 and K7, twice per GMRES
+    iteration, no prefix sweep) against the plain lane (cgs2) on the
+    card."""
+    nx = 511
+    b = torch.ones(nx * nx, dtype=torch.float64, device=cuda_device)
+    out = {}
+    for impl, ortho in (("cuda", "cgs2_pallas"), ("torch", "cgs2")):
+        harvest, make_solve, A64 = suite.make_config4(nx, impl, ortho,
+                                                      cuda_device)
+        kernels.reset_launch_counts()
+        res0, U, theta = harvest()
+        counts = kernels.launch_counts()
+        assert U.shape == (res0.x.shape[0], suite.N_VECTORS)
+        assert counts["cgs_project"] == (
+            2 * int(res0.niter) if impl == "cuda" else 0)
+        solve = make_solve(U)
+        solve(b)  # the hidden warm-up solve runs here
+        kernels.reset_launch_counts()
+        res, info = solve(b)
+        counts = kernels.launch_counts()
+        rel = torch.linalg.vector_norm(b - A64(res.x)) / \
+            torch.linalg.vector_norm(b)
+        assert float(rel) <= suite.TOL
+        if impl == "cuda":
+            assert counts["cgs_project"] == 2 * info["inner_iters"]
+            assert counts["stencil5_affine"] > 0
+            assert counts["project_prefix"] == counts["apply_project"] \
+                == counts["update_prefix"] == 0
+        else:
+            assert all(c == 0 for c in counts.values())
+        out[impl] = (res, info, int(res0.niter), theta)
+    (rc, ic, n0c, thc), (rt, it, n0t, tht) = out["cuda"], out["torch"]
+    assert abs(n0c - n0t) <= 1
+    np.testing.assert_allclose(np.sort(np.real(thc[:5])),
+                               np.sort(np.real(tht[:5])), atol=1e-2)
+    assert ic["cycles"] == it["cycles"]
+    assert abs(ic["inner_iters"] - it["inner_iters"]) <= 3
+    dx = torch.linalg.vector_norm(rc.x - rt.x) / torch.linalg.vector_norm(
+        rt.x)
+    assert float(dx) <= 1e-6
+
+
+def test_recycling_sequence_through_k7(cuda_device):
+    """The four-system sequence at nx=511: every solve converges, the
+    recycled ones in fewer iterations, K7 twice per iteration."""
+    kernels.reset_launch_counts()
+    runs = suite.recycling_sequence(511, "cuda", "cgs2_pallas", cuda_device)
+    counts = kernels.launch_counts()
+    plain = suite.recycling_sequence(511, "cuda", "cgs2_pallas",
+                                     cuda_device, recycle=False)
+    assert all(r["status"] == 0 for r in runs + plain)
+    assert counts["cgs_project"] == 2 * sum(r["niter"] for r in runs)
+    assert all(r["niter"] < p["niter"] for r, p in zip(runs[1:], plain[1:]))
+
+
 def test_northstar_through_kernels_matches_plain_lane(cuda_device):
     """nx=511, the smallest grid whose V-cycle reaches K2 and K3: the
     north-star pipeline on the kernel lane launches all six kernels and
@@ -227,7 +377,9 @@ def test_northstar_through_kernels_matches_plain_lane(cuda_device):
         kernels.reset_launch_counts()
         out[impl] = solve(b)
         out[impl + "_launches"] = kernels.launch_counts()
-    assert all(c > 0 for c in out["cuda_launches"].values())
+    # K1-K6 run; K7 belongs to the cgs*_pallas schemes
+    assert all((c > 0) == (k != "cgs_project")
+               for k, c in out["cuda_launches"].items())
     assert all(c == 0 for c in out["torch_launches"].values())
     (rc, ic), (rt, it) = out["cuda"], out["torch"]
     assert ic["cycles"] == it["cycles"]

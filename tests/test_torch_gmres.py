@@ -7,6 +7,11 @@ tests/test_padded.py's padded GMRES solve), and padded with the V-cycle
 on the right; each with ``ortho="cgs2"`` and ``"cgs2_fused"`` (the JAX
 side runs its Pallas kernels in interpret mode, as it does off the TPU).
 
+Also the options of the deflation slice: the ``cgs``/``cgs_pallas``/
+``cgs2_pallas`` schemes (K7's plain version against the Pallas kernel
+interpreted), the dual basis of ``M``, ``return_internal`` and the three
+deflation hooks.
+
 Tolerances: iteration counts and status equal; residual histories
 ``rtol=1e-8`` plus ``atol=1e-14``, because the final entries are explicit
 residuals near 1e-11 whose own float64 rounding is ~1e-17 absolute (a
@@ -187,14 +192,139 @@ def test_progress_prints_each_iteration(capsys):
     assert capsys.readouterr().out.count("gmres iter") == 3
 
 
+@pytest.mark.parametrize("ortho", ["cgs", "cgs_pallas", "cgs2_pallas"])
+@pytest.mark.parametrize("name", ["unpadded", "padded_Ml"])
+def test_gmres_new_ortho_names_match_jax(name, ortho):
+    """One and two passes of batched CGS, and K7 once or twice over the
+    active prefix against the Pallas kernel's full-height sweep."""
+    rj, rt = _jax(name, ortho), _torch(name, ortho)
+    _compare(rj, rt)
+
+
+def _m_problem():
+    """An SPD diagonal ``M`` (and a left preconditioner) on the unpadded
+    convection-diffusion problem."""
+    (At, _), (Aj, _), b, _ = _problem("unpadded")
+    rng = np.random.default_rng(21)
+    dm = rng.uniform(0.5, 2.0, NX * NX)
+    dl = rng.uniform(0.5, 2.0, NX * NX)
+    kt = dict(M=ops.diagonal(interop.from_numpy(dm, "cpu")),
+              Ml=lambda v: interop.from_numpy(dl, "cpu") * v)
+    kj = dict(M=jops.diagonal(jnp.asarray(dm)),
+              Ml=lambda v: jnp.asarray(dl) * v)
+    return At, Aj, b, kt, kj
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs", "cgs2_pallas", "auto"])
+def test_gmres_dual_basis_matches_jax(ortho):
+    """``M`` keeps two bases, ``V = M P``: the projections subtract along
+    ``P`` (K7 with ``basis=P``), the norms are M-norms; ``return_internal``
+    hands out both bases and the small matrices under the reference's
+    keys."""
+    At, Aj, b, kt, kj = _m_problem()
+    kw = dict(tol=1e-10, maxiter=60, ortho=ortho, return_internal=True)
+    rj, ij = JF.gmres(Aj, jnp.asarray(b), **kw, **kj)
+    rt, it = F.gmres(At, interop.from_numpy(b, "cpu"), **kw, **kt)
+    _compare(rj, rt)
+    assert list(it) == ["V", "P", "H", "R", "y", "C", "MMlr0_norm",
+                        "MMlb_norm"] == list(ij)
+    n = int(rt.niter)
+    for key in it:
+        got, want = interop.to_numpy(it[key]), np.asarray(ij[key])
+        assert got.shape == want.shape, key
+        if not got.size:
+            continue
+        sl = np.s_[: n + 1] if key in ("V", "P") else np.s_[...]
+        np.testing.assert_allclose(got[sl], want[sl], rtol=0,
+                                   atol=1e-9 * max(np.abs(want).max(), 1.0),
+                                   err_msg=key)
+    # V = M P, row by row
+    V, P = it["V"][: n + 1], it["P"][: n + 1]
+    MP = torch.stack([kt["M"](p) for p in P])
+    assert torch.allclose(V, MP, rtol=1e-12, atol=1e-14)
+    assert it["C"].shape == (60, 0)
+
+
+def test_return_internal_without_M():
+    (At, kt), (Aj, kj), b, _ = _problem("padded_Ml")
+    kw = dict(tol=1e-10, maxiter=30, return_internal=True)
+    rj, ij = JF.gmres(Aj, jnp.asarray(b), **kw, **kj)
+    rt, it = F.gmres(At, interop.from_numpy(b, "cpu"), **kw, **kt)
+    assert it["P"] is None and ij["P"] is None
+    n = int(rt.niter)
+    for key in ("H", "R", "y", "MMlr0_norm", "MMlb_norm"):
+        np.testing.assert_allclose(interop.to_numpy(it[key]),
+                                   np.asarray(ij[key]), rtol=0,
+                                   atol=1e-10 * np.abs(np.asarray(
+                                       ij[key])).max(), err_msg=key)
+    # the Arnoldi relation in the raw Hessenberg: Ml A V_n = V_{n+1} H
+    V, H = it["V"], it["H"]
+    AV = torch.stack([kt["Ml"](At(v)) for v in V[:n]])
+    assert torch.allclose(AV, H[: n + 1, :n].T @ V[: n + 1], atol=1e-9)
+
+
+def test_deflation_hooks_match_jax():
+    """``operator_with_capture``/``capture_width`` (the C buffer, row k
+    written at iteration k), ``projected_r0`` and ``correct_xk``, with a
+    rank-one projection along a fixed direction; hook outputs in float32
+    are cast to the float64 system."""
+    (At, _), (Aj, _), b, _ = _problem("unpadded")
+    u = np.random.default_rng(80).standard_normal(NX * NX)
+    u /= np.linalg.norm(u)
+    ut, uj = interop.from_numpy(u, "cpu"), jnp.asarray(u)
+
+    hooks_t = dict(
+        operator_with_capture=lambda v: (
+            At(v) - ut * torch.dot(ut, At(v)),
+            torch.stack([torch.dot(ut, At(v)), torch.dot(ut, v)]).float()),
+        capture_width=2,
+        projected_r0=lambda r: r - ut * torch.dot(ut, r),
+        correct_xk=lambda x: x + 0.5 * ut,
+    )
+    hooks_j = dict(
+        operator_with_capture=lambda v: (
+            Aj(v) - uj * jnp.dot(uj, Aj(v)),
+            jnp.stack([jnp.dot(uj, Aj(v)),
+                       jnp.dot(uj, v)]).astype(jnp.float32)),
+        capture_width=2,
+        projected_r0=lambda r: r - uj * jnp.dot(uj, r),
+        correct_xk=lambda x: x + 0.5 * uj,
+    )
+    kw = dict(tol=1e-12, maxiter=25, return_internal=True)
+    rj, ij = JF.gmres(Aj, jnp.asarray(b), **kw, **hooks_j)
+    rt, it = F.gmres(At, interop.from_numpy(b, "cpu"), **kw, **hooks_t)
+    _compare(rj, rt)
+    C = interop.to_numpy(it["C"])
+    assert C.shape == (25, 2) and C.dtype == np.float64
+    np.testing.assert_allclose(C, np.asarray(ij["C"]), rtol=0,
+                               atol=1e-6 * np.abs(C).max())
+    assert int(rt.niter) == 25 and np.all(C[:, 0] != 0)
+    np.testing.assert_allclose(interop.to_numpy(it["H"]),
+                               np.asarray(ij["H"]), rtol=0,
+                               atol=1e-9 * np.abs(np.asarray(ij["H"])).max())
+
+
+def test_kernel_schemes_reject_ip_and_fused_rejects_M():
+    A = torch.eye(4, dtype=torch.float64)
+    b = torch.ones(4, dtype=torch.float64)
+    for ortho in ("cgs_pallas", "cgs2_pallas", "cgs2_fused"):
+        with pytest.raises(ValueError, match="Euclidean"):
+            F.gmres(A, b, ip=torch.eye(4, dtype=torch.float64), ortho=ortho)
+    with pytest.raises(ValueError, match="dual-basis"):
+        F.gmres(A, b, M=lambda v: v, ortho="cgs2_fused")
+    cuda = torch.device("cuda")
+    assert _resolve_ortho("auto", torch.float32, cuda, 26, with_M=True) \
+        == "cgs2"
+    assert _resolve_ortho("cgs2_pallas", torch.float32, cuda, 7264) \
+        == "cgs2_pallas"
+    with pytest.raises(ValueError, match="maxiter"):
+        _resolve_ortho("cgs_pallas", torch.float32, cuda, 7265)
+
+
 _UNPORTED = [
-    dict(M=lambda v: v), dict(ip=torch.eye(2)),
-    dict(basis_dtype=torch.bfloat16),
-    dict(operator_with_capture=lambda v: (v, v)), dict(capture_width=1),
-    dict(projected_r0=lambda v: v), dict(correct_xk=lambda v: v),
-    dict(return_internal=True), dict(fused_deflation=object()),
-] + [dict(ortho=o) for o in ("cgs", "mgs", "dmgs", "bmgs", "bmgs2",
-                             "cgs_pallas", "cgs2_pallas", "cgs2_1r")]
+    dict(ip=torch.eye(2)), dict(basis_dtype=torch.bfloat16),
+    dict(fused_deflation=object()),
+] + [dict(ortho=o) for o in ("mgs", "dmgs", "bmgs", "bmgs2", "cgs2_1r")]
 
 
 @pytest.mark.parametrize("kw", _UNPORTED,

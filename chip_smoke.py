@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Run krypy_tpu_torch's solves on one NVIDIA GPU: bench.py's
 multigrid-CG Poisson solve, benchmarks/northstar.py's restarted-GMRES
-convection-diffusion solve, and the Ritz-deflated and recycling GMRES of
+convection-diffusion solve, the Ritz-deflated and recycling GMRES of
 benchmarks/suite.py's config 4 (shifted Laplacian) at the north star's
-size.
+size, and the multi-device path on rank processes that share the card.
 
-    python3 chip_smoke.py [--profile DIR | --witness]
+    python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -77,7 +77,26 @@ before printing its last line):
    plain GMRES, on both lanes, the lanes' iteration counts within 3 of
    each other; the recycled solves' true residuals are recorded beside
    the unrecycled ones' (``recycled_iterates_usable``); one JSON line;
-10. output: a JSON line of per-kernel results (``timed_by`` says, for
+10. the mesh phase: single-device references in this process (K1's
+   matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
+   worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
+   takes no two ranks on one card): NCCL of 1 rank, gloo of 2 and 4.
+   Each rank holds K8 (``stencil5_sharded``) and K9
+   (``cgs2_fused_sharded``), gathered, against their plain versions in
+   float64 and against the single-device kernels, and K4-K6 on its own
+   columns through ``PrefixCheck``; times
+   K8 and K9 per shard and the collectives on the host; then runs the
+   main path on the mesh, convection-diffusion and Poisson at 4096^2
+   with Jacobi: restarted GMRES(25) x 3 cycles (``cgs2_fused``), CG x
+   100, two ``RecyclingGmres(6, "sm")`` solves, launch and collective
+   counts zeroed just before each and read just after.  Gated against
+   one device: iteration and matvec counts equal, residual histories
+   within ``MESH_RTOL`` and the same bits on every rank, K8 once per
+   matvec, K9 once per GMRES iteration, three all-reduces per GMRES
+   iteration, one halo exchange per matvec, the second recycled solve
+   deflated.  Any rank's failure or the world's deadline fails the run.
+   The times are per shard on ONE card: no multi-GPU speed-up;
+11. output: a JSON line of per-kernel results (``timed_by`` says, for
    each time, whether it is a profiled device time, ``"profiler"``, or
    the wall of back-to-back calls, ``"events"``, taken only where the
    profiler recorded no device events), then, as the last line,
@@ -86,6 +105,10 @@ before printing its last line):
 ``--witness`` runs only the witnesses of config 4's float32 findings
 (float64 inner arithmetic at three sizes, the six pairings of ``impl``
 and two-pass ``ortho`` at 4095^2) and prints no result line.
+``--mesh-faults`` runs only the mesh phase's main path, on one device and
+on a gloo world of 2 ranks, sound and with each planted fault (a zeroed
+halo, an unreduced inner product), and fails unless ``MESH_RTOL`` lies
+between the sound readings and the faults'; it prints no result line.
 ``--profile DIR`` also profiles one solve of each slice: device busy
 share, device time by kernel (written to DIR), the host time of the
 V-cycle's parts and of the deflated solve's parts (the oblique
@@ -95,6 +118,7 @@ projection, the deflation's set-up, the Ritz hand-off).
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -112,7 +136,7 @@ ROUNDS = 5
 #: timed solves per lane in the north-star timing phase
 NS_ROUNDS = 3
 #: timed deflated solves per lane in the config-4 timing phase
-C4_ROUNDS = 5
+C4_ROUNDS = 3
 #: config 4's sizes: the north star's, at which the undeflated pair is
 #: gated and the deflated solve's known failure is asserted, and the cut
 #: at which the deflated pair is gated (ROADMAP.md queue C)
@@ -724,8 +748,10 @@ def northstar_phase(device):
 
     (_, xc, ic, counts, rel_c), (_, xt, it, tcounts, rel_t) = (
         out["cuda"], out["torch"])
+    # K7 belongs to the cgs*_pallas schemes, K8 and K9 to the mesh phase
+    idle = ("cgs_project",) + tuple(MESH_KERNELS)
     for name, c in counts.items():
-        if (c <= 0) != (name == "cgs_project"):
+        if (c <= 0) != (name in idle):
             raise AssertionError(f"north-star solve: kernel {name} "
                                  f"launched {c} times")
     if any(c != 0 for c in tcounts.values()):
@@ -1267,6 +1293,579 @@ def _profile_deflation(device, nx):
               f"max {max(ts):.3f} (10 samples)", flush=True)
 
 
+#: the mesh phase's grid: 4096^2 (its rows divide over 1, 2 and 4 ranks;
+#: the north star's 4095 does not)
+MESH_NX = 4096
+#: its worlds, every rank on the one card, ``MESH_DEVICE``: NCCL refuses
+#: two ranks on one device, so the wider worlds are gloo
+MESH_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+MESH_DEVICE = "cuda:0"
+#: seconds: each collective, and each world from its start to its end
+MESH_DIST_TIMEOUT, MESH_WORLD_TIMEOUT = 120, 300
+#: seconds: each world of ``--mesh-faults`` (a planted fault may leave the
+#: ranks waiting on different collectives)
+MESH_FAULT_TIMEOUT = 150
+#: the main path on the mesh: GMRES(25) for 3 cycles, CG for 100
+#: iterations, two recycled GMRES(25) solves; none reaches its tolerance,
+#: so each runs all its iterations
+MESH_RESTART, MESH_CYCLES, MESH_CG_ITERS, MESH_TOL = 25, 3, 100, 1e-12
+#: float32 residual histories, sharded against one device, relative: the
+#: same algorithm with its sums in another order (per-rank partials plus
+#: the all-reduce).  About 10x above the largest sound reading (GMRES
+#: 3.0e-7, CG 1.1e-5, recycling 2.0e-5 on the H100); the faults that
+#: ``--mesh-faults`` plants (a zeroed halo, an unreduced inner product)
+#: must land above them
+MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4}
+#: the faults ``--mesh-faults`` plants, one world each
+MESH_FAULTS = ("halo", "reduce")
+
+
+def _cd_raw(nx):
+    """The convection-diffusion stencil of ``ops.convection_diffusion_2d``
+    (wind (1, 0.5), eps 1) on an nx-grid."""
+    h = 1.0 / (nx + 1)
+    return (4.0 / h ** 2 + 1.5 / h, -1.0 / h ** 2 - 1.0 / h, -1.0 / h ** 2,
+            -1.0 / h ** 2 - 0.5 / h, -1.0 / h ** 2)
+
+
+def _mesh_inputs(device):
+    """K8's input ``x`` and K9's ``V`` (26 rows), ``w`` and ``c``, drawn
+    from fixed seeds on the card: every process draws the same bits."""
+    import torch
+
+    N = MESH_NX ** 2
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn(N, generator=gen, device=device)
+    V = torch.randn(NS_ROWS[1], N, generator=gen, device=device)
+    V /= math.sqrt(N)
+    w = torch.randn(N, generator=gen, device=device)
+    c = torch.randn(NS_ROWS[1], generator=gen, device=device)
+    return x, V, w, c
+
+
+def _mesh_mask(device):
+    import torch
+
+    m, rows = NS_ROWS[1], NS_ROWS[0]
+    return (torch.arange(m, device=device) < rows - 2).float()
+
+
+def _mesh_solves(device, mesh=None):
+    """The mesh phase's main path on one device (``mesh=None``) or, on the
+    rank's blocks, sharded: restarted GMRES(25) (Jacobi ``Ml``,
+    ``ortho="cgs2_fused"``: K8 and K9 on the mesh) for 3 cycles, Jacobi
+    CG on ``poisson_2d(impl="cuda")`` for 100 iterations, and two
+    ``RecyclingGmres(6, "sm")`` solves (``ortho="cgs2"``), the second
+    deflated.  The launch and collective counts are set to 0 just before
+    each solve and read just after.  Returns one record per solve."""
+    import torch
+    from krypy_tpu_torch import functional as F, kernels, ops, parallel, suite
+
+    nx, N = MESH_NX, MESH_NX ** 2
+    kw = dict(impl="cuda", device=device, mesh=mesh)
+    cd = ops.convection_diffusion_2d(nx, **kw)
+    lap = ops.poisson_2d(nx, **kw)
+    n = N if mesh is None else len(range(N)[parallel.block_of(N, mesh)])
+    b = torch.ones(n, device=device)
+    Ml = ops.jacobi_preconditioner(cd)
+    rec = F.RecyclingGmres(n_vectors=suite.N_VECTORS, which="sm")
+    gm = dict(Ml=Ml, tol=MESH_TOL, maxiter=MESH_RESTART)
+    runs = {
+        "gmres": lambda: [F.restarted_gmres(
+            cd, b, max_restarts=MESH_CYCLES - 1, ortho="cgs2_fused", **gm)],
+        "cg": lambda: [F.cg(lap, b, M=ops.jacobi_preconditioner(lap),
+                            tol=MESH_TOL, maxiter=MESH_CG_ITERS)],
+        "recycling": lambda: [rec.solve(cd, b, ortho="cgs2", **gm)
+                              for _ in range(2)],
+    }
+    out = {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        parallel.reset_collective_counts()
+        results = run()
+        torch.cuda.synchronize()
+        out[name] = {
+            "launches": kernels.launch_counts(),
+            "collectives": parallel.collective_counts(),
+            "resnorms": [r.resnorms[: len(r.resnorms) if name == "gmres"
+                                    else int(r.niter) + 1].tolist()
+                         for r in results],
+            "status": [int(r.status) for r in results],
+        }
+    out["recycling"]["deflated_width"] = (
+        None if rec._U is None else int(rec._U.shape[1]))
+    return out
+
+
+def _mesh_device_ms(fn, floor_ms, reps=10):
+    """``(ms, source)``: one call's device time on a rank, as
+    :func:`_device_ms` takes it but without retakes, so that every rank
+    makes the same calls (each call communicates): one profile of
+    ``reps`` calls, and CUDA events around back-to-back calls where the
+    profile recorded no device events or less than the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(e.time_range.elapsed_us()
+             for e in _device_events(prof)) / reps / 1e3
+    events = _time_ms(fn, samples=5, per_sample=reps)
+    return (ms, "profiler") if ms > 0 and ms >= floor_ms else (events,
+                                                               "events")
+
+
+def _host_ms(fn, calls=50):
+    """Median host milliseconds of one synchronised call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _plant(fault):
+    """Plant one fault in this rank's mesh path (``--mesh-faults``):
+    ``halo`` zeroes the rows K8 receives from its neighbours; ``reduce``
+    leaves the inner product of two vectors (``pair``, a 0-dim partial)
+    rank-local, while the row products and K9's sums stay reduced;
+    ``none`` plants nothing."""
+    import torch
+    from krypy_tpu_torch.functional import common
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    if fault == "halo":
+        exchange = kst.halo_exchange
+
+        class Zeroed:
+            def __init__(self, handle):
+                self.handle = handle
+
+            def wait(self):
+                return tuple(torch.zeros_like(t) for t in self.handle.wait())
+
+        def zeroed(first, last, mesh=None, async_op=False):
+            handle = Zeroed(exchange(first, last, mesh=mesh, async_op=True))
+            return handle if async_op else handle.wait()
+
+        kst.halo_exchange = zeroed
+    elif fault == "reduce":
+        mesh_sum = common.mesh_sum
+        common.mesh_sum = lambda t: t if t.dim() == 0 else mesh_sum(t)
+
+
+def mesh_rank(backend, P, rank, workdir, plant=None):
+    """One rank of a mesh-phase world (``--mesh-rank``): K8 and K9
+    against the parent's single-device results, K4-K6 on the rank's
+    columns through ``PrefixCheck``, per-shard device times and host
+    times of the collectives, then the main path on the mesh; writes its
+    record to ``rank{rank}.json``.  With ``plant`` (a fault of
+    :func:`_plant`) only the main path runs, with that fault."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+    from krypy_tpu_torch import kernels, parallel
+    from krypy_tpu_torch.kernels import orthogonalize as korth
+    from krypy_tpu_torch.kernels import stencil as kst
+    from krypy_tpu_torch.kernels.parity import (
+        PrefixCheck,
+        cgs2_tolerances,
+        fma_atol,
+    )
+
+    workdir, P, rank = Path(workdir), int(P), int(rank)
+    device = torch.device(MESH_DEVICE)
+    parallel.init_distributed(parallel.file_rendezvous(workdir), P, rank,
+                              backend, timeout=MESH_DIST_TIMEOUT)
+    try:
+        mesh = parallel.make_mesh(P, device=device)
+        if plant:
+            _plant(plant)
+            with mesh:
+                solves = _mesh_solves(device, mesh)
+            (workdir / f"rank{rank}.json").write_text(json.dumps(
+                {"rank": rank, "P": P, "backend": backend, "plant": plant,
+                 "solves": solves}))
+            return
+        tag = f"mesh {backend} P={P} rank={rank}"
+        nx, N = MESH_NX, MESH_NX ** 2
+        blk = parallel.block_of(N, mesh)
+        n_loc = blk.stop - blk.start
+        co = _cd_raw(nx)
+        ref = torch.load(workdir / "ref.pt")
+        x, V, w, c_in = _mesh_inputs(device)
+        x_loc = x[blk].contiguous()
+        rec = {"rank": rank, "P": P, "backend": backend}
+
+        # K8 against the single-device K1 matvec, gathered on every rank
+        kernels.reset_launch_counts()
+        parallel.reset_collective_counts()
+        y = parallel.gather_vector(
+            kst.stencil5_sharded(x_loc, nx=nx, ny=nx, coeffs=co, mesh=mesh),
+            mesh)
+        if kernels.launch_counts()["stencil5_sharded"] != 1 or \
+                parallel.collective_counts()["halo_exchange"] != 1:
+            raise AssertionError(f"{tag}: K8 did not launch once with one "
+                                 "halo exchange")
+        # directly against the plain stencil in float64 on the same x, at
+        # the bound the plain float32 stencil's own error sets; then
+        # against the single-device K1 matvec
+        want64 = kst.stencil5_affine_torch(x.double().view(nx, nx), None,
+                                           co, nx, nx).view(-1)
+        plain32 = kst.stencil5_affine_torch(x.view(nx, nx), None, co, nx,
+                                            nx).view(-1)
+        atol = fma_atol(plain32, want64)
+        err64 = (y.double() - want64).abs()
+        rec["k8_max_abs_err"] = float(err64.max())
+        want = ref["k1"].to(device)
+        err = (y - want).abs()
+        for label, e, y_ref in (("the plain stencil in float64", err64,
+                                 want64),
+                                ("the single-device K1 matvec", err, want)):
+            if not bool(torch.all(e <= atol + 2e-6 * y_ref.abs())):
+                raise AssertionError(
+                    f"{tag}: K8 against {label}: max abs err "
+                    f"{float(e.max()):.3e} exceeds rtol=2e-6, "
+                    f"atol={atol:.3e}")
+        print(f"{tag}: K8 ({nx // P}x{nx} rows per rank): max_abs_err "
+              f"against the plain stencil in float64 "
+              f"{rec['k8_max_abs_err']:.3e}, against the single-device K1 "
+              f"matvec {float(err.max()):.3e} (atol={atol:.3e})", flush=True)
+        del y, want, want64, plain32, err, err64
+
+        # K4-K6 on the rank's columns, held to float64; K9 against the
+        # single-device K4 -> K5 -> K6
+        rows, mask = NS_ROWS[0], _mesh_mask(device)
+        V_loc, w_loc = V[:, blk].contiguous(), w[blk].contiguous()
+        got = {"project_prefix": (korth.project_prefix(V_loc, w_loc, mask,
+                                                       rows=rows),),
+               "apply_project": korth.apply_project(V_loc, w_loc, c_in, mask,
+                                                    rows=rows),
+               "update_prefix": (korth.update_prefix(V_loc, w_loc, c_in,
+                                                     rows=rows),)}
+        plain = {"project_prefix": (korth.project_prefix_torch(
+                     V_loc, w_loc, mask, rows),),
+                 "apply_project": korth.apply_project_torch(
+                     V_loc, w_loc, c_in, mask, rows),
+                 "update_prefix": (korth.update_prefix_torch(
+                     V_loc, w_loc, c_in, rows),)}
+        bad = PrefixCheck(V_loc, w_loc, c_in, mask, rows, plain).failures(got)
+        if bad:
+            raise AssertionError(f"{tag}: {bad} miss their float64 values "
+                                 "on the rank's columns")
+        del got, plain
+        w2_loc, c = korth.cgs2_fused_sharded(V_loc, w_loc, mask, mesh=mesh,
+                                             rows=rows, n=N)
+        w2 = parallel.gather_vector(w2_loc, mesh)
+        rec["k9_coefficients"] = c.tolist()
+        if not bool(torch.all(c[rows:] == 0)):
+            raise AssertionError(f"{tag}: K9's masked coefficients are not 0")
+        # directly against the plain K4 -> K5 -> K6 in float64, then
+        # against the single-device kernels
+        errs = {}
+        for label, key in (("the plain K4->K5->K6 in float64", "64"),
+                           ("the single-device K4->K5->K6", "")):
+            ref_w2 = ref[f"w2{key}"].to(device).double()
+            ref_c = ref[f"c{key}"].to(device).double()
+            t_c, t_w = cgs2_tolerances(V, w, ref_c, mask, rows)
+            err_c = (c[:rows].double() - ref_c[:rows]).abs()
+            err_w = (w2.double() - ref_w2).abs()
+            errs[label] = (float(err_c.max()), float(err_w.max()))
+            if not (bool(torch.all(err_c <= t_c))
+                    and bool(torch.all(err_w <= t_w))):
+                raise AssertionError(
+                    f"{tag}: K9 against {label}: coefficients off by "
+                    f"{errs[label][0]:.3e} (tolerance {float(t_c.min()):.3e}"
+                    f" and up), w2 by {errs[label][1]:.3e}")
+            del ref_w2, err_w, t_w
+        rec["k9_max_abs_err"] = max(errs["the plain K4->K5->K6 in float64"])
+        print(f"{tag}: K4-K6 on the rank's {n_loc} columns held to float64; "
+              f"K9 max_abs_err (coefficients, w2): " + "; ".join(
+                  f"against {label} {ec:.3e}, {ew:.3e}"
+                  for label, (ec, ew) in errs.items()), flush=True)
+        del V, w, x, w2, ref
+        torch.cuda.empty_cache()
+
+        # per-shard device times (every rank makes the same calls)
+        b8_ms, b8_by = bound((2 * n_loc + 2 * nx) * 4, 15 * n_loc)
+        b9_ms, b9_by = bound((rows * n_loc + 2 * n_loc + 2 * mask.numel())
+                             * 4, 8 * rows * n_loc)
+
+        def k9_plain():
+            c1 = parallel.all_reduce_sum(korth.project_prefix_torch(
+                V_loc, w_loc, mask, rows), mesh)
+            w1, c2 = korth.apply_project_torch(V_loc, w_loc, c1, mask, rows)
+            return korth.update_prefix_torch(
+                V_loc, w1, parallel.all_reduce_sum(c2, mesh), rows)
+
+        timings = {
+            "stencil5_sharded": (
+                lambda: kst.stencil5_sharded(x_loc, nx=nx, ny=nx, coeffs=co,
+                                             mesh=mesh),
+                lambda: kst.stencil5_sharded_torch(x_loc, nx=nx, ny=nx,
+                                                   coeffs=co, mesh=mesh),
+                b8_ms, b8_by),
+            "cgs2_fused_sharded": (
+                lambda: korth.cgs2_fused_sharded(V_loc, w_loc, mask,
+                                                 mesh=mesh, rows=rows, n=N),
+                k9_plain, b9_ms, b9_by),
+        }
+        rec["times"] = {}
+        for name, (kern, pl, b_ms, b_by) in timings.items():
+            ms, src = _mesh_device_ms(kern, b_ms)
+            plain_ms, plain_src = _mesh_device_ms(pl, b_ms)
+            rec["times"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by,
+                                      timed_by=dict(ms=src,
+                                                    plain_ms=plain_src))
+            print(f"{tag}: timing {name} per shard device_ms kernel={ms:.5f} "
+                  f"({src}) plain={plain_ms:.5f} ({plain_src}) "
+                  f"bound={b_ms:.5f} ({b_by})", flush=True)
+        u = x_loc.view(-1, nx)
+        rec["host_ms"] = {
+            "all_reduce_sum (26 float32)": _host_ms(
+                lambda: parallel.all_reduce_sum(c_in, mesh)),
+            f"halo_exchange (2 rows of {nx} float32)": _host_ms(
+                lambda: parallel.halo_exchange(u[0], u[-1], mesh)),
+        }
+        if backend == "gloo":
+            # the same on CPU tensors: gloo alone, without the staging
+            c_cpu, u_cpu = c_in.cpu(), u[[0, -1]].cpu()
+            rec["host_ms"].update({
+                "all_reduce_sum, CPU tensor": _host_ms(
+                    lambda: parallel.all_reduce_sum(c_cpu, mesh)),
+                "halo_exchange, CPU rows": _host_ms(
+                    lambda: parallel.halo_exchange(u_cpu[0], u_cpu[1],
+                                                   mesh)),
+            })
+        print(f"{tag}: host ms per collective {rec['host_ms']}", flush=True)
+        del V_loc, w_loc, x_loc, u
+        torch.cuda.empty_cache()
+
+        # the main path on the mesh
+        with mesh:
+            rec["solves"] = _mesh_solves(device, mesh)
+        (workdir / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_world(backend, P, workdir, timeout, plant=None):
+    """Run the P rank processes of one world
+    (:func:`krypy_tpu_torch.parallel.launch_ranks`: it raises, after
+    killing every rank still running, as soon as one fails or the deadline
+    passes).  Prints the ranks' logs and returns their records."""
+    from pathlib import Path
+
+    from krypy_tpu_torch import parallel
+
+    extra = ["--plant", plant] if plant else []
+    logs = parallel.launch_ranks(
+        lambda r: [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                   backend, str(P), str(r), str(workdir)] + extra,
+        P, workdir, timeout)
+    print("\n".join(f"[{backend} P={P} rank {r}] {ln}"
+                    for r, text in enumerate(logs)
+                    for ln in text.splitlines()), flush=True)
+    return [json.loads((Path(workdir) / f"rank{r}.json").read_text())
+            for r in range(P)]
+
+
+def _history_rel(got, want):
+    """The largest relative difference between two runs' residual
+    histories (one list per solve); inf where their iteration counts
+    differ or a value is not finite."""
+    if [len(h) for h in got] != [len(h) for h in want]:
+        return math.inf
+    rel = [abs(a - b) / abs(b) for g, h in zip(got, want)
+           for a, b in zip(g, h)]
+    return max(rel) if all(math.isfinite(r) for r in rel) else math.inf
+
+
+def _check_mesh_world(backend, P, ranks, ref):
+    """The gates of one world against the single-device run: equal
+    iteration and matvec counts, residual histories within ``MESH_RTOL``
+    and bitwise equal on every rank, K8 once per matvec, K9 once per
+    GMRES iteration, three all-reduces per GMRES iteration and one halo
+    exchange per matvec, and a deflated second recycled solve."""
+    from krypy_tpu_torch import suite
+
+    tag = f"mesh {backend} P={P}"
+    r0 = ranks[0]["solves"]
+    for name, one in ref.items():
+        if name == "recycling" and r0[name]["deflated_width"] != \
+                suite.N_VECTORS:
+            raise AssertionError(f"{tag}: the second recycled solve did not "
+                                 f"run deflated: {r0[name]}")
+        for r in ranks[1:]:
+            if r["solves"][name]["resnorms"] != r0[name]["resnorms"]:
+                raise AssertionError(f"{tag} {name}: rank {r['rank']}'s "
+                                     "residual history differs from rank "
+                                     "0's (replicated state must be the "
+                                     "same bits)")
+        got, want = r0[name]["resnorms"], one["resnorms"]
+        if [len(h) for h in got] != [len(h) for h in want] or \
+                r0[name]["status"] != one["status"]:
+            raise AssertionError(f"{tag} {name}: iterations/status "
+                                 f"{[len(h) - 1 for h in got]} "
+                                 f"{r0[name]['status']} against one device "
+                                 f"{[len(h) - 1 for h in want]} "
+                                 f"{one['status']}")
+        rel = _history_rel(got, want)
+        launches, coll = r0[name]["launches"], r0[name]["collectives"]
+        matvecs = one["launches"]["stencil5_affine"]
+        iters = sum(len(h) - 1 for h in got)
+        print(f"{tag} {name}: {iters} iterations, {matvecs} matvecs as on "
+              f"one device; residual history max rel diff {rel:.3e} "
+              f"(tolerance {MESH_RTOL[name]}); launches {launches}; "
+              f"collectives {coll}", flush=True)
+        if not rel <= MESH_RTOL[name]:
+            raise AssertionError(f"{tag} {name}: residual histories differ "
+                                 f"by {rel:.3e} > {MESH_RTOL[name]}")
+        if launches["stencil5_sharded"] != matvecs or \
+                coll["halo_exchange"] != matvecs:
+            raise AssertionError(f"{tag} {name}: {matvecs} matvecs on one "
+                                 f"device, K8 {launches['stencil5_sharded']}"
+                                 f" and {coll['halo_exchange']} exchanges")
+        if name == "gmres":
+            per_cycle = 4  # the global N, two initial norms, the final one
+            if launches["cgs2_fused_sharded"] != iters or \
+                    coll["all_reduce_sum"] != 3 * iters + per_cycle * \
+                    MESH_CYCLES:
+                raise AssertionError(
+                    f"{tag} gmres: K9 {launches['cgs2_fused_sharded']} "
+                    f"launches and {coll['all_reduce_sum']} all-reduces in "
+                    f"{iters} iterations of {MESH_CYCLES} cycles: expected "
+                    f"one K9 and three all-reduces per iteration plus "
+                    f"{per_cycle} per cycle")
+
+
+def mesh_phase(device):
+    """The multi-device path on one card: single-device references (K1's
+    matvec, K4 -> K5 -> K6, the main path) computed here, then each world
+    of ``MESH_WORLDS`` started as rank processes sharing ``cuda:0`` and
+    gated.  The times are per-shard device times and host times of the
+    collectives on ONE card: no multi-GPU speed-up is measured.  Returns
+    ``{(backend, P): rank records}``."""
+    import tempfile
+
+    import torch
+    from krypy_tpu_torch import kernels
+    from krypy_tpu_torch.kernels import orthogonalize as korth
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    torch.cuda.empty_cache()
+    nx, rows, mask = MESH_NX, NS_ROWS[0], _mesh_mask(device)
+    x, V, w, _ = _mesh_inputs(device)
+    k1 = kst.stencil5_pipelined(x, nx=nx, ny=nx, coeffs=_cd_raw(nx))
+    w2, c = korth.cgs2_fused(V, w, mask, rows=rows)
+    refs = {"k1": k1.cpu(), "w2": w2.cpu(), "c": c.cpu()}
+    del x, k1, w2, c
+    # the plain K4 -> K5 -> K6 in float64
+    V64, w64, mask64 = V[:rows].double(), w.double(), mask[:rows].double()
+    del V, w
+    c1 = korth.project_prefix_torch(V64, w64, mask64, rows)
+    w1, c2 = korth.apply_project_torch(V64, w64, c1, mask64, rows)
+    refs["w264"] = korth.update_prefix_torch(V64, w1, c2, rows).cpu()
+    refs["c64"] = (c1 + c2).cpu()
+    del V64, w64, c1, w1, c2
+    torch.cuda.empty_cache()
+    one = _mesh_solves(device)
+    for name, r in one.items():
+        print(f"mesh one device {name}: iterations "
+              f"{[len(h) - 1 for h in r['resnorms']]} launches "
+              f"{r['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    worlds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for backend, P in MESH_WORLDS:
+            workdir = f"{tmp}/{backend}{P}"
+            os.makedirs(workdir)
+            torch.save(refs, f"{workdir}/ref.pt")
+            t0 = time.perf_counter()
+            ranks = _run_world(backend, P, workdir, MESH_WORLD_TIMEOUT)
+            _check_mesh_world(backend, P, ranks, one)
+            coeffs = {json.dumps(r["k9_coefficients"]) for r in ranks}
+            if len(coeffs) != 1:
+                raise AssertionError(f"mesh {backend} P={P}: K9's "
+                                     "coefficients differ between ranks")
+            worlds[backend, P] = ranks
+            t = ranks[0]["times"]
+            print(f"mesh {backend} P={P}: world done in "
+                  f"{time.perf_counter() - t0:.1f} s; rank 0 per-shard "
+                  f"device ms K8 {t['stencil5_sharded']['ms']:.5f} (bound "
+                  f"{t['stencil5_sharded']['bound_ms']:.5f}), K9 "
+                  f"{t['cgs2_fused_sharded']['ms']:.5f} (bound "
+                  f"{t['cgs2_fused_sharded']['bound_ms']:.5f}); host ms "
+                  f"{ranks[0]['host_ms']} (P ranks share ONE card: per-shard "
+                  "kernels and the transport's host cost, no multi-GPU "
+                  "speed-up)", flush=True)
+    kernels.reset_launch_counts()
+    return worlds
+
+
+def mesh_fault_phase(device):
+    """``--mesh-faults``: the readings that ``MESH_RTOL`` lies between.
+    The mesh phase's main path on one device, then on a gloo world of 2
+    ranks on the card: sound, and with each fault of ``MESH_FAULTS``
+    planted (:func:`_plant`).  Prints each solve's residual-history
+    reading against one device beside its limit; fails unless the sound
+    world is within every limit, each fault lands above the limit in at
+    least one solve, and each solve's limit catches at least one fault
+    (a world that fails or passes its deadline counts as caught in every
+    solve)."""
+    import tempfile
+
+    one = _mesh_solves(device)
+    readings = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+        for plant in ("none",) + MESH_FAULTS:
+            workdir = f"{tmp}/{plant}"
+            os.makedirs(workdir)
+            try:
+                ranks = _run_world("gloo", 2, workdir, MESH_FAULT_TIMEOUT,
+                                   plant)
+            except RuntimeError as e:
+                if plant == "none":
+                    raise
+                print(f"mesh fault {plant}: the world failed "
+                      f"({str(e).splitlines()[0]}): caught", flush=True)
+                readings[plant] = dict.fromkeys(one, math.inf)
+                continue
+            r0 = ranks[0]["solves"]
+            readings[plant] = {
+                name: _history_rel(r0[name]["resnorms"], w["resnorms"])
+                for name, w in one.items()}
+            print(f"mesh fault {plant}: residual history max rel diff "
+                  "against one device: " + ", ".join(
+                      f"{name} {rel:.3e} (limit {MESH_RTOL[name]})"
+                      for name, rel in readings[plant].items()), flush=True)
+    caught = {plant: [name for name, rel in r.items()
+                      if rel > MESH_RTOL[name]]
+              for plant, r in readings.items()}
+    blind = [name for name in one
+             if not any(name in caught[p] for p in MESH_FAULTS)]
+    print(f"mesh faults caught by solve: {caught}", flush=True)
+    if caught["none"] or not all(caught[p] for p in MESH_FAULTS) or blind:
+        raise AssertionError(
+            f"mesh faults: sound world above its limits in "
+            f"{caught['none']}; faults caught nowhere: "
+            f"{[p for p in MESH_FAULTS if not caught[p]]}; solves that "
+            f"catch no fault: {blind}")
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -1297,6 +1896,50 @@ LIBRARY = {
 }
 
 
+#: the sharded kernels: the TPU function each replaces, the wrapper that
+#: composes it and the CUDA source of the kernels it launches per shard
+MESH_KERNELS = {
+    "stencil5_sharded": ("krypy_tpu/kernels/stencil.py:561", "stencil.py",
+                         "stencil5.cu", "k8"),
+    "cgs2_fused_sharded": ("krypy_tpu/kernels/orthogonalize.py:355",
+                           "orthogonalize.py", "orthogonalize.cu", "k9"),
+}
+
+
+def _mesh_rows(worlds):
+    """The K8 and K9 rows of the ``kernels`` line: launches summed over
+    the main path of rank 0 of every world, the largest error of any
+    rank, and rank 0's per-shard times in the widest world (the other
+    worlds' beside them)."""
+    widest = worlds[MESH_WORLDS[-1]][0]
+    rows = []
+    for name, (src, py, cu, key) in MESH_KERNELS.items():
+        t = widest["times"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"krypy_tpu_torch/kernels/{py}",
+            "kernel_source": f"krypy_tpu_torch/kernels/csrc/{cu}",
+            "replaces": src,
+            "launches": sum(s["launches"][name]
+                            for ranks in worlds.values()
+                            for s in ranks[0]["solves"].values()),
+            "launches_of": "mesh phase main path, rank 0 of "
+                           + ", ".join(f"{b} P={P}" for b, P in worlds),
+            "max_abs_err": max(r[f"{key}_max_abs_err"]
+                               for ranks in worlds.values() for r in ranks),
+            "max_abs_err_of": "gathered, against the plain version in "
+                              "float64, every rank of every world",
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library": None, "timed_by": t["timed_by"],
+            "per_shard_of": f"{MESH_WORLDS[-1][0]} P={MESH_WORLDS[-1][1]} "
+                            "rank 0, all ranks on one card",
+            "ms_by_world": {f"{b} P={P}": ranks[0]["times"][name]["ms"]
+                            for (b, P), ranks in worlds.items()},
+        })
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1306,7 +1949,20 @@ def main(argv=None):
                     help="run ONLY the witnesses of config 4's float32 "
                          "findings (float64 inner arithmetic, the six "
                          "lane pairings); prints no result line")
+    ap.add_argument("--mesh-faults", action="store_true",
+                    help="run ONLY the mesh phase's solves with planted "
+                         "faults, against its residual-history limits; "
+                         "prints no result line")
+    ap.add_argument("--mesh-rank", nargs=4,
+                    metavar=("BACKEND", "P", "RANK", "DIR"),
+                    help="run one rank of the mesh phase (the script starts "
+                         "these processes itself)")
+    ap.add_argument("--plant", choices=("none",) + MESH_FAULTS,
+                    help="with --mesh-rank: the fault to plant")
     args = ap.parse_args(argv)
+    if args.mesh_rank:
+        mesh_rank(*args.mesh_rank, plant=args.plant)
+        return
 
     import torch
 
@@ -1331,6 +1987,9 @@ def main(argv=None):
     if args.witness:
         witness_phase(device)
         return
+    if args.mesh_faults:
+        mesh_fault_phase(device)
+        return
     report = stencil_phase(device)
     laplacian_entry_phase(device)
     report.update(ortho_phase(device))
@@ -1343,7 +2002,7 @@ def main(argv=None):
     c4_counts, c4_solves, c4_b, c4_record = config4_phase(device)
     walls = timing_phase("config4 deflated", c4_solves, c4_b, C4_ROUNDS)
     for lane, ts in walls.items():
-        c4_record[lane]["deflated"]["wall_s_of_5"] = dict(
+        c4_record[lane]["deflated"][f"wall_s_of_{C4_ROUNDS}"] = dict(
             median=statistics.median(ts), min=min(ts), max=max(ts))
     print(json.dumps(c4_record), flush=True)
     rec_counts = recycling_phase(device, C4_FULL)
@@ -1353,6 +2012,7 @@ def main(argv=None):
     s3_counts = {k: full_counts[k] + c + rec_counts[k]
                  for k, c in c4_counts.items()}
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
+    worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
         _profile_solve("northstar", ns_solves["cuda"], ns_b, args.profile)
@@ -1382,6 +2042,7 @@ def main(argv=None):
             # calls, taken where the profiler recorded no device events
             "timed_by": t["timed_by"],
         })
+    rows += _mesh_rows(worlds)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,11 @@ the updated relative residual, to decide whether to stop and whether to
 verify against the explicit residual.  Every stop rule and every scalar
 comparison is made in the system's real dtype, as in the compiled loop,
 so the iteration counts agree with the JAX package.
+
+Under an active mesh (:mod:`krypy_tpu_torch.parallel`) the vectors are
+the rank's blocks and every inner product is a local partial and one
+all-reduce (:func:`~krypy_tpu_torch.functional.common.make_inner`); the
+scalars of the recurrence are the same bits on every rank.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from .common import (
     apply,
     as_matvec,
     cast_matvec,
+    global_length,
     make_inner,
     norm_from_pair,
     safe_div,
@@ -86,7 +92,7 @@ def cg(
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]
-    maxiter = N if maxiter is None else int(maxiter)
+    maxiter = global_length(bv) if maxiter is None else int(maxiter)
     dev = bv.device
 
     pair, _ = make_inner(ip)

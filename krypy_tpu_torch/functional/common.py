@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import active_mesh, all_reduce_sum
+
 #: solve reached the requested tolerance
 CONVERGED = 0
 #: maxiter reached without convergence
@@ -70,6 +72,33 @@ def cast_matvec(mv, dtype):
     return lambda x: mv(x).to(dtype)
 
 
+def promote(*tensors):
+    """The tensors in their promoted dtype (jnp's rule, which products in
+    torch do not apply: a float32 vector against a float64 one, e.g. a
+    Jacobi preconditioner's float64 diagonal, promotes as in the JAX
+    package)."""
+    dt = system_dtype(*tensors)
+    return tuple(t.to(dt) for t in tensors)
+
+
+def mesh_sum(t):
+    """``t`` summed over the ranks of the active mesh (one all-reduce),
+    or ``t`` itself where no mesh is active: the second half of every
+    reduction over N, whose first half is the rank's local partial."""
+    mesh = active_mesh()
+    return t if mesh is None else all_reduce_sum(t, mesh)
+
+
+def global_length(v):
+    """The length of the vector whose block on this rank is ``v`` (one
+    all-reduce under an active mesh; ``v``'s own length otherwise)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return v.shape[0]
+    return int(all_reduce_sum(torch.tensor(v.shape[0], device=v.device),
+                              mesh))
+
+
 def make_inner(ip):
     """Build the inner-product forms used by the cores.
 
@@ -78,26 +107,57 @@ def make_inner(ip):
       scalar callable ``ip(x, y)`` on 1-D vectors.
     :return: ``(pair, rows)``: ``pair(x, y) -> 0-dim tensor`` and
       ``rows(V, w) -> (m,)`` for every row of ``V``.
+
+    Under an active mesh (:func:`krypy_tpu_torch.parallel.active_mesh`)
+    vectors are the rank's blocks, and each form is the local partial
+    plus one all-reduce.  A matrix ``B`` must then be rank-local: an
+    operator built with ``mesh=`` that mesh, or a 2-D tensor acting on
+    the rank's block; a scalar callable, or any other ``B``, raises
+    ``NotImplementedError``.
     """
+    mesh = active_mesh()
     if ip is None:
         def pair(x, y):
-            return torch.vdot(x, y)
+            return mesh_sum(torch.vdot(*promote(x, y)))
 
         def rows(V, w):
-            return V.conj() @ w
+            V, w = promote(V, w)
+            return mesh_sum(V.conj() @ w)
 
         return pair, rows
 
     if isinstance(ip, torch.Tensor) or hasattr(ip, "shape"):
+        if mesh is not None and not isinstance(ip, torch.Tensor) and \
+                getattr(ip, "mesh", None) is not mesh:
+            raise NotImplementedError(
+                "an inner-product matrix on a mesh must be rank-local (an "
+                "operator built with mesh= the active mesh, or a 2-D "
+                "tensor on the rank's block; ROADMAP.md queue A, slice 5)")
         Bmv = as_matvec(ip)
 
+        def local(y):
+            if mesh is not None and isinstance(ip, torch.Tensor) and \
+                    ip.shape != (y.shape[0], y.shape[0]):
+                raise NotImplementedError(
+                    f"inner-product matrix of shape {tuple(ip.shape)} on "
+                    f"a rank block of {y.shape[0]}: a mesh takes a "
+                    "rank-local B only")
+            return Bmv(y)
+
         def pair(x, y):
-            return torch.vdot(x, Bmv(y))
+            return mesh_sum(torch.vdot(*promote(x, local(y))))
 
         def rows(V, w):
-            return V.conj() @ Bmv(w)
+            V, Bw = promote(V, local(w))
+            return mesh_sum(V.conj() @ Bw)
 
         return pair, rows
+
+    if mesh is not None and callable(ip):
+        raise NotImplementedError(
+            "a scalar-callable inner product on a mesh is not ported (the "
+            "port cannot tell a rank's partial from the whole product; "
+            "ROADMAP.md queue A, slice 5)")
 
     if callable(ip):
         def pair(x, y):

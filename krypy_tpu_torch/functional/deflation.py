@@ -32,6 +32,16 @@ inverse, and no host synchronisation.
 
 There is nothing to compile in torch, so the compiled-solve cache of
 the JAX ``RecyclingGmres`` is not ported.
+
+On a mesh (inside ``with mesh:``, :mod:`krypy_tpu_torch.parallel`) every
+N-long vector and basis is the rank's block (a basis ``(N, d)`` its rows
+of the block), every Gram product over N sums over the ranks through
+:func:`~krypy_tpu_torch.functional.common.make_inner` or
+:func:`~krypy_tpu_torch.functional.common.mesh_sum`, and the small
+matrices, the Ritz eigenproblem on the host among them, are the same on
+every rank; a Ritz vector is assembled from the rank's own basis rows.
+The Ritz extraction of a sharded solve must run under the mesh it ran
+on (``RecyclingGmres.solve`` does).
 """
 
 import time
@@ -40,7 +50,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .common import apply, as_matvec, make_inner, safe_div
+from .common import (
+    apply,
+    as_matvec,
+    make_inner,
+    mesh_sum,
+    promote,
+    safe_div,
+)
 from .gmres import gmres as _gmres
 
 __all__ = [
@@ -170,7 +187,7 @@ def _lu_solver(mat):
     LU, piv, _ = torch.linalg.lu_factor_ex(mat)
 
     def solve(c):
-        return torch.linalg.lu_solve(LU, piv, c[:, None])[:, 0]
+        return torch.linalg.lu_solve(LU, piv, c[:, None].to(LU.dtype))[:, 0]
 
     return solve
 
@@ -182,7 +199,8 @@ def _proj_complement(defl, rows):
     solve_G = _lu_solver(defl.G)
 
     def once(z):
-        return z - solve_G(rows(UoT, z)) @ W2T
+        c, B = promote(solve_G(rows(UoT, z)), W2T)
+        return z - c @ B
 
     return lambda z: once(once(z))
 
@@ -195,7 +213,8 @@ def _correction(defl, rows, A_mv, Ml_mv, bv):
 
     def correct(xk):
         r = apply(Ml_mv, bv - A_mv(xk))
-        return xk + solve_E(rows(UoT, r)) @ UoT
+        c, B = promote(solve_E(rows(UoT, r)), UoT)
+        return xk + c @ B
 
     return correct
 
@@ -375,7 +394,9 @@ def _augmented_galerkin(internals):
         return H_dev.cpu().numpy()[:n, :n], n, d
 
     C_dev, V = internals["C"], internals["V"]
-    B_dev = V.conj() @ internals["AU"]  # (m+1, d) Gram block <V, AU>
+    # (m+1, d) Gram block <V, AU>, summed over the mesh's blocks
+    Vc, AU = promote(V.conj(), internals["AU"])
+    B_dev = mesh_sum(Vc @ AU)
     dt = H_dev.dtype
     for t in (C_dev, E_dev, B_dev):
         dt = torch.promote_types(dt, t.dtype)

@@ -25,12 +25,30 @@ once or twice, ``"cgs2_fused"`` the three prefix sweeps K4-K6.  The JAX
 package's static prefix buckets and full-height masked kernel sweep are
 not ported: ``rows`` is a run-time argument, and the rows past ``k`` are
 zero with zero mask, so the arithmetic is the same.
+
+Under an active mesh (:mod:`krypy_tpu_torch.parallel`) ``b``, ``x0``
+and the basis rows are the rank's blocks: every reduction over N (the
+norms, the residual and error norms, ``cgs``/``cgs2``'s coefficients)
+is a local partial and one all-reduce, through
+:func:`~krypy_tpu_torch.functional.common.make_inner`, and
+``"cgs2_fused"`` runs K9 (:func:`~krypy_tpu_torch.kernels.orthogonalize.
+cgs2_fused_sharded`): three all-reduces per iteration either way.  The
+Hessenberg matrix, the rotations and the projected right-hand side are
+replicated, the same bits on every rank, so every rank takes the same
+branches.  A solve starts with one all-reduce more than on one device,
+the global N.
 """
 
 import numpy as np
 import torch
 
-from ..kernels.orthogonalize import cgs2_fused, cgs_project, max_rows
+from ..kernels.orthogonalize import (
+    cgs2_fused,
+    cgs2_fused_sharded,
+    cgs_project,
+    max_rows,
+)
+from ..parallel import active_mesh
 from .common import (
     BREAKDOWN,
     CONVERGED,
@@ -41,6 +59,7 @@ from .common import (
     breakdown_threshold,
     cast_matvec,
     givens,
+    global_length,
     make_inner,
     norm_from_pair,
     safe_div,
@@ -60,24 +79,38 @@ _KERNEL_OF = {"cgs_pallas": "cgs_project", "cgs2_pallas": "cgs_project",
 _UNPORTED_ORTHO = ("mgs", "dmgs", "bmgs", "bmgs2", "cgs2_1r")
 
 
-def _resolve_ortho(ortho, dtype, device, rows, with_M=False):
+def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None,
+                   n=None):
     """The port's ``ortho="auto"`` rule: ``cgs2_fused`` for a float32
     system on a CUDA device whose ``rows``-row basis fits the kernels
-    (Euclidean inner product, no ``M``, no ``basis_dtype``), ``cgs2``
-    otherwise.  An explicit kernel scheme on a CUDA device with a basis
-    taller than its kernels take raises here, before the first
-    iteration; so does ``cgs2_fused`` with ``M`` (it has no dual-basis
-    form)."""
+    (Euclidean inner product, no ``M``, no ``basis_dtype``) and, on a
+    mesh, whose global length ``n`` divides over it; ``cgs2`` otherwise.
+    An explicit kernel scheme on a CUDA device with a basis taller than
+    its kernels take raises here, before the first iteration; so do
+    ``cgs2_fused`` with ``M`` (it has no dual-basis form) or, on a mesh,
+    with ``n`` that does not divide over it, and ``cgs_pallas`` /
+    ``cgs2_pallas`` on a mesh (K7 has no sharded form)."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
+    even = mesh is None or n % mesh.size == 0
     if ortho == "auto":
         if dtype == torch.float32 and device.type == "cuda" and \
-                not with_M and rows <= max_rows(itemsize):
+                not with_M and rows <= max_rows(itemsize) and even:
             return "cgs2_fused"
         return "cgs2"
     if ortho == "cgs2_fused" and with_M:
         raise ValueError(
             "ortho='cgs2_fused' does not support the dual-basis form "
             "required by M; use ortho='cgs2' or 'cgs2_pallas'")
+    if ortho == "cgs2_fused" and not even:
+        raise ValueError(
+            f"N={n} must divide over the mesh size {mesh.size} for the "
+            "sharded fused path (use ortho='cgs2' otherwise)")
+    if mesh is not None and ortho in ("cgs_pallas", "cgs2_pallas"):
+        raise NotImplementedError(
+            f"gmres ortho={ortho!r} on a mesh: K7 sums its coefficients "
+            "between its two phases inside one C entry, so a sharded K7 "
+            "needs that entry split (ROADMAP.md queue B); use "
+            "ortho='cgs2' or 'cgs2_fused'")
     if ortho in _KERNEL_OF and device.type == "cuda":
         limit = max_rows(itemsize, _KERNEL_OF[ortho])
         if rows > limit:
@@ -141,6 +174,10 @@ def gmres(
       :func:`~krypy_tpu_torch.kernels.orthogonalize.max_rows`, 1709 in
       float32), ``"cgs2"`` otherwise.  A kernel scheme on a CUDA device
       with a taller basis than its kernels take raises ``ValueError``.
+      Under an active mesh ``"cgs2_fused"`` runs K9 (N must divide over
+      the mesh: ``auto`` picks it only then, an explicit one raises
+      ``ValueError`` otherwise), and ``"cgs_pallas"``/``"cgs2_pallas"``
+      raise ``NotImplementedError``.
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
     :param progress: print the relative residual of each iteration.
@@ -179,11 +216,13 @@ def gmres(
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]
-    m = N if maxiter is None else int(maxiter)
+    mesh = active_mesh()
+    n_global = global_length(bv)
+    m = n_global if maxiter is None else int(maxiter)
     dev = bv.device
     dtype = system_dtype(bv, x0)
     with_M = M is not None
-    ortho = _resolve_ortho(ortho, dtype, dev, m + 1, with_M)
+    ortho = _resolve_ortho(ortho, dtype, dev, m + 1, with_M, mesh, n_global)
     passes = _PASSES[ortho]
 
     pair, rows = make_inner(None)
@@ -263,6 +302,9 @@ def gmres(
         0..k of V, subtracting along the dual basis P when M is
         present."""
         mask = (row_idx <= k).to(real_dtype)
+        if ortho == "cgs2_fused" and mesh is not None:
+            return cgs2_fused_sharded(V, w.contiguous(), mask, mesh=mesh,
+                                      rows=k + 1, n=n_global)
         if ortho == "cgs2_fused":
             return cgs2_fused(V, w.contiguous(), mask, rows=k + 1)
         h = torch.zeros(m + 1, dtype=dtype, device=dev)

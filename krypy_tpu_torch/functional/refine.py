@@ -16,6 +16,7 @@ import time
 
 import torch
 
+from ..parallel import active_mesh
 from .common import CONVERGED, MAXITER, SolveResult
 
 __all__ = ["refine_to"]
@@ -138,7 +139,14 @@ def refine_to(
     :return: ``(SolveResult, info)``; the result carries the float64 best
       iterate and the per-cycle outer residuals, ``info`` has ``cycles``,
       ``inner_iters`` and ``wall_s`` (and ``warm_s`` when compiled).
+
+    Under an active mesh it raises ``NotImplementedError``: its outer
+    norms are not sharded yet (ROADMAP.md queue A, slice 5).
     """
+    if active_mesh() is not None:
+        raise NotImplementedError(
+            "refine_to on a mesh is not ported yet (ROADMAP.md queue A, "
+            "slice 5)")
     if compiled:
         return _refine_to_compiled(
             A64, b, inner_solve, tol=tol, max_cycles=max_cycles, x0=x0,

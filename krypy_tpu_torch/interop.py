@@ -9,13 +9,21 @@ cross by calling the port's constructor with the same arguments as the
 JAX one (``nx``, ``pad_cols``, ``coarsest``, ``coarse_sweeps``, ...),
 since the JAX operators are closures whose only state is those
 arguments.
+
+On a mesh the numpy value of a sharded JAX array crosses as the rank's
+block (:func:`shard_from_numpy`, the layout of
+:func:`krypy_tpu_torch.parallel.shard_vector`) and comes back whole
+(:func:`gather_to_numpy`).
 """
 
 import numpy as np
 import torch
 
+from . import parallel
+
 __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
-           "internals_to_numpy", "basis_from_numpy"]
+           "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
+           "gather_to_numpy"]
 
 
 def from_numpy(arr, device):
@@ -61,3 +69,25 @@ def basis_from_numpy(U, device):
     and shape, stored as contiguous ``(d, N)`` rows (so that ``.T`` of it
     costs no copy)."""
     return from_numpy(np.ascontiguousarray(np.asarray(U).T), device).T
+
+
+def shard_from_numpy(arr, mesh, axis=-1):
+    """This rank's block of the numpy value of an array sharded along
+    ``axis`` (the last by default: a vector or basis rows ``(m, N)``;
+    ``axis=0`` for a deflation basis ``(N, d)``, which comes out as a view
+    of contiguous ``(d, N/P)`` rows, as :func:`basis_from_numpy` lays it
+    out), as a tensor on ``mesh.device``, same dtype."""
+    rows = parallel.shard_vector(np.moveaxis(np.asarray(arr), axis, -1),
+                                 mesh)
+    return rows.movedim(-1, axis)
+
+
+def gather_to_numpy(t, mesh, axis=-1):
+    """The inverse of :func:`shard_from_numpy`: the whole array from every
+    rank's block, as a numpy array.  Every rank must call it."""
+    rows = t.movedim(axis, -1)
+    flat = rows.reshape(-1, rows.shape[-1])
+    whole = torch.stack([parallel.gather_vector(r.contiguous(), mesh)
+                         for r in flat])
+    return np.moveaxis(to_numpy(whole).reshape(*rows.shape[:-1], -1), -1,
+                       axis)

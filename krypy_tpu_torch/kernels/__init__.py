@@ -5,6 +5,7 @@ from ._launch import launch_counts, reset_launch_counts
 from .orthogonalize import (
     apply_project,
     cgs2_fused,
+    cgs2_fused_sharded,
     cgs_project,
     project_prefix,
     update_prefix,
@@ -17,6 +18,7 @@ from .stencil import (
     stencil5_jacobi2,
     stencil5_pipelined,
     stencil5_resrestrict_rows,
+    stencil5_sharded,
 )
 
 __all__ = [
@@ -27,10 +29,12 @@ __all__ = [
     "laplacian_2d_pipelined",
     "laplacian_2d_kernel",
     "laplacian_2d",
+    "stencil5_sharded",
     "project_prefix",
     "apply_project",
     "update_prefix",
     "cgs2_fused",
+    "cgs2_fused_sharded",
     "cgs_project",
     "launch_counts",
     "reset_launch_counts",

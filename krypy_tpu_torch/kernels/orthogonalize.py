@@ -14,7 +14,9 @@ row-major ``(m, N)`` basis ``V``:
 * :func:`update_prefix` (K6): ``w - c[:rows]^T V[:rows]``;
 
 and :func:`cgs2_fused`, their composition K4 -> K5 -> K6: two-pass
-classical Gram-Schmidt in three sweeps of the prefix.  And the one behind
+classical Gram-Schmidt in three sweeps of the prefix, with
+:func:`cgs2_fused_sharded` (K9) its form on a basis whose columns are
+split over a mesh.  And the one behind
 ``ortho="cgs_pallas"``/``"cgs2_pallas"``:
 
 * :func:`cgs_project` (K7): one classical Gram-Schmidt pass, ``c =
@@ -34,6 +36,8 @@ for tensors on the CPU.
 
 import torch
 
+from ..parallel import all_reduce_sum
+from ._launch import LAUNCHES
 from ._launch import launch as _launch
 
 __all__ = [
@@ -41,6 +45,7 @@ __all__ = [
     "apply_project",
     "update_prefix",
     "cgs2_fused",
+    "cgs2_fused_sharded",
     "cgs_project",
     "cgs_project_torch",
     "project_prefix_torch",
@@ -261,6 +266,41 @@ def cgs2_fused(V, w, mask, *, rows=None):
     c1 = project_prefix(V, w, mask, rows=rows)
     w1, c2 = apply_project(V, w, c1, mask, rows=rows)
     return update_prefix(V, w1, c2, rows=rows), c1 + c2
+
+
+def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, n=None):
+    """K9: :func:`cgs2_fused` on a basis whose columns are split over
+    ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`): ``V`` is the
+    rank's ``(m, N/P)`` columns and ``w`` its block.  K4 on the rank's
+    columns, the sum of the partial coefficients over the ranks, K5,
+    the second sum, K6: three local sweeps and two
+    :func:`~krypy_tpu_torch.parallel.all_reduce_sum` calls of m values.
+    Returns ``(w2, c1 + c2)``, the rank's block of ``w2`` and the
+    coefficients, the same on every rank.  Counterpart of
+    ``krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded`` (its lines
+    399-414, line for line).
+
+    ``n`` is the global N; without it K9 sums the blocks' lengths first
+    (a third all-reduce).  N must divide over the mesh, else
+    ``ValueError``; on the card ``rows`` must fit the kernels
+    (:func:`max_rows`), as for :func:`cgs2_fused`.  On a CUDA
+    tensor it counts one ``cgs2_fused_sharded`` launch beside K4-K6's
+    own."""
+    n_loc = V.shape[1]
+    if n is None:
+        n = int(all_reduce_sum(torch.tensor(n_loc, device=V.device), mesh))
+    if n % mesh.size != 0 or n_loc != n // mesh.size:
+        raise ValueError(
+            f"N={n} must divide over the mesh size {mesh.size} for the "
+            f"sharded fused path (this rank holds {n_loc} columns; use "
+            "ortho='cgs2' otherwise)")
+    c1 = all_reduce_sum(project_prefix(V, w, mask, rows=rows), mesh)
+    w1, c2p = apply_project(V, w, c1, mask, rows=rows)
+    c2 = all_reduce_sum(c2p, mesh)
+    w2 = update_prefix(V, w1, c2, rows=rows)
+    if V.is_cuda:
+        LAUNCHES["cgs2_fused_sharded"] += 1
+    return w2, c1 + c2
 
 
 def cgs_project(V, w, mask, basis=None, *, rows=None):

@@ -30,11 +30,18 @@ and ``w - c B[:rows]`` elementwise as above, with ``c`` the coefficients
 that came with it (the kernel applies its own), so that a wrong basis, a
 dropped row or a foreign coefficient vector shows in ``w'`` while the
 coefficients' own summation error does not.
+
+The sharded fused CGS2 K9 against the single-device K4 -> K5 -> K6
+(:func:`cgs2_tolerances`): both sum the same products in other orders,
+each coefficient within about ``2 eps (|V_r| . |w|)`` of its float64
+value (the second pass's far smaller), so they differ by at most ``8 eps
+(|V_r| . |w|)``; ``w2`` by that times ``|V|`` plus the two results' own
+roundings of both passes, ``8 (rows + 1) eps (|w| + |c| |V|)``.
 """
 
 import torch
 
-__all__ = ["fma_atol", "PrefixCheck", "ProjectCheck"]
+__all__ = ["fma_atol", "PrefixCheck", "ProjectCheck", "cgs2_tolerances"]
 
 
 def fma_atol(want, want64):
@@ -44,6 +51,20 @@ def fma_atol(want, want64):
     the same plain version in float64, ``want64``)."""
     own = float((want.double() - want64).abs().max())
     return max(2e-7 * float(want.abs().max()), 4.0 * own)
+
+
+def cgs2_tolerances(V, w, c, mask, rows):
+    """``(coefficients, w2)`` tolerances, float64, between two correct
+    results of fused CGS2 on ``V``, ``w``, ``mask`` and ``rows`` that sum
+    in different orders (the sharded K9 and the single-device K4 -> K5 ->
+    K6); ``c`` is one result's coefficients (module docstring)."""
+    eps = torch.finfo(V.dtype).eps
+    Vabs = V[:rows].double().abs()
+    w_abs = w.double().abs()
+    t_c = 8 * eps * (Vabs @ w_abs) * mask[:rows].double().abs()
+    t_w = t_c @ Vabs + 8 * (rows + 1) * eps * (
+        w_abs + c[:rows].double().abs() @ Vabs)
+    return t_c, t_w
 
 
 def _padded32_sum(V64, x, mask64, m):

@@ -15,6 +15,9 @@ whole buffer), which launch K1 itself: :func:`stencil5_pipelined`,
 :func:`laplacian_2d_pipelined`, and :func:`laplacian_2d_kernel` with its
 operator constructor :func:`laplacian_2d` (K10, the JAX package's older
 manual-copy Laplacian kernel, which its pipelined kernel superseded).
+:func:`stencil5_sharded` (K8) is the matvec of a grid split by rows over
+a mesh: K1 on each rank's row block, a one-row halo exchange with the
+neighbouring ranks and an edge correction.
 
 Operands are flat ``(nx*ny,)`` tensors holding a row-major ``(nx, ny)``
 buffer whose top-left ``(nrows, ncols)`` corner is the logical Dirichlet
@@ -27,6 +30,7 @@ and follow the Pallas kernels' arithmetic term for term.
 
 import torch
 
+from ..parallel import halo_exchange
 from ._launch import LAUNCHES, launch_counts, reset_launch_counts  # noqa: F401
 from ._launch import launch as _launch
 
@@ -38,6 +42,8 @@ __all__ = [
     "laplacian_2d_pipelined",
     "laplacian_2d_kernel",
     "laplacian_2d",
+    "stencil5_sharded",
+    "stencil5_sharded_torch",
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
@@ -270,3 +276,54 @@ def laplacian_2d(nx, ny=None, device="cuda"):
     matvec.diag = torch.full((nx * ny,), 2.0 / hx2 + 2.0 / hy2,
                              dtype=torch.float64, device=device)
     return matvec
+
+
+def _sharded(x, nx, ny, coeffs, mesh, local):
+    """The row-sharded matvec around a per-shard stencil ``local(x_loc,
+    nx_loc)`` (which applies Dirichlet zeros at the block's first and last
+    rows): post the exchange of the block's edge rows, run ``local`` while
+    it is in flight, then add ``cu * top`` to the first row and ``cd *
+    bottom`` to the last, the neighbours' contributions; the edge ranks
+    receive zeros, the Dirichlet boundary.  The JAX package adds them
+    outside its kernel too (stencil.py:603-604)."""
+    P = mesh.size
+    if nx % P != 0:
+        raise ValueError(f"nx={nx} must be divisible by the mesh size {P} "
+                         "for the sharded stencil")
+    nx_loc = nx // P
+    _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x)
+    u = x.reshape(nx_loc, ny)
+    halo = halo_exchange(u[0], u[-1], mesh=mesh, async_op=True)
+    out = local(x, nx_loc).reshape(nx_loc, ny)
+    top, bot = halo.wait()
+    _, cu, cd, _, _ = (float(c) for c in coeffs)
+    out[0] += cu * top
+    out[-1] += cd * bot
+    return out.reshape(-1)
+
+
+def stencil5_sharded_torch(x, *, nx, ny, coeffs, mesh):
+    """Plain version of K8: the plain grouped stencil on the rank's row
+    block, the same exchange and edge correction."""
+    return _sharded(
+        x, nx, ny, coeffs, mesh,
+        lambda xs, n: stencil5_affine_torch(xs.reshape(n, ny), None, coeffs,
+                                            n, ny).reshape(-1))
+
+
+def stencil5_sharded(x, *, nx, ny, coeffs, mesh):
+    """K8: the 5-point Dirichlet matvec of an ``nx x ny`` grid whose rows
+    are split over ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`;
+    ``nx`` divisible by its size, else ``ValueError``): ``x`` is the
+    rank's flat ``(nx/P * ny,)`` row block.  K1 runs on the block while
+    the halo rows cross (one :func:`~krypy_tpu_torch.parallel.
+    halo_exchange` per call), then the O(ny) edge correction.
+    Counterpart of ``krypy_tpu.kernels.stencil.stencil5_sharded``; on a
+    CUDA tensor it counts one ``stencil5_sharded`` launch beside K1's
+    own."""
+    out = _sharded(
+        x, nx, ny, coeffs, mesh,
+        lambda xs, n: stencil5_pipelined(xs, nx=n, ny=ny, coeffs=coeffs))
+    if x.is_cuda:
+        LAUNCHES["stencil5_sharded"] += 1
+    return out

@@ -17,12 +17,25 @@ Every constructor takes ``device``, where the operator keeps its own
 tensors (``.diag``); it defaults to ``"cuda"``, the current CUDA device,
 and raises where torch sees no CUDA device.  Pass ``device="cpu"`` to
 build an operator on the CPU.
+
+The three stencil constructors take ``mesh=`` (a
+:class:`krypy_tpu_torch.parallel.Mesh`; ``nx`` divisible by its size):
+the operator then maps the rank's row block of a vector to the rank's
+block of the product, through K8 (:func:`~krypy_tpu_torch.kernels.
+stencil.stencil5_sharded`) on float32 with ``impl="cuda"`` and through
+its plain version otherwise (where the JAX package's ``impl="jnp"`` has
+GSPMD insert the exchange, the port runs the plain stencil per shard with
+the same exchange); ``.diag`` is the rank's block, ``.shape`` the global
+one.  ``pad_cols=True`` with ``mesh=`` raises ``ValueError``, as in the
+JAX package.
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .kernels import stencil as _kst
+from .parallel import active_mesh, block_of
 
 __all__ = [
     "diagonal",
@@ -75,6 +88,36 @@ def _kernel_matvec(nx, ny, coeffs, kernel):
     return matvec
 
 
+def _check_mesh(mesh, pad_cols):
+    if mesh is not None and pad_cols:
+        raise ValueError("pad_cols does not compose with mesh= yet")
+
+
+def _sharded_matvec(nx, ny, coeffs, impl, mesh):
+    """The row-sharded matvec on ``mesh``: K8 on float32 with
+    ``impl="cuda"``, its plain version otherwise."""
+    coeffs = tuple(float(c) for c in coeffs)
+
+    def matvec(x):
+        fn = (kernels.stencil5_sharded
+              if impl == "cuda" and x.dtype == torch.float32
+              else _kst.stencil5_sharded_torch)
+        return fn(x, nx=nx, ny=ny, coeffs=coeffs, mesh=mesh)
+
+    matvec.mesh = mesh
+    return matvec
+
+
+def _finish(matvec, nx, ny, dval, device, mesh):
+    """``.shape`` (global) and ``.diag`` (float64, the rank's block on a
+    mesh) of an unpadded stencil operator."""
+    N = nx * ny
+    n = N if mesh is None else len(range(N)[block_of(N, mesh)])
+    matvec.shape = (N, N)
+    matvec.diag = torch.full((n,), dval, dtype=torch.float64, device=device)
+    return matvec
+
+
 def diagonal(d):
     """diag(d) as a matvec; ``d`` is an ``(N,)`` tensor and the operator
     lives on its device.  Keeps the JAX operator's family attributes
@@ -91,7 +134,8 @@ def diagonal(d):
     return matvec
 
 
-def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda"):
+def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda",
+               mesh=None):
     """5-point Laplacian on an nx x ny interior grid of the unit square,
     Dirichlet boundaries; SPD, N = nx*ny.
 
@@ -100,9 +144,11 @@ def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda"):
     zero.  With ``impl="cuda"`` the float32 matvec is the K1 kernel on
     either layout (unpadded: :func:`~krypy_tpu_torch.kernels.stencil.
     laplacian_2d_pipelined`), other dtypes the plain grouped-difference
-    stencil.  ``device`` places ``.diag``.
+    stencil.  ``device`` places ``.diag``; ``mesh=`` shards it (module
+    docstring).
     """
     _check_impl(impl)
+    _check_mesh(mesh, pad_cols)
     device = _device(device)
     ny = nx if ny is None else ny
     hx2 = (1.0 / (nx + 1)) ** 2
@@ -125,7 +171,11 @@ def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda"):
         matvec.diag = dg.reshape(-1)
         return matvec
 
-    if impl == "cuda":
+    if mesh is not None:
+        matvec = _sharded_matvec(
+            nx, ny, (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2),
+            impl, mesh)
+    elif impl == "cuda":
         matvec = _kernel_matvec(
             nx, ny, (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2),
             lambda x: kernels.laplacian_2d_pipelined(x, nx=nx, ny=ny,
@@ -142,14 +192,12 @@ def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda"):
                   - F.pad(u[:, 1:], (0, 1))) / hy2
             return (ux + uy).reshape(-1)
 
-    matvec.shape = (nx * ny, nx * ny)
-    matvec.diag = torch.full((nx * ny,), dval, dtype=torch.float64,
-                             device=device)
-    return matvec
+    return _finish(matvec, nx, ny, dval, device, mesh)
 
 
 def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
-                            impl="torch", pad_cols=False, device="cuda"):
+                            impl="torch", pad_cols=False, device="cuda",
+                            mesh=None):
     """Nonsymmetric convection-diffusion operator ``-eps * Lap(u) +
     w . grad(u)`` with first-order upwind convection (wind components
     non-negative), Dirichlet boundaries; N = nx*ny.
@@ -161,9 +209,10 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
     through :func:`~krypy_tpu_torch.kernels.stencil.stencil5_pipelined` on
     float32 and ``impl="torch"`` is the JAX ``impl="jnp"`` formula
     ``eps * Lap(x) + wx * dx(u) + wy * dy(u)``.  ``device`` places
-    ``.diag``.
+    ``.diag``; ``mesh=`` shards it (module docstring).
     """
     _check_impl(impl)
+    _check_mesh(mesh, pad_cols)
     device = _device(device)
     ny = nx if ny is None else ny
     hx = 1.0 / (nx + 1)
@@ -191,7 +240,9 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
         matvec.diag = dg.reshape(-1)
         return matvec
 
-    if impl == "cuda":
+    if mesh is not None:
+        matvec = _sharded_matvec(nx, ny, coeffs, impl, mesh)
+    elif impl == "cuda":
         matvec = _kernel_matvec(
             nx, ny, coeffs,
             lambda x: kernels.stencil5_pipelined(x, nx=nx, ny=ny,
@@ -208,10 +259,7 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
             conv = wx * dux + wy * duy
             return eps * lap(x) + conv.reshape(-1)
 
-    matvec.shape = (nx * ny, nx * ny)
-    matvec.diag = torch.full((nx * ny,), coeffs[0], dtype=torch.float64,
-                             device=device)
-    return matvec
+    return _finish(matvec, nx, ny, coeffs[0], device, mesh)
 
 
 def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
@@ -221,22 +269,19 @@ def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
     the shift into the stencil's centre coefficient and runs K1 through
     :func:`~krypy_tpu_torch.kernels.stencil.stencil5_pipelined` on
     float32 (the plain grouped stencil on other dtypes);
-    ``impl="torch"`` is ``poisson_2d(x) - sigma x``.  ``mesh=`` (the
-    sharded stencil) raises ``NotImplementedError``.  ``device`` places
-    ``.diag``."""
+    ``impl="torch"`` is ``poisson_2d(x) - sigma x``.  ``device`` places
+    ``.diag``; ``mesh=`` shards it (module docstring)."""
     _check_impl(impl)
-    if mesh is not None:
-        raise NotImplementedError(
-            "shifted_laplacian_2d mesh= is not ported yet (ROADMAP.md "
-            "queue B, K8)")
     device = _device(device)
     ny = nx if ny is None else ny
     hx2 = (1.0 / (nx + 1)) ** 2
     hy2 = (1.0 / (ny + 1)) ** 2
     dval = 2.0 / hx2 + 2.0 / hy2 - sigma
+    coeffs = (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2)
 
-    if impl == "cuda":
-        coeffs = (dval, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2, -1.0 / hy2)
+    if mesh is not None:
+        matvec = _sharded_matvec(nx, ny, coeffs, impl, mesh)
+    elif impl == "cuda":
         matvec = _kernel_matvec(
             nx, ny, coeffs,
             lambda x: kernels.stencil5_pipelined(x, nx=nx, ny=ny,
@@ -248,10 +293,7 @@ def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
         def matvec(x):
             return lap(x) - sigma * x
 
-    matvec.shape = (nx * ny, nx * ny)
-    matvec.diag = torch.full((nx * ny,), dval, dtype=torch.float64,
-                             device=device)
-    return matvec
+    return _finish(matvec, nx, ny, dval, device, mesh)
 
 
 def jacobi_preconditioner(op_or_diag):
@@ -520,6 +562,10 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
     nx_pad, ny_pad = pad_rows_width(nx), pad_cols_width(nx)
 
     def matvec(x):
+        if active_mesh() is not None:
+            raise NotImplementedError(
+                "the padded V-cycle on a mesh is not ported (nor in the JAX "
+                "package; ROADMAP.md queue A, slice 5)")
         if x.device != device:
             raise ValueError(f"multigrid built for {device}, applied to a "
                              f"vector on {x.device}")

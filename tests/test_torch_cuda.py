@@ -17,6 +17,12 @@ contracts multiply-adds to FMA, which moves a few ulps of the stencil's
 intermediate terms; where the terms cancel, that exceeds a few ulps of
 the output.
 
+The sharded kernels K8 and K9 run on rank processes that share the card
+(a one-rank NCCL world and a two-rank gloo world; NCCL takes no two
+ranks on one device), against their plain versions in float64 and
+against the single-device K1 and K4 -> K5 -> K6: K8 within the stencil
+tolerance, K9 within :func:`krypy_tpu_torch.kernels.parity.cgs2_tolerances`.
+
 The prefix-sweep kernels K4-K6 sum in another order than their plain
 versions (cuBLAS): each output is held to its float64 value by
 :class:`krypy_tpu_torch.kernels.parity.PrefixCheck` (its docstring
@@ -26,16 +32,26 @@ check must reject.  The projection pass K7 is held likewise by
 :class:`krypy_tpu_torch.kernels.parity.ProjectCheck`.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from krypy_tpu_torch import functional as F, interop, kernels, ops, suite
+from krypy_tpu_torch import (
+    functional as F,
+    interop,
+    kernels,
+    ops,
+    parallel,
+    suite,
+)
 from krypy_tpu_torch.kernels import orthogonalize as korth
 from krypy_tpu_torch.kernels import stencil as kst
 from krypy_tpu_torch.kernels.parity import (
     PrefixCheck,
     ProjectCheck,
+    cgs2_tolerances,
     fma_atol,
 )
 from krypy_tpu_torch.northstar import cd_coeffs, make_northstar
@@ -377,8 +393,10 @@ def test_northstar_through_kernels_matches_plain_lane(cuda_device):
         kernels.reset_launch_counts()
         out[impl] = solve(b)
         out[impl + "_launches"] = kernels.launch_counts()
-    # K1-K6 run; K7 belongs to the cgs*_pallas schemes
-    assert all((c > 0) == (k != "cgs_project")
+    # K1-K6 run; K7 belongs to the cgs*_pallas schemes, K8 and K9 to a
+    # mesh
+    idle = ("cgs_project", "stencil5_sharded", "cgs2_fused_sharded")
+    assert all((c > 0) == (k not in idle)
                for k, c in out["cuda_launches"].items())
     assert all(c == 0 for c in out["torch_launches"].values())
     (rc, ic), (rt, it) = out["cuda"], out["torch"]
@@ -453,3 +471,110 @@ def test_solve_through_kernels_matches_torch_lane(cuda_device):
     dx = torch.linalg.vector_norm(rc.x - rt.x) / torch.linalg.vector_norm(
         rt.x)
     assert float(dx) <= 1e-6
+
+
+def sharded_kernel_cases(mesh):
+    """Rank side of :func:`test_sharded_kernels_match_one_device`: K8 on
+    the north star's nonsymmetric stencil at 256^2 and K9 at 13 of 26
+    rows, gathered, against their plain versions in float64 and the
+    single-device K1 and K4 -> K5 -> K6 on the same inputs (drawn from
+    one seed on the card by every rank)."""
+    device, nx, rows = mesh.device, 256, 13
+    N = nx * nx
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(N, generator=gen, device=device)
+    V = torch.randn(26, N, generator=gen, device=device) / math.sqrt(N)
+    w = torch.randn(N, generator=gen, device=device)
+    mask = (torch.arange(26, device=device) < rows - 2).float()
+    blk = parallel.block_of(N, mesh)
+    co = cd_coeffs(nx)
+    kernels.reset_launch_counts()
+    y = parallel.gather_vector(kernels.stencil5_sharded(
+        x[blk].contiguous(), nx=nx, ny=nx, coeffs=co, mesh=mesh), mesh)
+    w2, c = korth.cgs2_fused_sharded(V[:, blk].contiguous(),
+                                     w[blk].contiguous(), mask, mesh=mesh,
+                                     rows=rows, n=N)
+    w2 = parallel.gather_vector(w2, mesh)
+    launches = kernels.launch_counts()
+    # K8 against the plain stencil in float64, at the bound the plain
+    # float32 stencil's own error sets, and against the single-device K1
+    want64 = kst.stencil5_affine_torch(x.double().view(nx, nx), None, co,
+                                       nx, nx).view(-1)
+    atol = fma_atol(kst.stencil5_affine_torch(x.view(nx, nx), None, co, nx,
+                                              nx).view(-1), want64)
+    want = kst.stencil5_pipelined(x, nx=nx, ny=nx, coeffs=co)
+    err = (y.double() - want64).abs()
+    k8_ok = (torch.all(err <= atol + 2e-6 * want64.abs())
+             and torch.all((y - want).abs() <= atol + 2e-6 * want.abs()))
+    # K9 against the plain K4 -> K5 -> K6 in float64 and the single-device
+    # kernels
+    V64, w64, mask64 = V.double(), w.double(), mask.double()
+    c1 = korth.project_prefix_torch(V64, w64, mask64, rows)
+    w1, c2 = korth.apply_project_torch(V64, w64, c1, mask64, rows)
+    k9_ok = bool(torch.all(c[rows:] == 0))
+    for ref_w2, ref_c in ((korth.update_prefix_torch(V64, w1, c2, rows),
+                           c1 + c2),
+                          korth.cgs2_fused(V, w, mask, rows=rows)):
+        t_c, t_w = cgs2_tolerances(V, w, ref_c, mask, rows)
+        k9_ok = k9_ok and bool(
+            torch.all((c[:rows] - ref_c[:rows]).double().abs() <= t_c)
+            and torch.all((w2 - ref_w2).double().abs() <= t_w))
+    return {"k8_ok": np.bool_(bool(k8_ok)), "k9_ok": np.bool_(k9_ok),
+            "k8_err": np.float64(err.max()),
+            "launches": np.array([launches["stencil5_sharded"],
+                                  launches["stencil5_affine"],
+                                  launches["cgs2_fused_sharded"],
+                                  launches["apply_project"]]),
+            "c": interop.to_numpy(c)}
+
+
+@pytest.mark.parametrize("backend,P", [("nccl", 1), ("gloo", 2)])
+def test_sharded_kernels_match_one_device(cuda_device, tmp_path, backend,
+                                          P):
+    """K8 and K9 on ranks that share the card, against the single-device
+    kernels; each launched once per call (K8 over one K1, K9 over one of
+    each prefix sweep), and K9's coefficients the same bits on every
+    rank."""
+    from test_torch_parallel import run_ranks
+
+    ranks = run_ranks(__file__, "sharded_kernel_cases", P, tmp_path,
+                      device=str(cuda_device), backend=backend)
+    for r in ranks:
+        assert r["k8_ok"] and r["k9_ok"], (r["k8_err"], backend, P)
+        assert list(r["launches"]) == [1, 1, 1, 1]
+        assert r["c"].tobytes() == ranks[0]["c"].tobytes()
+
+
+def test_sharded_kernels_on_cuda_raise_without_the_library(
+        cuda_device, tmp_path, monkeypatch):
+    """On a CUDA tensor K8 and K9 launch their kernels or raise: with the
+    kernel library failing to load they raise, and the plain versions are
+    never called."""
+    from krypy_tpu_torch.kernels import _build
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("kernel library refused to load")
+
+    def plain(*args, **kwargs):
+        pytest.fail("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    for mod, name in ((kst, "stencil5_affine_torch"),
+                      (korth, "project_prefix_torch"),
+                      (korth, "apply_project_torch"),
+                      (korth, "update_prefix_torch")):
+        monkeypatch.setattr(mod, name, plain)
+    parallel.init_distributed(parallel.file_rendezvous(tmp_path), 1, 0,
+                              "gloo", timeout=60)
+    try:
+        mesh = parallel.make_mesh(1, device=cuda_device)
+        x = torch.ones(64 * 64, device=cuda_device)
+        with pytest.raises(RuntimeError, match="refused"):
+            kst.stencil5_sharded(x, nx=64, ny=64, coeffs=cd_coeffs(64),
+                                 mesh=mesh)
+        V = torch.ones(4, 64, device=cuda_device)
+        with pytest.raises(RuntimeError, match="refused"):
+            korth.cgs2_fused_sharded(V, x[:64], torch.ones(4), mesh=mesh,
+                                     n=64)
+    finally:
+        torch.distributed.destroy_process_group()

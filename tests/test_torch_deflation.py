@@ -11,6 +11,8 @@ principal angle below 1e-8) or both sides are fed the same internals
 through :mod:`krypy_tpu_torch.interop`.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -115,8 +117,12 @@ def test_shifted_laplacian_matches_jax(nx, ny, impl, jax_impl):
 
 
 def test_shifted_laplacian_options():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ops.shifted_laplacian_2d(8, mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_parallel.py); a mesh whose size
+    # does not divide nx raises where the operator is applied
+    op = ops.shifted_laplacian_2d(8, mesh=SimpleNamespace(size=3, rank=0),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        op(torch.zeros(op.diag.shape[0], dtype=torch.float64))
     with pytest.raises(ValueError):
         ops.shifted_laplacian_2d(8, impl="pallas", device="cpu")
     if not torch.cuda.is_available():
@@ -462,3 +468,37 @@ def test_functional_exports_the_jax_names():
                  "make_inner"):
         assert name in F.__all__ and name in JF.__all__
         assert hasattr(F, name)
+
+
+def test_float32_system_with_float64_jacobi_matches_jax():
+    """A float32 system deflated and recycled with a Jacobi ``Ml`` whose
+    diagonal is float64 (the operators' ``.diag``): the deflation data
+    and the Gram block of the Ritz hand-off are promoted to float64, as
+    jnp promotes them, where the port's products used to raise on the
+    mixed dtypes.  Against the JAX package: equal iteration counts,
+    float32 residual histories within ``rtol=1e-4`` (``atol=1e-7``, a
+    float32 rounding of the relative residual) and iterates within
+    1e-4."""
+    nx = 12
+    rng = np.random.default_rng(4)
+    b = rng.standard_normal(nx * nx).astype(np.float32)
+    U = np.eye(nx * nx, 3, dtype=np.float32)
+    At = ops.convection_diffusion_2d(nx, device="cpu")
+    Aj = jops.convection_diffusion_2d(nx)
+    kw = dict(tol=1e-5, maxiter=20, ortho="cgs2")
+    runs = []
+    for A, Fm, t in ((At, F, _t), (Aj, JF, jnp.asarray)):
+        Ml = (ops if Fm is F else jops).jacobi_preconditioner(A)
+        rec = Fm.RecyclingGmres(n_vectors=2, which="sm")
+        runs.append([Fm.deflated_gmres(A, t(b), t(U), Ml=Ml, **kw)]
+                    + [rec.solve(A, t(b), Ml=Ml, **kw) for _ in range(2)])
+    for rt, rj in zip(*runs):
+        assert interop.to_numpy(rt.x).dtype == np.float32
+        assert int(rt.niter) == int(rj.niter)
+        live = ~np.isnan(np.asarray(rj.resnorms))
+        np.testing.assert_allclose(interop.to_numpy(rt.resnorms)[live],
+                                   np.asarray(rj.resnorms)[live], rtol=1e-4,
+                                   atol=1e-7)
+        np.testing.assert_allclose(interop.to_numpy(rt.x), np.asarray(rj.x),
+                                   rtol=1e-4, atol=1e-4 * float(
+                                       np.abs(np.asarray(rj.x)).max()))

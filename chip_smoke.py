@@ -5,7 +5,8 @@ convection-diffusion solve, the Ritz-deflated and recycling GMRES of
 benchmarks/suite.py's config 4 (shifted Laplacian) at the north star's
 size, and the multi-device path on rank processes that share the card.
 
-    python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults]
+    python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
+                           --only {stencil,ortho}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -17,10 +18,12 @@ before printing its last line):
    build time and ptxas report;
 3. stencil parity: K1-K3 against their plain PyTorch versions on the
    card, float32 ``rtol=2e-6`` and the FMA-aware ``atol`` of
-   ``krypy_tpu_torch.kernels.parity.fma_atol``: the V-cycle's Laplacian constants at the solves'
-   buffers (4096^2, 1024^2, 512^2) and an edge shape, and K1's four uses
+   ``krypy_tpu_torch.kernels.parity.fma_atol``: the V-cycle's Laplacian
+   constants at the solves' kernel levels (buffers 4096^2, 2048^2,
+   1024^2, 512^2) and at edge shapes (one strip and one step of K2, a
+   region one row and one column short of them), and K1's four uses
    with the north star's nonsymmetric convection-diffusion constants at
-   4096^2 and 9x120; at 4096^2 and 1024^2 each kernel's device time
+   4096^2 and 9x120; at the four kernel levels each kernel's device time
    (torch.profiler, mean of 10 calls), its plain version's, and, for the
    K1 matvec, ``F.conv2d``'s (TF32 off), beside the bound; then K10, the
    ``laplacian_2d_kernel`` entry over K1, against
@@ -55,7 +58,9 @@ before printing its last line):
    must run); checked for the true float64 residual, against
    the plain lane (``impl="torch"``, ``ortho="cgs2"``) on refinement
    cycles, matvecs and the iterate; then both lanes timed alike,
-   ``NS_ROUNDS`` solves each;
+   ``NS_ROUNDS`` solves each; then the stencil and prefix-sweep kernels
+   ranked by launches x (time - bound) per V-cycle level of that solve
+   (one JSON line);
 8. config 4 (``krypy_tpu_torch.suite.make_config4``) on the kernel lane
    (``impl="cuda"``, ``ortho="cgs2_pallas"``: K1-K3 and K7) and on the
    plain lane (``impl="torch"``, ``ortho="cgs2"``): one GMRES cycle with
@@ -88,7 +93,10 @@ before printing its last line):
    K8 and K9 per shard and the collectives on the host; then runs the
    main path on the mesh, convection-diffusion and Poisson at 4096^2
    with Jacobi: restarted GMRES(25) x 3 cycles (``cgs2_fused``), CG x
-   100, two ``RecyclingGmres(6, "sm")`` solves, launch and collective
+   100 (on a seeded random right-hand side: with b = ones the Poisson
+   system is symmetric about its middle row, and a rank-local inner
+   product would not change CG's ratios on 2 ranks), two
+   ``RecyclingGmres(6, "sm")`` solves, launch and collective
    counts zeroed just before each and read just after.  Gated against
    one device: iteration and matvec counts equal, residual histories
    within ``MESH_RTOL`` and the same bits on every rank, K8 once per
@@ -109,6 +117,10 @@ and two-pass ``ortho`` at 4095^2) and prints no result line.
 on a gloo world of 2 ranks, sound and with each planted fault (a zeroed
 halo, an unreduced inner product), and fails unless ``MESH_RTOL`` lies
 between the sound readings and the faults'; it prints no result line.
+``--only stencil`` (``ortho``) runs only the stencil phase (the
+prefix-sweep phase) and prints no result line; a copy of the script in
+a checkout of an earlier commit times that commit's K1-K3 (K4-K6) at
+the same shapes, in the same way.
 ``--profile DIR`` also profiles one solve of each slice: device busy
 share, device time by kernel (written to DIR), the host time of the
 V-cycle's parts and of the deflated solve's parts (the oblique
@@ -152,6 +164,9 @@ C4_NX = 1023
 C4_FULL_SLACK = (1, 28)
 #: GMRES(25) keeps 26 basis rows; a cycle's mean active prefix is 13
 NS_ROWS = (13, 26)
+#: the north star's V-cycle levels that run the stencil kernels (n >=
+#: 256), finest first; Poisson's are the last two
+KERNEL_LEVELS = (NS_NX, 2047, NX, 511)
 #: the card's published peaks (H100 SXM data sheet, 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -344,8 +359,9 @@ def stencil_phase(device):
     rng = np.random.default_rng(0)
     report = {}
     for nrows, ncols, kind in ((NS_NX, NS_NX, "cd"), (9, 120, "cd"),
-                               (NS_NX, NS_NX, "lap"), (NX, NX, "lap"),
-                               (511, 511, "lap"), (9, 9, "lap")):
+                               *((n, n, "lap") for n in KERNEL_LEVELS),
+                               (9, 9, "lap"), (8, 128, "lap"),
+                               (7, 127, "lap")):
         u, R, P = _padded_input(rng, nrows, ncols, device)
         g, _, _ = _padded_input(rng, nrows, ncols, device)
         u64, g64 = u.double(), g.double()
@@ -368,7 +384,8 @@ def stencil_phase(device):
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = (f"parity {name:26s} {use:18s} {nrows}x{ncols} "
                     f"({R}x{P}) max_abs_err={max_err:.3e}")
-            if nrows in (NS_NX, NX) and ncols == nrows:
+            if nrows in KERNEL_LEVELS and ncols == nrows and (
+                    kind == "lap" or nrows == NS_NX):
                 b_ms, b_by = bound(nbytes, flops)
                 ms, ms_src = _device_ms(lambda: kern(u, g), b_ms)
                 plain_ms, plain_src = _device_ms(lambda: plain(u, g), b_ms)
@@ -613,6 +630,7 @@ def project_phase(device):
                     report["times"][key] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms,
+                        two_sweep_floor_ms=sweep_ms,
                         timed_by=dict(ms=ms_src, plain_ms=plain_src,
                                       library_ms=lib_src))
                     print(f"timing cgs_project    rows={rows:2d} N={N} "
@@ -1110,22 +1128,23 @@ def witness_phase(device):
                   f"inner_iters={sum(niters)} outer residuals {rels} inner "
                   f"iterations {niters}", flush=True)
     # other roundings of the same two lanes: the kernel sums in another
-    # order (the sweeps' grid cap), and the right-hand side times 3 (the
-    # relative residuals are the same in exact arithmetic)
+    # order (the column range of K7's phase 0, the K4 sweep), and the
+    # right-hand side times 3 (the relative residuals are the same in
+    # exact arithmetic)
     from krypy_tpu_torch.kernels import orthogonalize as korth
 
-    cap = korth.MAX_BLOCKS
-    for blocks in (256, 512, 2048, 4096):
-        korth.MAX_BLOCKS = blocks
+    per_thread = korth.GROUPS_PER_THREAD
+    for groups in (2, 4, 16, 32):
+        korth.GROUPS_PER_THREAD = groups
         _, make_solve, A64 = suite.make_config4(nx, "cuda", "cgs2_pallas",
                                                 device)
         _, rels, niters = _cycles(make_solve(None).inner, A64, b, 8,
                                   torch.float32, stop_at=suite.TOL)
         print(f"witness float32 nx={nx} undeflated impl=cuda "
-              f"ortho=cgs2_pallas MAX_BLOCKS={blocks}: cycles={len(niters)} "
-              f"inner_iters={sum(niters)} outer residuals {rels} inner "
-              f"iterations {niters}", flush=True)
-    korth.MAX_BLOCKS = cap
+              f"ortho=cgs2_pallas GROUPS_PER_THREAD={groups}: "
+              f"cycles={len(niters)} inner_iters={sum(niters)} outer "
+              f"residuals {rels} inner iterations {niters}", flush=True)
+    korth.GROUPS_PER_THREAD = per_thread
     for impl, ortho in (("cuda", "cgs2_pallas"), ("torch", "cgs2")):
         _, make_solve, A64 = suite.make_config4(nx, impl, ortho, device)
         _, rels, niters = _cycles(make_solve(None).inner, A64, 3.0 * b, 8,
@@ -1309,6 +1328,10 @@ MESH_FAULT_TIMEOUT = 150
 #: iterations, two recycled GMRES(25) solves; none reaches its tolerance,
 #: so each runs all its iterations
 MESH_RESTART, MESH_CYCLES, MESH_CG_ITERS, MESH_TOL = 25, 3, 100, 1e-12
+#: numpy seed of CG's float32 right-hand side on the mesh (a random b: with
+#: b = ones the Poisson system is symmetric about its middle row, and each
+#: of 2 ranks' partial inner products is half the sum)
+MESH_CG_SEED = 12
 #: float32 residual histories, sharded against one device, relative: the
 #: same algorithm with its sums in another order (per-rank partials plus
 #: the all-reduce).  About 10x above the largest sound reading (GMRES
@@ -1354,7 +1377,8 @@ def _mesh_solves(device, mesh=None):
     """The mesh phase's main path on one device (``mesh=None``) or, on the
     rank's blocks, sharded: restarted GMRES(25) (Jacobi ``Ml``,
     ``ortho="cgs2_fused"``: K8 and K9 on the mesh) for 3 cycles, Jacobi
-    CG on ``poisson_2d(impl="cuda")`` for 100 iterations, and two
+    CG on ``poisson_2d(impl="cuda")`` for 100 iterations on a float32
+    right-hand side drawn from ``MESH_CG_SEED``, and two
     ``RecyclingGmres(6, "sm")`` solves (``ortho="cgs2"``), the second
     deflated.  The launch and collective counts are set to 0 just before
     each solve and read just after.  Returns one record per solve."""
@@ -1365,15 +1389,19 @@ def _mesh_solves(device, mesh=None):
     kw = dict(impl="cuda", device=device, mesh=mesh)
     cd = ops.convection_diffusion_2d(nx, **kw)
     lap = ops.poisson_2d(nx, **kw)
-    n = N if mesh is None else len(range(N)[parallel.block_of(N, mesh)])
+    blk = slice(None) if mesh is None else parallel.block_of(N, mesh)
+    n = len(range(N)[blk])
     b = torch.ones(n, device=device)
+    rhs = np.random.default_rng(MESH_CG_SEED).standard_normal(
+        N, dtype=np.float32)
+    b_cg = torch.from_numpy(rhs[blk]).to(device)
     Ml = ops.jacobi_preconditioner(cd)
     rec = F.RecyclingGmres(n_vectors=suite.N_VECTORS, which="sm")
     gm = dict(Ml=Ml, tol=MESH_TOL, maxiter=MESH_RESTART)
     runs = {
         "gmres": lambda: [F.restarted_gmres(
             cd, b, max_restarts=MESH_CYCLES - 1, ortho="cgs2_fused", **gm)],
-        "cg": lambda: [F.cg(lap, b, M=ops.jacobi_preconditioner(lap),
+        "cg": lambda: [F.cg(lap, b_cg, M=ops.jacobi_preconditioner(lap),
                             tol=MESH_TOL, maxiter=MESH_CG_ITERS)],
         "recycling": lambda: [rec.solve(cd, b, ortho="cgs2", **gm)
                               for _ in range(2)],
@@ -1866,6 +1894,39 @@ def mesh_fault_phase(device):
             f"catch no fault: {blind}")
 
 
+def level_ranking(report, ns_counts):
+    """The stencil and prefix-sweep kernels of one north-star solve
+    ranked by launches x (device time - bound), each stencil kernel at
+    each V-cycle level with its own time: every kernel level runs the
+    collapsed presmooth (K1), K2 and K3 once per V-cycle, and K1's other
+    launches are the operator's matvec at the finest level; K4-K6 at 13
+    rows.  Prints one JSON line and returns the entries."""
+    nlev = len(KERNEL_LEVELS)
+    vcycles = ns_counts["stencil5_jacobi2"] // nlev
+    matvecs = ns_counts["stencil5_affine"] - nlev * vcycles
+    if ns_counts["stencil5_resrestrict_rows"] != nlev * vcycles or \
+            ns_counts["stencil5_jacobi2"] % nlev or matvecs < 0:
+        raise AssertionError(f"north-star launches {ns_counts} do not "
+                             f"split over the {nlev} kernel levels")
+    uses = [("stencil5_affine", (NS_NX + 1, "cd matvec"), matvecs)]
+    for n in KERNEL_LEVELS:
+        uses += [("stencil5_affine", (n + 1, "lap presmooth"), vcycles),
+                 ("stencil5_jacobi2", (n + 1, "lap s=1.0"), vcycles),
+                 ("stencil5_resrestrict_rows", (n + 1, "lap residual+rows"),
+                  vcycles)]
+    uses += [(k, NS_ROWS[0], ns_counts[k]) for k in _PREFIX_SWEEPS]
+    out = []
+    for name, key, launches in uses:
+        t = report[name]["times"][key]
+        out.append({"name": name, "at": key if isinstance(key, int)
+                    else f"{key[0]}^2 {key[1]}", "launches": launches,
+                    "ms": t["ms"], "bound_ms": t["bound_ms"],
+                    "gap_ms": launches * (t["ms"] - t["bound_ms"])})
+    out.sort(key=lambda e: -e["gap_ms"])
+    print(json.dumps({"ranking_northstar_launches_x_gap": out}), flush=True)
+    return out
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -1953,6 +2014,12 @@ def main(argv=None):
                     help="run ONLY the mesh phase's solves with planted "
                          "faults, against its residual-history limits; "
                          "prints no result line")
+    ap.add_argument("--only", choices=("stencil", "ortho"),
+                    help="run ONLY this kernel phase (K1-K3 or K4-K6 "
+                         "against their plain versions, and their times); "
+                         "a copy of this script in a checkout of another "
+                         "commit times that commit's kernels the same "
+                         "way; prints no result line")
     ap.add_argument("--mesh-rank", nargs=4,
                     metavar=("BACKEND", "P", "RANK", "DIR"),
                     help="run one rank of the mesh phase (the script starts "
@@ -1990,6 +2057,9 @@ def main(argv=None):
     if args.mesh_faults:
         mesh_fault_phase(device)
         return
+    if args.only:
+        {"stencil": stencil_phase, "ortho": ortho_phase}[args.only](device)
+        return
     report = stencil_phase(device)
     laplacian_entry_phase(device)
     report.update(ortho_phase(device))
@@ -1998,6 +2068,7 @@ def main(argv=None):
     timing_phase("poisson", solves, b, ROUNDS)
     ns_counts, ns_solves, ns_b = northstar_phase(device)
     timing_phase("northstar", ns_solves, ns_b, NS_ROUNDS)
+    level_ranking(report, ns_counts)
     full_counts = config4_full_phase(device)
     c4_counts, c4_solves, c4_b, c4_record = config4_phase(device)
     walls = timing_phase("config4 deflated", c4_solves, c4_b, C4_ROUNDS)
@@ -2042,6 +2113,25 @@ def main(argv=None):
             # calls, taken where the profiler recorded no device events
             "timed_by": t["timed_by"],
         })
+        keep = ("ms", "plain_ms", "bound_ms", "library_ms")
+        if cu == "stencil5.cu":
+            # the same use at every kernel level of the V-cycle
+            rows[-1]["ms_by_buffer"] = {
+                f"{R}^2": {k: v[k] for k in keep}
+                for (R, use), v in report[name]["times"].items()
+                if use == key[1]}
+        elif own:
+            # both prefixes, along V and along a second basis, beside
+            # what a design that sweeps twice must move
+            rows[-1]["two_sweep_floor_ms"] = t["two_sweep_floor_ms"]
+            rows[-1]["ms_by_rows_and_basis"] = {
+                f"{r} rows along {b}": {
+                    k: v[k] for k in keep + ("two_sweep_floor_ms",)}
+                for (r, b), v in report[name]["times"].items()}
+        else:
+            rows[-1]["ms_by_rows"] = {
+                f"{r} rows": {k: v[k] for k in keep}
+                for r, v in report[name]["times"].items()}
     rows += _mesh_rows(worlds)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

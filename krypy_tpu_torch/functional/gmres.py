@@ -32,7 +32,8 @@ norms, the residual and error norms, ``cgs``/``cgs2``'s coefficients)
 is a local partial and one all-reduce, through
 :func:`~krypy_tpu_torch.functional.common.make_inner`, and
 ``"cgs2_fused"`` runs K9 (:func:`~krypy_tpu_torch.kernels.orthogonalize.
-cgs2_fused_sharded`): three all-reduces per iteration either way.  The
+cgs2_fused_blocks`) on blocks of any length: three all-reduces per
+iteration either way.  The
 Hessenberg matrix, the rotations and the projected right-hand side are
 replicated, the same bits on every rank, so every rank takes the same
 branches.  A solve starts with one all-reduce more than on one device,
@@ -44,7 +45,7 @@ import torch
 
 from ..kernels.orthogonalize import (
     cgs2_fused,
-    cgs2_fused_sharded,
+    cgs2_fused_blocks,
     cgs_project,
     max_rows,
 )
@@ -79,32 +80,29 @@ _KERNEL_OF = {"cgs_pallas": "cgs_project", "cgs2_pallas": "cgs_project",
 _UNPORTED_ORTHO = ("mgs", "dmgs", "bmgs", "bmgs2", "cgs2_1r")
 
 
-def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None,
-                   n=None):
+def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None):
     """The port's ``ortho="auto"`` rule: ``cgs2_fused`` for a float32
     system on a CUDA device whose ``rows``-row basis fits the kernels
-    (Euclidean inner product, no ``M``, no ``basis_dtype``) and, on a
-    mesh, whose global length ``n`` divides over it; ``cgs2`` otherwise.
-    An explicit kernel scheme on a CUDA device with a basis taller than
-    its kernels take raises here, before the first iteration; so do
-    ``cgs2_fused`` with ``M`` (it has no dual-basis form) or, on a mesh,
-    with ``n`` that does not divide over it, and ``cgs_pallas`` /
-    ``cgs2_pallas`` on a mesh (K7 has no sharded form)."""
+    (Euclidean inner product, no ``M``, no ``basis_dtype``), on one
+    device or on a mesh whatever N; ``cgs2`` otherwise.  On a mesh that
+    N does not divide over, the JAX package runs its batched two-pass
+    scheme instead (``fused_force_jnp``, its gmres.py:386-405), as its
+    sharded kernel takes equal blocks only; the port's K9 takes the
+    blocks of any N.  An explicit kernel scheme on a CUDA device with a
+    basis taller than its kernels take raises here, before the first
+    iteration; so do ``cgs2_fused`` with ``M`` (it has no dual-basis
+    form) and ``cgs_pallas`` / ``cgs2_pallas`` on a mesh (K7 has no
+    sharded form)."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
-    even = mesh is None or n % mesh.size == 0
     if ortho == "auto":
         if dtype == torch.float32 and device.type == "cuda" and \
-                not with_M and rows <= max_rows(itemsize) and even:
+                not with_M and rows <= max_rows(itemsize):
             return "cgs2_fused"
         return "cgs2"
     if ortho == "cgs2_fused" and with_M:
         raise ValueError(
             "ortho='cgs2_fused' does not support the dual-basis form "
             "required by M; use ortho='cgs2' or 'cgs2_pallas'")
-    if ortho == "cgs2_fused" and not even:
-        raise ValueError(
-            f"N={n} must divide over the mesh size {mesh.size} for the "
-            "sharded fused path (use ortho='cgs2' otherwise)")
     if mesh is not None and ortho in ("cgs_pallas", "cgs2_pallas"):
         raise NotImplementedError(
             f"gmres ortho={ortho!r} on a mesh: K7 sums its coefficients "
@@ -174,10 +172,9 @@ def gmres(
       :func:`~krypy_tpu_torch.kernels.orthogonalize.max_rows`, 1709 in
       float32), ``"cgs2"`` otherwise.  A kernel scheme on a CUDA device
       with a taller basis than its kernels take raises ``ValueError``.
-      Under an active mesh ``"cgs2_fused"`` runs K9 (N must divide over
-      the mesh: ``auto`` picks it only then, an explicit one raises
-      ``ValueError`` otherwise), and ``"cgs_pallas"``/``"cgs2_pallas"``
-      raise ``NotImplementedError``.
+      Under an active mesh ``"cgs2_fused"`` runs K9 on the ranks'
+      blocks, whether or not N divides over the mesh;
+      ``"cgs_pallas"``/``"cgs2_pallas"`` raise ``NotImplementedError``.
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
     :param progress: print the relative residual of each iteration.
@@ -222,7 +219,7 @@ def gmres(
     dev = bv.device
     dtype = system_dtype(bv, x0)
     with_M = M is not None
-    ortho = _resolve_ortho(ortho, dtype, dev, m + 1, with_M, mesh, n_global)
+    ortho = _resolve_ortho(ortho, dtype, dev, m + 1, with_M, mesh)
     passes = _PASSES[ortho]
 
     pair, rows = make_inner(None)
@@ -303,8 +300,8 @@ def gmres(
         present."""
         mask = (row_idx <= k).to(real_dtype)
         if ortho == "cgs2_fused" and mesh is not None:
-            return cgs2_fused_sharded(V, w.contiguous(), mask, mesh=mesh,
-                                      rows=k + 1, n=n_global)
+            return cgs2_fused_blocks(V, w.contiguous(), mask, mesh=mesh,
+                                     rows=k + 1)
         if ortho == "cgs2_fused":
             return cgs2_fused(V, w.contiguous(), mask, rows=k + 1)
         h = torch.zeros(m + 1, dtype=dtype, device=dev)

@@ -5,6 +5,7 @@ from ._launch import launch_counts, reset_launch_counts
 from .orthogonalize import (
     apply_project,
     cgs2_fused,
+    cgs2_fused_blocks,
     cgs2_fused_sharded,
     cgs_project,
     project_prefix,
@@ -35,6 +36,7 @@ __all__ = [
     "update_prefix",
     "cgs2_fused",
     "cgs2_fused_sharded",
+    "cgs2_fused_blocks",
     "cgs_project",
     "launch_counts",
     "reset_launch_counts",

@@ -33,22 +33,26 @@ _F = ctypes.c_float
 #: argtypes of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "krypy_stencil5_affine": [_P, _P, _P] + [_I] * 4 + [_F] * 7 + [_P],
-    "krypy_stencil5_jacobi2": [_P, _P, _P] + [_I] * 4 + [_F] * 13 + [_P],
+    # u, g, out, nx, ny, nrows, ncols, 13 constants, strip, step_rows,
+    # steps, stream
+    "krypy_stencil5_jacobi2": [_P, _P, _P] + [_I] * 4 + [_F] * 13 + [_I] * 3
+    + [_P],
     "krypy_stencil5_resrestrict_rows": [_P, _P, _P] + [_I] * 4 + [_F] * 5
     + [_P],
 }
 for _sfx in ("f32", "f64"):
     SIGNATURES.update({
-        # V, w, mask, partial, c, N, rows, m, blocks, threads, stream
-        f"krypy_project_prefix_{_sfx}": [_P] * 5 + [_L] + [_I] * 4 + [_P],
+        # V, w, mask, partial, c, N, rows, m, blocks, threads, chunk,
+        # stream
+        f"krypy_project_prefix_{_sfx}": [_P] * 5 + [_L] + [_I] * 5 + [_P],
         # V, w, c, mask, w1, partial, c2, N, rows, m, blocks, threads,
         # stream
         f"krypy_apply_project_{_sfx}": [_P] * 7 + [_L] + [_I] * 4 + [_P],
         # V, w, c, out, N, rows, blocks, threads, stream
         f"krypy_update_prefix_{_sfx}": [_P] * 4 + [_L] + [_I] * 3 + [_P],
         # V, B, w, mask, partial, w_out, coeffs, N, rows, m, blocks,
-        # threads, stream
-        f"krypy_cgs_project_{_sfx}": [_P] * 7 + [_L] + [_I] * 4 + [_P],
+        # threads, chunk, update_blocks, stream
+        f"krypy_cgs_project_{_sfx}": [_P] * 7 + [_L] + [_I] * 6 + [_P],
     })
 
 _lib = None

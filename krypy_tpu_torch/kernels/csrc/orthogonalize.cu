@@ -14,12 +14,14 @@
 // kernels accumulate in the dtype of the operands.
 //
 // Cross-block reductions (K4, K5) take a second, fixed-order pass over
-// per-block partials instead of float atomics.  Within a block, each warp
-// reduces its 32 lanes with a fixed shuffle tree per column tile, lane 0
-// adds the tile's sum to the warp's running total, and the warps' totals
-// are added in warp order; the second pass adds the blocks' partials in a
-// fixed tree.  The launch configuration depends only on N and rows, so a
-// repeated call gives the same bits.
+// per-block partials instead of float atomics.  K4 sums each block's
+// contiguous column range in registers, then once per chunk of rows
+// reduces its warps with a fixed shuffle tree and adds the warps' totals
+// in warp order; K5 reduces each warp per column tile (lane 0 carrying
+// the warp's running total) and adds the warps' totals in warp order.
+// The second pass adds the blocks' partials in a fixed tree.  The launch
+// configuration depends only on N, rows and the dtype, so a repeated
+// call gives the same bits.
 //
 // Each C entry point launches on the given stream, does not synchronise,
 // allocates nothing (the caller passes the partials' scratch), and
@@ -32,8 +34,10 @@ namespace {
 
 // threads of the fixed-order second pass; one block per coefficient
 constexpr int kReduceThreads = 256;
-// rows loaded together per column in K4 (independent loads in flight)
-constexpr int kRowChunk = 8;
+// K4: threads per block (at most), and rows loaded together per column
+// group (16-byte loads in flight per thread)
+constexpr int kProjectThreads = 256;
+constexpr int kProjectBatch = 8;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -57,71 +61,199 @@ __device__ __forceinline__ void write_block_partials(const T* wacc,
   }
 }
 
+// A 16-byte group of columns: 4 float32 or 2 float64 values.
+template <typename T>
+struct Group;
+template <>
+struct Group<float> {
+  using vec = float4;
+  static constexpr int n = 4;
+  __device__ static void unpack(const float4& x, float (&v)[4]) {
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  }
+};
+template <>
+struct Group<double> {
+  using vec = double2;
+  static constexpr int n = 2;
+  __device__ static void unpack(const double2& x, double (&v)[2]) {
+    v[0] = x.x, v[1] = x.y;
+  }
+};
+
+// The group of columns at p: one 16-byte load where `vec` (p aligned and
+// the whole group inside N), else `valid` scalar loads and zeros past
+// them.  STREAM loads evict-first (the basis, read once); the others go
+// through the read-only path (w, re-read by every chunk of rows).
+template <typename T, bool STREAM>
+__device__ __forceinline__ void load_group(const T* __restrict__ p, bool vec,
+                                           int valid,
+                                           T (&v)[Group<T>::n]) {
+  using G = Group<T>;
+  if (vec) {
+    const auto* q = reinterpret_cast<const typename G::vec*>(p);
+    G::unpack(STREAM ? __ldcs(q) : __ldg(q), v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < G::n; ++k) {
+      v[k] = k < valid ? (STREAM ? __ldcs(p + k) : __ldg(p + k)) : T(0);
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // K4, first pass, and phase 0 of K7.  Replaces
 // krypy_tpu/kernels/orthogonalize.py:project_prefix
 // (_project_prefix_kernel): the per-block partials of
-//   c_r = sum_n V[r, n] w[n],  r < rows.
+//   c_r = sum_n V[r, n] w[n],  r < rows,
+// written to partial[r * gridDim.x + blockIdx.x] (row by row: with the
+// block-by-block index the float32 16-row instantiation spilled at its
+// 128-register cap and K4 took ~1% longer on the H100).
 //
 // Bound: device memory.  It reads the V prefix once (rows * N elements)
-// and w once, and does 2 flops per V element.  Each thread walks one
-// column per tile (a warp reads 32 contiguous elements of each row) and
-// loads kRowChunk rows at a time, so several independent loads are in
-// flight per thread; w[n] is read once into a register and used for all
-// rows.  (Running sums per row in registers, reduced once at the end,
-// measured slower on the H100.)  Left for later: 16-byte vector loads and
-// a TMA/cp.async pipeline.
-template <typename T>
+// and w once, and does 2 flops per V element, so only the bytes count.
+// Design:
+// * Block b owns one contiguous range of 16-byte column groups, the
+//   grid's equal share of N (the wrapper fixes the grid from N and the
+//   dtype alone, never from the SM count): its slice of w stays in the
+//   caches while the block walks the prefix.
+// * The block walks `rows` in chunks of CHUNK rows (8 or 16: the wrapper
+//   takes 8 for prefixes of up to 8 rows, whose fewer registers let more
+//   blocks share an SM; that measured faster there on the H100, most for
+//   float64 and one row, and no slower at 8 rows).  Each thread keeps CHUNK
+//   running sums in registers over its groups of the range, loading
+//   kProjectBatch rows of a group together (16-byte loads in flight);
+//   a ragged last chunk is masked by the compile-time-unrolled row
+//   guards.  Then ONE warp-shuffle tree per row and one shared-memory
+//   sum over the warps per chunk: each (row, block) partial is final
+//   after its chunk.  Each chunk reads the block's slice of w again (the
+//   basis loads evict first, so it can stay in the L2).  Chunks of 32
+//   rows, which read w once for the main path's 26, took 128 registers a
+//   thread and measured slower on the H100.
+// * 16-byte loads (float4 / double2) where a row's group is aligned.
+//   Row r starts at r * N elements, so for float32 with N % 4 != 0 (odd
+//   N for float64) some rows are not: those rows, and the group that
+//   holds the ragged end of N, take scalar loads of the same columns
+//   (a warp-uniform choice per row; the same bytes move).
+template <typename T, int CHUNK>
 __device__ __forceinline__ void project_partials(const T* __restrict__ V,
                                                  const T* __restrict__ w,
                                                  T* __restrict__ partial,
                                                  int64_t N, int rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* wacc = reinterpret_cast<T*>(smem_raw);  // [nwarps][rows]
+  constexpr int VW = Group<T>::n;
+  static_assert(CHUNK % kProjectBatch == 0 && CHUNK <= 32, "row chunk");
+  __shared__ T red[kProjectThreads / 32][CHUNK];  // one chunk's warp totals
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int i = tid; i < nwarps * rows; i += blockDim.x) wacc[i] = T(0);
-  __syncthreads();
+  const int64_t ngroups = (N + VW - 1) / VW;
+  const int64_t span = (ngroups + gridDim.x - 1) / gridDim.x;
+  const int64_t g_lo = (int64_t)blockIdx.x * span;
+  const int64_t g_hi = min(ngroups, g_lo + span);
+  const bool w_vec = aligned16(w);
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  // every thread runs the same trip count, so the shuffles see full warps
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < N;
-       base += stride) {
-    const int64_t n = base + tid;
-    const bool ok = n < N;
-    const T wn = ok ? w[n] : T(0);
-    for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-      T v[kRowChunk];
+  for (int r0 = 0; r0 < rows; r0 += CHUNK) {
+    const int nr = min(CHUNK, rows - r0);
+    const T* base = V + (int64_t)r0 * N;
+    uint32_t row_vec = 0;  // bit j: row r0 + j starts 16-byte aligned
 #pragma unroll
-      for (int j = 0; j < kRowChunk; ++j) {
-        v[j] = (ok && r0 + j < rows) ? V[(int64_t)(r0 + j) * N + n] : T(0);
-      }
+    for (int j = 0; j < CHUNK; ++j) {
+      if (j < nr && aligned16(base + (int64_t)j * N)) row_vec |= 1u << j;
+    }
+    T acc[CHUNK];
 #pragma unroll
-      for (int j = 0; j < kRowChunk; ++j) {
-        const T p = warp_sum(v[j] * wn);
-        if (lane == 0 && r0 + j < rows) wacc[warp * rows + r0 + j] += p;
+    for (int j = 0; j < CHUNK; ++j) acc[j] = T(0);
+
+    for (int64_t g = g_lo + tid; g < g_hi; g += blockDim.x) {
+      const int64_t n = g * VW;
+      const int valid = (int)min((int64_t)VW, N - n);
+      const bool full = valid == VW;
+      T wv[VW];
+      load_group<T, false>(w + n, full && w_vec, valid, wv);
+#pragma unroll
+      for (int j0 = 0; j0 < CHUNK; j0 += kProjectBatch) {
+        if (j0 < nr) {
+          T v[kProjectBatch][VW];
+#pragma unroll
+          for (int j = 0; j < kProjectBatch; ++j) {
+            if (j0 + j < nr) {
+              load_group<T, true>(base + (int64_t)(j0 + j) * N + n,
+                                  full && (row_vec >> (j0 + j) & 1u), valid,
+                                  v[j]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < VW; ++k) v[j][k] = T(0);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kProjectBatch; ++j) {
+#pragma unroll
+            for (int k = 0; k < VW; ++k) acc[j0 + j] += v[j][k] * wv[k];
+          }
+        }
       }
     }
+
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      if (j < nr) {
+        const T s = warp_sum(acc[j]);
+        if (lane == 0) red[warp][j] = s;
+      }
+    }
+    __syncthreads();
+    if (tid < nr) {
+      T s = T(0);
+      for (int i = 0; i < nwarps; ++i) s += red[i][tid];
+      partial[(int64_t)(r0 + tid) * gridDim.x + blockIdx.x] = s;
+    }
+    __syncthreads();  // red is refilled by the next chunk
   }
-  __syncthreads();
-  write_block_partials(wacc, partial, rows, nwarps);
 }
 
+template <typename T, int CHUNK>
+__global__ void __launch_bounds__(kProjectThreads, 2)
+    project_partial_kernel(const T* __restrict__ V, const T* __restrict__ w,
+                           T* __restrict__ partial, int64_t N, int rows) {
+  project_partials<T, CHUNK>(V, w, partial, N, rows);
+}
+
+// Launch K4's first pass with the row chunk the wrapper chose.
 template <typename T>
-__global__ void project_partial_kernel(const T* __restrict__ V,
-                                       const T* __restrict__ w,
-                                       T* __restrict__ partial, int64_t N,
-                                       int rows) {
-  project_partials(V, w, partial, N, rows);
+cudaError_t launch_project_partials(const T* V, const T* w, T* partial,
+                                    int64_t N, int rows, int blocks,
+                                    int threads, int chunk, cudaStream_t s) {
+  if (threads > kProjectThreads || threads % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (chunk) {
+    case 8:
+      project_partial_kernel<T, 8><<<blocks, threads, 0, s>>>(V, w, partial,
+                                                              N, rows);
+      break;
+    case 16:
+      project_partial_kernel<T, 16><<<blocks, threads, 0, s>>>(V, w, partial,
+                                                               N, rows);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
-// Second pass of K4, K5 and K7: c[r] = (sum over blocks of partial[b][r]) *
-// mask[r] for r < rows, c[r] = 0 for rows <= r < m.  One block per r; each
-// thread adds a strided run of blocks in order, then a fixed shared-memory
-// tree.  The mask multiplies the finished sum (the Pallas kernels multiply
-// each tile's part; for the 0/1 masks of GMRES the two are the same).
+// Second pass of K4, K5 and K7: c[r] = (sum over blocks b of
+// partial[b * stride_b + r * stride_r]) * mask[r] for r < rows, c[r] = 0
+// for rows <= r < m (K4 and K7 lay the partials out row by row, K5 block
+// by block).  One block per r; each thread adds a strided run of blocks
+// in order, then a fixed shared-memory tree.  The mask multiplies the
+// finished sum (the Pallas kernels multiply each tile's part; for the 0/1
+// masks of GMRES the two are the same).
 template <typename T>
 __global__ void reduce_partials_kernel(const T* __restrict__ partial,
-                                       int nblocks, int rows,
+                                       int nblocks, int64_t stride_b,
+                                       int64_t stride_r, int rows,
                                        const T* __restrict__ mask,
                                        T* __restrict__ c) {
   const int r = blockIdx.x;
@@ -132,7 +264,7 @@ __global__ void reduce_partials_kernel(const T* __restrict__ partial,
   __shared__ T s[kReduceThreads];
   T acc = T(0);
   for (int b = threadIdx.x; b < nblocks; b += kReduceThreads) {
-    acc += partial[(int64_t)b * rows + r];
+    acc += partial[b * stride_b + r * stride_r];
   }
   s[threadIdx.x] = acc;
   __syncthreads();
@@ -241,11 +373,12 @@ __global__ void update_kernel(const T* __restrict__ V,
 // column tiles in order and carries c in a VMEM scratch from phase 0 to
 // phase 1.  Hopper's blocks run side by side and share nothing, so the
 // sum over column tiles is a step of its own: phase 0 writes per-block
-// partials (K4's sweep of V), a fixed-order second pass sums them into
-// the coefficient output (masked, zero past `rows`, so the caller can add
-// it to a full-height Hessenberg column), and phase 1 is column-parallel
-// over B with c in shared memory (K6's sweep).  Three launches on one
-// stream; no float atomics, so a repeated call gives the same bits.
+// partials (K4's sweep of V, on K4's grid), a fixed-order second pass
+// sums them into the coefficient output (masked, zero past `rows`, so the
+// caller can add it to a full-height Hessenberg column), and phase 1 is
+// column-parallel over B with c in shared memory (K6's sweep, on K6's
+// grid).  Three launches on one stream; no float atomics, so a repeated
+// call gives the same bits.
 //
 // Bound: device memory, 4 flops per basis element.  The function must
 // move (2 rows + 2) * N elements with a dual basis (the V and B prefixes
@@ -253,7 +386,7 @@ __global__ void update_kernel(const T* __restrict__ V,
 // design sweeps twice, so it moves (2 rows + 3) * N either way (w is read
 // in both phases, and with B = V the prefix too: at 26 x 4096^2 it is far
 // larger than the L2).  Left for later: one cooperative launch with a
-// grid-wide barrier between the phases, 16-byte loads, a TMA pipeline.
+// grid-wide barrier between the phases; phase 1's 16-byte loads.
 // The host function cgs_project below launches K4's project_partial_kernel,
 // reduce_partials_kernel and K6's update_kernel.
 template <typename T>
@@ -275,17 +408,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <typename T>
 int project_prefix(const T* V, const T* w, const T* mask, T* partial, T* c,
                    long long N, int rows, int m, int blocks, int threads,
-                   void* stream) {
+                   int chunk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = sizeof(T) * (size_t)(threads / 32) * rows;
-  cudaError_t err = allow_smem(project_partial_kernel<T>, smem);
+  cudaError_t err = launch_project_partials<T>(V, w, partial, (int64_t)N,
+                                               rows, blocks, threads, chunk,
+                                               s);
   if (err != cudaSuccess) return (int)err;
-  project_partial_kernel<T><<<blocks, threads, smem, s>>>(V, w, partial,
-                                                          (int64_t)N, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(partial, blocks,
-                                                          rows, mask, c);
+  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(
+      partial, blocks, 1, blocks, rows, mask, c);
   return (int)cudaGetLastError();
 }
 
@@ -301,8 +431,8 @@ int apply_project(const T* V, const T* w, const T* c, const T* mask, T* w1,
       V, w, c, w1, partial, (int64_t)N, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(partial, blocks,
-                                                          rows, mask, c2);
+  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(
+      partial, blocks, rows, 1, rows, mask, c2);
   return (int)cudaGetLastError();
 }
 
@@ -317,26 +447,25 @@ int update_prefix(const T* V, const T* w, const T* c, T* out, long long N,
   return (int)cudaGetLastError();
 }
 
+// K7: phase 0 on K4's grid (`blocks`, `threads`, `chunk`), phase 1 on
+// K6's (`update_blocks`, `threads`).
 template <typename T>
 int cgs_project(const T* V, const T* B, const T* w, const T* mask,
                 T* partial, T* w_out, T* coeffs, long long N, int rows,
-                int m, int blocks, int threads, void* stream) {
+                int m, int blocks, int threads, int chunk, int update_blocks,
+                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem0 = sizeof(T) * (size_t)(threads / 32) * rows;
   const size_t smem1 = sizeof(T) * (size_t)rows;
-  cudaError_t err = allow_smem(project_partial_kernel<T>, smem0);
+  cudaError_t err = allow_smem(update_kernel<T>, smem1);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(update_kernel<T>, smem1);
+  err = launch_project_partials<T>(V, w, partial, (int64_t)N, rows, blocks,
+                                   threads, chunk, s);
   if (err != cudaSuccess) return (int)err;
-  project_partial_kernel<T><<<blocks, threads, smem0, s>>>(
-      V, w, partial, (int64_t)N, rows);
+  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(
+      partial, blocks, 1, blocks, rows, mask, coeffs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<T><<<m, kReduceThreads, 0, s>>>(partial, blocks,
-                                                          rows, mask, coeffs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  update_kernel<T><<<blocks, threads, smem1, s>>>(
+  update_kernel<T><<<update_blocks, threads, smem1, s>>>(
       B, w, coeffs, w_out, (int64_t)N, rows);
   return (int)cudaGetLastError();
 }
@@ -349,9 +478,9 @@ extern "C" {
   int krypy_project_prefix_##SUFFIX(const T* V, const T* w, const T* mask,    \
                                     T* partial, T* c, long long N, int rows,  \
                                     int m, int blocks, int threads,           \
-                                    void* stream) {                           \
+                                    int chunk, void* stream) {                \
     return project_prefix<T>(V, w, mask, partial, c, N, rows, m, blocks,      \
-                             threads, stream);                                \
+                             threads, chunk, stream);                         \
   }                                                                           \
   int krypy_apply_project_##SUFFIX(const T* V, const T* w, const T* c,        \
                                    const T* mask, T* w1, T* partial, T* c2,   \
@@ -368,9 +497,10 @@ extern "C" {
   int krypy_cgs_project_##SUFFIX(const T* V, const T* B, const T* w,          \
                                  const T* mask, T* partial, T* w_out,         \
                                  T* coeffs, long long N, int rows, int m,     \
-                                 int blocks, int threads, void* stream) {     \
+                                 int blocks, int threads, int chunk,          \
+                                 int update_blocks, void* stream) {           \
     return cgs_project<T>(V, B, w, mask, partial, w_out, coeffs, N, rows, m,  \
-                          blocks, threads, stream);                           \
+                          blocks, threads, chunk, update_blocks, stream);     \
   }
 
 KRYPY_ORTHO_ENTRIES(float, f32)

@@ -46,22 +46,30 @@ __all__ = [
     "update_prefix",
     "cgs2_fused",
     "cgs2_fused_sharded",
+    "cgs2_fused_blocks",
     "cgs_project",
     "cgs_project_torch",
     "project_prefix_torch",
     "apply_project_torch",
     "update_prefix_torch",
     "launch_config",
+    "row_chunk",
     "max_rows",
 ]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: threads per block of the sweeps
 THREADS = 256
-#: cap on the sweeps' grid: a fixed number (not the card's SM count), so
-#: the reduction order, and with it every bit of the result, depends on
-#: N alone
+#: cap on the grid of K5 and K6 (and K7's phase 1): a fixed number (not
+#: the card's SM count), so the reduction order, and with it every bit of
+#: the result, depends on N alone
 MAX_BLOCKS = 1024
+#: K4 (and K7's phase 0): the 16-byte column groups (4 float32 or 2
+#: float64 columns) each thread takes per row of its block's contiguous
+#: range; the grid is the number of such ranges that cover N
+GROUPS_PER_THREAD = 16
+#: K4's chunks of rows summed in registers, its C instantiations
+ROW_CHUNKS = (8, 16)
 #: K5's shared-memory budget per block: the staged column tile
 #: (rows x threads values) plus the coefficients and warp totals
 _K5_SMEM = 200 * 1024
@@ -72,23 +80,34 @@ _SMEM_MAX = 232448
 
 def _smem(kernel, rows, threads, itemsize):
     """Dynamic shared memory of one block, as ``orthogonalize.cu`` asks
-    for it: K4 the warp totals, K5 also the coefficients and the staged
-    column tile, K6 the coefficients, K7 the larger of its two phases'
-    (K4's)."""
-    per_row = {"project_prefix": threads // 32,
+    for it: K4 none (its chunk's warp totals are static), K5 the
+    coefficients, warp totals and staged column tile, K6 the
+    coefficients, K7 its phase 1's (K6's)."""
+    per_row = {"project_prefix": 0,
                "apply_project": 1 + threads // 32 + threads,
                "update_prefix": 1,
-               "cgs_project": threads // 32}[kernel]
+               "cgs_project": 1}[kernel]
     return itemsize * rows * per_row
 
 
+def row_chunk(rows):
+    """K4's chunk of rows at a prefix of ``rows``: the smallest of
+    ``ROW_CHUNKS`` that holds the whole prefix (so ``w`` is read once),
+    else the largest (each chunk reads ``w`` again)."""
+    return next((c for c in ROW_CHUNKS if rows <= c), ROW_CHUNKS[-1])
+
+
 def launch_config(N, rows, itemsize, kernel):
-    """``(blocks, threads)`` of ``kernel``'s sweep over N columns:
-    ``THREADS`` threads (K5 halves them, down to one warp, while its
-    staged tile exceeds the budget) and at most ``MAX_BLOCKS`` blocks,
-    each walking its columns in a grid-stride loop.  Raises
-    ``ValueError`` where ``rows`` do not fit one block's shared memory
-    (see :func:`max_rows`)."""
+    """``(blocks, threads)`` of ``kernel``'s sweep over N columns,
+    ``THREADS`` threads a block.  K4 (and K7's phase 0,
+    ``"cgs_project"``): one block per contiguous range of
+    ``THREADS * GROUPS_PER_THREAD`` 16-byte column groups.  K5 and K6
+    (and K7's phase 1): at most ``MAX_BLOCKS`` blocks, each walking its
+    columns in a grid-stride loop; K5 halves its threads, down to one
+    warp, while its staged tile exceeds the budget.  The grid depends on
+    N, ``rows`` and the dtype alone.  Raises ``ValueError`` where
+    ``rows`` do not fit one block's shared memory (see
+    :func:`max_rows`)."""
     threads = THREADS
     if kernel == "apply_project":
         while threads > 32 and _smem(kernel, rows, threads,
@@ -100,20 +119,25 @@ def launch_config(N, rows, itemsize, kernel):
             f"at {itemsize}-byte elements (at most "
             f"{max_rows(itemsize, kernel)} rows)"
         )
-    blocks = max(1, min(-(-N // threads), MAX_BLOCKS))
-    return blocks, threads
+    if kernel in ("project_prefix", "cgs_project"):
+        groups = -(-N * itemsize // 16)
+        return max(1, -(-groups // (threads * GROUPS_PER_THREAD))), threads
+    return max(1, min(-(-N // threads), MAX_BLOCKS)), threads
 
 
 def max_rows(itemsize, kernel="apply_project"):
     """The tallest prefix that ``kernel`` launches on at
-    ``itemsize``-byte elements.  The default is the limit of the three
-    prefix sweeps together, 1709 float32 or 854 float64 rows: K5's staged
-    tile at its smallest block (one warp) binds, and a GMRES basis of
-    ``maxiter + 1`` rows above it cannot run ``cgs2_fused`` on the card.
-    ``"cgs_project"`` (K7, its phase 0 at full block width) takes 7264
-    float32 or 3632 float64 rows."""
+    ``itemsize``-byte elements (None: no limit).  The default is the
+    limit of the three prefix sweeps together, 1709 float32 or 854
+    float64 rows: K5's staged tile at its smallest block (one warp)
+    binds, and a GMRES basis of ``maxiter + 1`` rows above it cannot run
+    ``cgs2_fused`` on the card.  K4 (``"project_prefix"``) keeps no
+    per-row shared memory and has no limit; ``"cgs_project"`` (K7, bound
+    by its phase 1's coefficients) takes 58112 float32 or 29056 float64
+    rows."""
     threads = 32 if kernel == "apply_project" else THREADS
-    return _SMEM_MAX // _smem(kernel, 1, threads, itemsize)
+    per_row = _smem(kernel, 1, threads, itemsize)
+    return _SMEM_MAX // per_row if per_row else None
 
 
 def _check(name, V, rows, vecs, coeffs):
@@ -208,7 +232,7 @@ def project_prefix(V, w, mask, *, rows=None):
     _launch(
         "project_prefix", f"krypy_project_prefix_{_SUFFIX[V.dtype]}",
         (V.data_ptr(), w.data_ptr(), mask.data_ptr(), partial.data_ptr(),
-         c.data_ptr(), N, rows, m, blocks, threads),
+         c.data_ptr(), N, rows, m, blocks, threads, row_chunk(rows)),
         V.device,
     )
     return c
@@ -269,31 +293,38 @@ def cgs2_fused(V, w, mask, *, rows=None):
 
 
 def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, n=None):
-    """K9: :func:`cgs2_fused` on a basis whose columns are split over
-    ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`): ``V`` is the
-    rank's ``(m, N/P)`` columns and ``w`` its block.  K4 on the rank's
-    columns, the sum of the partial coefficients over the ranks, K5,
-    the second sum, K6: three local sweeps and two
-    :func:`~krypy_tpu_torch.parallel.all_reduce_sum` calls of m values.
-    Returns ``(w2, c1 + c2)``, the rank's block of ``w2`` and the
-    coefficients, the same on every rank.  Counterpart of
-    ``krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded`` (its lines
-    399-414, line for line).
-
-    ``n`` is the global N; without it K9 sums the blocks' lengths first
-    (a third all-reduce).  N must divide over the mesh, else
-    ``ValueError``; on the card ``rows`` must fit the kernels
-    (:func:`max_rows`), as for :func:`cgs2_fused`.  On a CUDA
-    tensor it counts one ``cgs2_fused_sharded`` launch beside K4-K6's
-    own."""
-    n_loc = V.shape[1]
+    """K9 under the JAX package's contract: :func:`cgs2_fused_blocks`
+    where the global N divides over ``mesh``, else ``ValueError`` with
+    the JAX package's wording (its ``shard_map`` takes equal blocks
+    only).  ``n`` is the global N; without it the blocks' lengths are
+    summed first (one all-reduce more).  Counterpart of
+    ``krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded``."""
     if n is None:
-        n = int(all_reduce_sum(torch.tensor(n_loc, device=V.device), mesh))
-    if n % mesh.size != 0 or n_loc != n // mesh.size:
+        n = int(all_reduce_sum(torch.tensor(V.shape[1], device=V.device),
+                               mesh))
+    if n % mesh.size != 0:
         raise ValueError(
             f"N={n} must divide over the mesh size {mesh.size} for the "
-            f"sharded fused path (this rank holds {n_loc} columns; use "
-            "ortho='cgs2' otherwise)")
+            "sharded fused path (cgs2_fused_blocks takes blocks of any "
+            "length)")
+    return cgs2_fused_blocks(V, w, mask, mesh=mesh, rows=rows)
+
+
+def cgs2_fused_blocks(V, w, mask, *, mesh, rows=None):
+    """K9: :func:`cgs2_fused` on a basis whose columns are split over
+    ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`): ``V`` is the
+    rank's ``(m, n_loc)`` columns and ``w`` its block, of any length
+    (the blocks of :func:`krypy_tpu_torch.parallel.block_of` where N
+    does not divide over the mesh).  K4 on the rank's columns, the sum
+    of the partial coefficients over the ranks, K5, the second sum, K6:
+    three local sweeps and two
+    :func:`~krypy_tpu_torch.parallel.all_reduce_sum` calls of m values
+    (the JAX package's ``cgs2_fused_sharded``, its lines 399-414, line
+    for line).  Returns ``(w2, c1 + c2)``, the rank's block of ``w2``
+    and the coefficients, the same on every rank.  On the card ``rows``
+    must fit the kernels (:func:`max_rows`), as for :func:`cgs2_fused`.
+    On a CUDA tensor it counts one ``cgs2_fused_sharded`` launch beside
+    K4-K6's own."""
     c1 = all_reduce_sum(project_prefix(V, w, mask, rows=rows), mesh)
     w1, c2p = apply_project(V, w, c1, mask, rows=rows)
     c2 = all_reduce_sum(c2p, mesh)
@@ -324,6 +355,8 @@ def cgs_project(V, w, mask, basis=None, *, rows=None):
     m, N = V.shape
     blocks, threads = launch_config(N, rows, V.element_size(),
                                    "cgs_project")
+    update_blocks, _ = launch_config(N, rows, V.element_size(),
+                                     "update_prefix")
     partial = torch.empty(blocks * rows, dtype=V.dtype, device=V.device)
     w_out = torch.empty(N, dtype=V.dtype, device=V.device)
     c = torch.empty(m, dtype=V.dtype, device=V.device)
@@ -331,7 +364,7 @@ def cgs_project(V, w, mask, basis=None, *, rows=None):
         "cgs_project", f"krypy_cgs_project_{_SUFFIX[V.dtype]}",
         (V.data_ptr(), B.data_ptr(), w.data_ptr(), mask.data_ptr(),
          partial.data_ptr(), w_out.data_ptr(), c.data_ptr(), N, rows, m,
-         blocks, threads),
+         blocks, threads, row_chunk(rows), update_blocks),
         V.device,
     )
     return w_out, c

@@ -47,9 +47,39 @@ __all__ = [
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
+    "jacobi2_grid",
     "launch_counts",
     "reset_launch_counts",
 ]
+
+
+#: K2's geometry: a block's strip of columns and the rows of one step
+#: (one per warp), both passed to the C entry, which refuses any other
+#: than ``csrc/stencil5.cu``'s own; the most steps of a block's run, and
+#: the grid size below which K2 shortens its runs
+JACOBI2_STRIP = 128
+JACOBI2_STEP_ROWS = 8
+JACOBI2_MAX_STEPS = 4
+JACOBI2_MIN_BLOCKS = 512
+
+
+def jacobi2_grid(nx, ny):
+    """K2's launch on an ``(nx, ny)`` buffer: ``(strips, runs, steps)``.
+    Block ``(x, y)`` computes the output columns ``[x * JACOBI2_STRIP,
+    (x + 1) * JACOBI2_STRIP)`` and rows ``[y * h, (y + 1) * h)`` with ``h
+    = steps * JACOBI2_STEP_ROWS``, each clipped to the buffer.  A run is
+    ``JACOBI2_MAX_STEPS`` steps long, halved while the grid has fewer
+    than ``JACOBI2_MIN_BLOCKS`` blocks (down to one step), so that small
+    levels still spread over the card; it depends on the shape alone.
+    On the H100 these runs (32, 32, 16 and 8 rows at the V-cycle's
+    4096^2, 2048^2, 1024^2 and 512^2 buffers) took the least summed time
+    of runs from 8 to 64 rows."""
+    strips = -(-ny // JACOBI2_STRIP)
+    steps = JACOBI2_MAX_STEPS
+    while steps > 1 and strips * -(-nx // (steps * JACOBI2_STEP_ROWS)) \
+            < JACOBI2_MIN_BLOCKS:
+        steps //= 2
+    return strips, -(-nx // (steps * JACOBI2_STEP_ROWS)), steps
 
 
 def _grouped(coeffs):
@@ -201,7 +231,8 @@ def stencil5_jacobi2(u, g, *, nx, ny, coeffs, w, s=1.0, ncols, nrows):
     _launch(
         "stencil5_jacobi2", "krypy_stencil5_jacobi2",
         (u.data_ptr(), g.data_ptr(), out.data_ptr(), nx, ny, nrows, ncols,
-         *_grouped(sc1), beta1, *_grouped(sc2), alpha2, beta2),
+         *_grouped(sc1), beta1, *_grouped(sc2), alpha2, beta2,
+         JACOBI2_STRIP, JACOBI2_STEP_ROWS, jacobi2_grid(nx, ny)[2]),
         u.device,
     )
     return out

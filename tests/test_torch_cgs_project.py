@@ -131,14 +131,17 @@ def test_cgs_project_rejects_bad_operands(bad):
 
 
 def test_cgs_project_row_limits():
-    """K7's phase 0 at full block width binds at 7264 float32 / 3632
-    float64 rows; the three prefix sweeps keep their lower limit."""
-    assert orth.max_rows(4, "cgs_project") == 7264
-    assert orth.max_rows(8, "cgs_project") == 3632
+    """K7's phase 1 (its coefficients in shared memory) binds at 58112
+    float32 / 29056 float64 rows, above the 7264 / 3632 its phase 0 took
+    before K4's redesign; the three prefix sweeps keep their lower limit.
+    Phase 0 runs on K4's grid."""
+    assert orth.max_rows(4, "cgs_project") == 58112
+    assert orth.max_rows(8, "cgs_project") == 29056
     assert orth.max_rows(4) == 1709 and orth.max_rows(8) == 854
-    assert orth.launch_config(4096 ** 2, 26, 4, "cgs_project") == (1024, 256)
-    with pytest.raises(ValueError, match="7264"):
-        orth.launch_config(1000, 7265, 4, "cgs_project")
+    assert orth.launch_config(4096 ** 2, 26, 4, "cgs_project") == \
+        orth.launch_config(4096 ** 2, 26, 4, "project_prefix") == (1024, 256)
+    with pytest.raises(ValueError, match="58112"):
+        orth.launch_config(1000, 58113, 4, "cgs_project")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

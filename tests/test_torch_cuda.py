@@ -196,9 +196,10 @@ def test_prefix_kernels_match_plain(cuda_device, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_prefix_kernels_at_the_row_limit(cuda_device, dtype):
-    """At ``max_rows`` (1709 float32, 854 float64 rows) K4 asks for more
-    than the default 48 KB of shared memory and K5 runs one warp per
-    block: both opt in and launch; one row more raises before launch."""
+    """At ``max_rows`` (1709 float32, 854 float64 rows) K5 runs one warp
+    per block and opts in to more than the default 48 KB of shared
+    memory: it launches; one row more raises before launch, where K4,
+    which keeps no per-row shared memory, still runs."""
     top = korth.max_rows(torch.empty(0, dtype=dtype).element_size())
     N = 3001
     V, w, c, mask = _random_prefix_inputs(top + 1, N, top - 3, dtype,
@@ -223,6 +224,77 @@ def test_prefix_kernels_are_deterministic(cuda_device):
     a = korth.cgs2_fused(V, w, mask, rows=13)
     b = korth.cgs2_fused(V, w, mask, rows=13)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+#: K4's prefixes: one row, each row chunk's size and one more, two chunks
+#: and one more, and the main path's 26 rows
+K4_ROWS = [1, 8, 9, 16, 17, 26, 32, 33, 65]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", K4_ROWS)
+def test_project_prefix_row_chunks(cuda_device, rows, dtype):
+    """K4 (with K5 and K6) at prefixes that fill a register chunk, run one
+    row past it or end in a ragged chunk, held to float64; a repeated
+    call gives the same bits."""
+    m, N = rows + 3, 20011
+    V, w, c, mask = _random_prefix_inputs(m, N, rows - 1, dtype,
+                                          cuda_device, rows)
+    got, plain = _prefix_sweeps(V, w, c, mask, rows)
+    assert PrefixCheck(V, w, c, mask, rows, plain).failures(got) == []
+    again = korth.project_prefix(V, w, mask, rows=rows)
+    assert torch.equal(again, got["project_prefix"][0])
+
+
+#: N of every residue mod 4, one below one block's column range (8192
+#: float32 / 4096 float64 columns), a few columns, and the basis offset
+#: by one element so that its rows and ``w`` start unaligned: (N, offset)
+K4_COLUMNS = [(20000, 0), (20001, 0), (20002, 0), (20003, 0), (4095, 0),
+              (37, 0), (20000, 1), (20003, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,offset", K4_COLUMNS, ids=str)
+def test_project_prefix_ragged_columns(cuda_device, N, offset, dtype):
+    """K4 where the rows do not start on 16-byte boundaries (N % 4 != 0,
+    or an offset basis and ``w``), where N ends inside a 16-byte group,
+    and where the whole of N is less than one block's range: held to
+    float64 at 13 of 26 rows; a repeated call gives the same bits."""
+    m, rows = 26, 13
+    rng = np.random.default_rng(N + offset)
+    flat = torch.tensor(rng.standard_normal(m * N + offset), dtype=dtype,
+                        device=cuda_device)
+    V = flat[offset:].view(m, N)
+    w = torch.tensor(rng.standard_normal(N + offset), dtype=dtype,
+                     device=cuda_device)[offset:]
+    c = torch.tensor(rng.standard_normal(m), dtype=dtype, device=cuda_device)
+    mask = (torch.arange(m, device=cuda_device) < rows - 2).to(dtype)
+    got, plain = _prefix_sweeps(V, w, c, mask, rows)
+    check = PrefixCheck(V, w, c, mask, rows, plain)
+    assert check.failures(got) == []
+    assert check.assert_faults_caught(got) == (
+        8 if dtype == torch.float64 else 6)
+    again = korth.project_prefix(V, w, mask, rows=rows)
+    assert torch.equal(again, got["project_prefix"][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_project_sweep_at_the_cgs_project_limit(cuda_device, dtype):
+    """K7 at its row limit (``max_rows(..., "cgs_project")``, where its
+    phase 1's coefficients fill a block's shared memory) held to float64,
+    and K4 at the same prefix: the same sweep on the same grid, so the
+    same coefficient bits."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    rows, N = korth.max_rows(itemsize, "cgs_project"), 3001
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    V = torch.randn(rows, N, generator=gen, device=cuda_device,
+                    dtype=dtype) / N ** 0.5
+    w = torch.randn(N, generator=gen, device=cuda_device, dtype=dtype)
+    mask = torch.ones(rows, device=cuda_device, dtype=dtype)
+    got = korth.cgs_project(V, w, mask, rows=rows)
+    plain = korth.cgs_project_torch(V, w, mask, V, rows)
+    assert ProjectCheck(V, w, mask, rows, plain).failures(got) == []
+    assert torch.equal(korth.project_prefix(V, w, mask, rows=rows), got[1])
 
 
 def test_prefix_kernels_raise_on_other_dtypes(cuda_device):
@@ -303,6 +375,71 @@ def test_cgs_project_raises_on_bad_operands(cuda_device):
     korth.cgs_project(tall, w, torch.ones(top + 1), rows=top)
     with pytest.raises(ValueError, match="shared memory"):
         korth.cgs_project(tall, w, torch.ones(top + 1), rows=top + 1)
+
+
+#: K2 beyond CASES: the north star's two finest V-cycle buffers, a buffer
+#: of one strip and one step, logical regions one column or row short of
+#: a strip or step edge, a region that spills one row and one column into
+#: a second step and strip, and buffers whose rows do not start on
+#: 16-byte boundaries (ny % 4 != 0, or the operands offset by one
+#: element): (nrows, ncols, R, P, offset)
+JACOBI2_SHAPES = [(4095, 4095, 4096, 4096, 0), (2047, 2047, 2048, 2048, 0),
+                  (8, 128, 8, 128, 0), (7, 127, 8, 128, 0),
+                  (63, 255, 64, 256, 0), (65, 129, 72, 256, 0),
+                  (9, 121, 9, 122, 0), (13, 130, 13, 130, 1)]
+
+
+@pytest.mark.parametrize("kind", ["lap", "cd"])
+@pytest.mark.parametrize("shape", JACOBI2_SHAPES, ids=str)
+def test_jacobi2_matches_plain(cuda_device, shape, kind):
+    """K2 against its plain version (the stencil tolerance), with the
+    V-cycle's Laplacian and with the north star's nonsymmetric
+    coefficients (a swapped neighbour shows only there), both damping
+    scales; noise in the pads must not reach the output; a repeated call
+    gives the same bits."""
+    nrows, ncols, R, P, off = shape
+    rng = np.random.default_rng(R * P + off)
+    u, g = (interop.from_numpy(rng.standard_normal(R * P + off).astype(
+        np.float32), cuda_device)[off:] for _ in range(2))
+    A = cd_coeffs(nrows) if kind == "cd" else _operator_lap(nrows)
+    w = 0.8 / A[0]
+    for s in (1.0, 3.25):
+        before = kst.launch_counts()["stencil5_jacobi2"]
+        kw = dict(nx=R, ny=P, coeffs=A, w=w, s=s, ncols=ncols, nrows=nrows)
+        got = kst.stencil5_jacobi2(u, g, **kw)
+        again = kst.stencil5_jacobi2(u, g, **kw)
+        torch.cuda.synchronize()
+        assert kst.launch_counts()["stencil5_jacobi2"] == before + 2
+        assert torch.equal(got, again)
+
+        def plain(a, b):
+            return kst.stencil5_jacobi2_torch(a.view(R, P), b.view(R, P), A,
+                                              w, s, nrows, ncols).view(-1)
+
+        want, want64 = plain(u, g), plain(u.double(), g.double())
+        np.testing.assert_allclose(interop.to_numpy(got),
+                                   interop.to_numpy(want), rtol=2e-6,
+                                   atol=fma_atol(want, want64))
+
+
+@pytest.mark.parametrize("attr", ["JACOBI2_STRIP", "JACOBI2_STEP_ROWS"])
+def test_jacobi2_entry_refuses_another_geometry(cuda_device, monkeypatch,
+                                                attr):
+    """The wrapper passes its copy of K2's geometry to the C entry, which
+    refuses any other than the kernel's own: the launch raises and is not
+    counted."""
+    monkeypatch.setattr(kst, attr, getattr(kst, attr) // 2)
+    u = torch.zeros(16 * 128, device=cuda_device)
+    before = kst.launch_counts()["stencil5_jacobi2"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kst.stencil5_jacobi2(u, u, nx=16, ny=128, coeffs=_operator_lap(15),
+                             w=0.1, ncols=15, nrows=15)
+    assert kst.launch_counts()["stencil5_jacobi2"] == before
+
+
+def _operator_lap(n):
+    h2 = (1.0 / (n + 1)) ** 2
+    return (4.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2)
 
 
 @pytest.mark.parametrize("nx,ny", [(1024, 1024), (1021, 1000), (13, 10)])
@@ -519,13 +656,31 @@ def sharded_kernel_cases(mesh):
         k9_ok = k9_ok and bool(
             torch.all((c[:rows] - ref_c[:rows]).double().abs() <= t_c)
             and torch.all((w2 - ref_w2).double().abs() <= t_w))
+    # GMRES with ortho="cgs2_fused" where N does not divide over the mesh:
+    # K9 on blocks of unequal length, once per iteration, against the
+    # two-pass ortho="cgs2" (the JAX package's fused_force_jnp there)
+    n_odd = 64 * mesh.size + 1
+    n_loc = len(range(n_odd)[parallel.block_of(n_odd, mesh)])
+    d = parallel.shard_vector(1.0 + np.arange(n_odd) / n_odd, mesh).float()
+    b = torch.ones(n_loc, device=device)
+    with mesh:
+        kernels.reset_launch_counts()
+        fused = F.gmres(lambda v: d * v, b, tol=1e-6, maxiter=20,
+                        ortho="cgs2_fused")
+        uneven_k9 = kernels.launch_counts()["cgs2_fused_sharded"]
+        two_pass = F.gmres(lambda v: d * v, b, tol=1e-6, maxiter=20,
+                           ortho="cgs2")
+    uneven_same = int(fused.niter) == int(two_pass.niter) and bool(
+        torch.all((fused.x - two_pass.x).abs() <= 1e-5))
     return {"k8_ok": np.bool_(bool(k8_ok)), "k9_ok": np.bool_(k9_ok),
             "k8_err": np.float64(err.max()),
             "launches": np.array([launches["stencil5_sharded"],
                                   launches["stencil5_affine"],
                                   launches["cgs2_fused_sharded"],
                                   launches["apply_project"]]),
-            "c": interop.to_numpy(c)}
+            "c": interop.to_numpy(c),
+            "uneven": np.array([uneven_k9, uneven_same,
+                                int(fused.status), int(fused.niter)])}
 
 
 @pytest.mark.parametrize("backend,P", [("nccl", 1), ("gloo", 2)])
@@ -543,6 +698,11 @@ def test_sharded_kernels_match_one_device(cuda_device, tmp_path, backend,
         assert r["k8_ok"] and r["k9_ok"], (r["k8_err"], backend, P)
         assert list(r["launches"]) == [1, 1, 1, 1]
         assert r["c"].tobytes() == ranks[0]["c"].tobytes()
+        # where N does not divide over the mesh, K9 runs on the unequal
+        # blocks and agrees with the two-pass scheme
+        k9, same, status, niter = r["uneven"]
+        assert status == F.CONVERGED and same
+        assert k9 == niter > 0
 
 
 def test_sharded_kernels_on_cuda_raise_without_the_library(

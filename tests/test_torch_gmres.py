@@ -312,13 +312,32 @@ def test_kernel_schemes_reject_ip_and_fused_rejects_M():
             F.gmres(A, b, ip=torch.eye(4, dtype=torch.float64), ortho=ortho)
     with pytest.raises(ValueError, match="dual-basis"):
         F.gmres(A, b, M=lambda v: v, ortho="cgs2_fused")
+    from krypy_tpu_torch.kernels import orthogonalize as korth
+
     cuda = torch.device("cuda")
     assert _resolve_ortho("auto", torch.float32, cuda, 26, with_M=True) \
         == "cgs2"
-    assert _resolve_ortho("cgs2_pallas", torch.float32, cuda, 7264) \
+    top = korth.max_rows(4, "cgs_project")
+    assert _resolve_ortho("cgs2_pallas", torch.float32, cuda, top) \
         == "cgs2_pallas"
     with pytest.raises(ValueError, match="maxiter"):
-        _resolve_ortho("cgs_pallas", torch.float32, cuda, 7265)
+        _resolve_ortho("cgs_pallas", torch.float32, cuda, top + 1)
+
+
+@pytest.mark.parametrize("ortho", ["cgs2_fused", "auto"])
+def test_fused_rule_on_a_mesh(ortho):
+    """On a mesh ``cgs2_fused`` and ``auto`` run K9, which takes the
+    ranks' blocks whether or not N divides over the mesh (where it does
+    not, the JAX package runs its two-pass ``fused_force_jnp``); ``M``
+    still raises."""
+    from types import SimpleNamespace
+
+    mesh, cuda = SimpleNamespace(size=2), torch.device("cuda")
+    assert _resolve_ortho(ortho, torch.float32, cuda, 26,
+                          mesh=mesh) == "cgs2_fused"
+    with pytest.raises(ValueError, match="dual-basis"):
+        _resolve_ortho("cgs2_fused", torch.float32, cuda, 26, with_M=True,
+                       mesh=mesh)
 
 
 _UNPORTED = [

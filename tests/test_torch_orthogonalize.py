@@ -194,28 +194,81 @@ def test_cpu_path_counts_no_launch():
                          [(26, 4, 256), (26, 8, 256), (200, 8, 64),
                           (800, 8, 32)])
 def test_launch_config(rows, itemsize, threads):
-    """The sweeps' grid is capped at a fixed block count (so the
-    reduction order depends on N alone); K5 halves its threads while its
-    staged column tile exceeds the shared-memory budget; a prefix past
-    ``max_rows`` raises."""
+    """K4's grid is one block per contiguous range of ``THREADS *
+    GROUPS_PER_THREAD`` 16-byte column groups; K6's is capped at a fixed
+    block count (so the reduction order depends on N alone); K5 halves
+    its threads while its staged column tile exceeds the shared-memory
+    budget; a prefix past ``max_rows`` raises."""
     N = 4096 * 4096
-    for kernel in ("project_prefix", "update_prefix"):
-        assert orth.launch_config(N, rows, itemsize, kernel) == (
-            orth.MAX_BLOCKS, 256)
-        assert orth.launch_config(300, rows, itemsize, kernel) == (2, 256)
+    per_block = orth.THREADS * orth.GROUPS_PER_THREAD * (16 // itemsize)
+    assert orth.launch_config(N, rows, itemsize, "project_prefix") == (
+        N // per_block, 256)
+    assert orth.launch_config(300, rows, itemsize, "project_prefix") == (
+        1, 256)
+    assert orth.launch_config(N, rows, itemsize, "update_prefix") == (
+        orth.MAX_BLOCKS, 256)
+    assert orth.launch_config(300, rows, itemsize, "update_prefix") == (
+        2, 256)
     assert orth.launch_config(N, rows, itemsize, "apply_project")[1] == \
         threads
     with pytest.raises(ValueError):
         orth.launch_config(N, 1000, 8, "apply_project")
-    # K4 asks for more than the default 48 KB past 1536 float32 rows (it
-    # opts in to Hopper's large shared memory); every kernel launches at
-    # max_rows, and K5 raises one row past it
+    # every kernel launches at max_rows, and K5 raises one row past it;
+    # K4 keeps no per-row shared memory and has no limit
     for isz in (4, 8):
         top = orth.max_rows(isz)
         for kernel in ("project_prefix", "apply_project", "update_prefix"):
             orth.launch_config(N, top, isz, kernel)
         with pytest.raises(ValueError, match="max|rows"):
             orth.launch_config(N, top + 1, isz, "apply_project")
+        assert orth.max_rows(isz, "project_prefix") is None
+        orth.launch_config(N, 10 ** 6, isz, "project_prefix")
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("N", [1, 37, 4095, 4096, 8191, 20003, 600001,
+                               4096 ** 2, 4096 ** 2 // 4 + 1])
+def test_project_grid_depends_on_the_shape_only(N, itemsize):
+    """K4's grid and row chunk are functions of (N, rows, dtype) alone:
+    the blocks' equal shares of the 16-byte column groups (as the kernel
+    computes them from the grid) are non-empty, contiguous and cover N
+    exactly once, each at most ``GROUPS_PER_THREAD`` groups a thread; the
+    chunk is the smallest that holds the prefix, else the largest."""
+    for rows in (1, 8, 9, 16, 17, 26, 32, 33, 65, 1709):
+        blocks, threads = orth.launch_config(N, rows, itemsize,
+                                             "project_prefix")
+        assert (blocks, threads) == orth.launch_config(
+            N, 1, itemsize, "project_prefix")
+        assert (blocks, threads) == orth.launch_config(
+            N, rows, itemsize, "cgs_project")
+        groups = -(-N * itemsize // 16)
+        span = -(-groups // blocks)
+        ranges = [(b * span, min(groups, (b + 1) * span))
+                  for b in range(blocks)]
+        assert all(lo < hi for lo, hi in ranges)
+        assert ranges[0][0] == 0 and ranges[-1][1] == groups
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert span <= threads * orth.GROUPS_PER_THREAD
+        chunk = orth.row_chunk(rows)
+        assert chunk in orth.ROW_CHUNKS
+        assert chunk == (min(c for c in orth.ROW_CHUNKS if c >= rows)
+                         if rows <= max(orth.ROW_CHUNKS)
+                         else max(orth.ROW_CHUNKS))
+
+
+def test_row_limits_do_not_fall():
+    """The tallest prefixes the kernels take are no lower than before the
+    redesign of K4: 1709 float32 / 854 float64 rows for the three prefix
+    sweeps together, 7264 / 3632 for K7."""
+    assert orth.max_rows(4) >= 1709 and orth.max_rows(8) >= 854
+    assert orth.max_rows(4, "cgs_project") >= 7264
+    assert orth.max_rows(8, "cgs_project") >= 3632
+    for isz, kernel in ((4, "apply_project"), (8, "apply_project"),
+                        (4, "cgs_project"), (8, "cgs_project")):
+        top = orth.max_rows(isz, kernel)
+        orth.launch_config(4096 ** 2, top, isz, kernel)
+        with pytest.raises(ValueError, match="shared memory"):
+            orth.launch_config(4096 ** 2, top + 1, isz, kernel)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -52,6 +52,9 @@ K9_CASE = (9, 1024, 8)
 GM_NX, GM_MAXITER, GM_TOL = 16, 100, 1e-10
 #: GMRES iterations of the two runs whose difference counts collectives
 COUNT_ITERS = (5, 9)
+#: a length that divides over neither world: K9 runs on blocks of
+#: unequal length there, the JAX package its two-pass ``fused_force_jnp``
+UNEVEN_N = 61
 #: seconds: each collective, and the whole world
 DIST_TIMEOUT, WORLD_TIMEOUT = 60, 240
 
@@ -143,6 +146,20 @@ def _gmres_problem(mesh):
     return A, ops.jacobi_preconditioner(A), parallel.shard_vector(b, mesh)
 
 
+def _uneven_matrix(P):
+    """A nonsymmetric ``UNEVEN_N`` x ``UNEVEN_N`` matrix that couples
+    only unknowns of one rank's block (the port's blocks of
+    ``ceil(UNEVEN_N / P)``), so each rank applies its own diagonal block:
+    a diagonal in [1, 4] and a super-diagonal of 0.5 inside each
+    block."""
+    n, step = UNEVEN_N, -(-UNEVEN_N // P)
+    M = np.diag(1.0 + 3.0 * np.random.RandomState(9).rand(n))
+    for i in range(n - 1):
+        if i // step == (i + 1) // step:
+            M[i, i + 1] = 0.5
+    return M
+
+
 def _result(out, key, res, mesh):
     """Store a solve's gathered x, its residual history and counts."""
     out[f"{key}_x"] = interop.gather_to_numpy(res.x, mesh)
@@ -217,6 +234,24 @@ def rank_cases(mesh):
         res = F.restarted_gmres(A, b, Ml=Ml, tol=GM_TOL, maxiter=6,
                                 max_restarts=5, ortho="cgs2_fused")
         _result(out, "restarted", res, mesh)
+        # cgs2_fused where N does not divide over the mesh: K9 on blocks
+        # of unequal length
+        blk = parallel.block_of(UNEVEN_N, mesh)
+        A_blk = torch.tensor(_uneven_matrix(P)[blk, blk])
+        b_u = parallel.shard_vector(
+            np.random.RandomState(5).randn(UNEVEN_N), mesh)
+        gmres_module = importlib.import_module(
+            "krypy_tpu_torch.functional.gmres")
+        k9, calls = gmres_module.cgs2_fused_blocks, []
+        gmres_module.cgs2_fused_blocks = \
+            lambda *a, **k: calls.append(1) or k9(*a, **k)
+        try:
+            res = F.gmres(lambda v: A_blk @ v, b_u, tol=GM_TOL,
+                          maxiter=UNEVEN_N, ortho="cgs2_fused")
+        finally:
+            gmres_module.cgs2_fused_blocks = k9
+        _result(out, "gmres_uneven", res, mesh)
+        out["gmres_uneven_k9_calls"] = np.int64(len(calls))
         out["err_cgs2_pallas"] = np.array(_error(lambda: F.gmres(
             A, b, tol=GM_TOL, maxiter=4, ortho="cgs2_pallas")))
         out["err_refine_to"] = np.array(_error(lambda: F.refine_to(
@@ -427,6 +462,35 @@ def test_gmres_on_mesh_matches_jax(worlds, ortho, P):
     assert int(res.status) == F.CONVERGED
     key = f"gmres_{ortho}_resnorms"
     assert all(r[key].tobytes() == ranks[0][key].tobytes() for r in ranks)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_gmres_cgs2_fused_on_indivisible_mesh_matches_jax(worlds, P):
+    """``ortho="cgs2_fused"`` where N does not divide over the mesh: the
+    JAX package runs its batched two-pass jnp scheme there
+    (``fused_force_jnp``), the port K9 on the ranks' blocks of unequal
+    length, once per iteration.  Against the JAX solve under ``with
+    mesh:`` on the same nonsymmetric block-diagonal matrix: equal
+    iteration counts and status, the file's GMRES tolerances; every
+    rank's residual history is the same bits."""
+    import jax
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, parallel as jp
+
+    mesh = _jmesh(P)
+    A = jnp.asarray(_uneven_matrix(P))
+    b = jp.shard_vector(
+        jnp.asarray(np.random.RandomState(5).randn(UNEVEN_N)), mesh)
+    with mesh:
+        res = jax.jit(lambda v: JF.gmres(A, v, tol=GM_TOL, maxiter=UNEVEN_N,
+                                         ortho="cgs2_fused"))(b)
+    ranks = worlds[P]
+    _compare(ranks[0], "gmres_uneven", res)
+    assert int(res.status) == F.CONVERGED
+    key = "gmres_uneven_resnorms"
+    assert all(r[key].tobytes() == ranks[0][key].tobytes() for r in ranks)
+    assert all(int(r["gmres_uneven_k9_calls"]) == int(res.niter)
+               for r in ranks)
 
 
 @pytest.mark.parametrize("P", WORLDS)

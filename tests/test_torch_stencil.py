@@ -147,6 +147,33 @@ def test_stencil5_resrestrict_rows_matches_pallas(dt):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("nrows,ncols,nx,ny", [
+    (9, 120, 16, 128), (8, 128, 8, 128), (7, 127, 8, 128),
+    (63, 255, 64, 256), (65, 129, 72, 256), (9, 121, 9, 122),
+    (511, 511, 512, 512), (1023, 1023, 1024, 1024), (2047, 2047, 2048, 2048),
+    (4095, 4095, 4096, 4096), (1, 1, 1, 1), (3000, 5, 3000, 5)])
+def test_jacobi2_grid_covers_every_output_once(nrows, ncols, nx, ny):
+    """K2's grid (``jacobi2_grid``, a function of the buffer's shape
+    alone) tiles the ``(nx, ny)`` buffer: each block's strip of columns
+    and run of rows, clipped to the buffer, as the kernel computes them,
+    cover every output exactly once and no block is empty; runs are whole
+    steps, shortened only while the grid is below its block target."""
+    strips, runs, steps = tst.jacobi2_grid(nx, ny)
+    assert tst.jacobi2_grid(nx, ny) == (strips, runs, steps)
+    assert 1 <= steps <= tst.JACOBI2_MAX_STEPS
+    h, wd = steps * tst.JACOBI2_STEP_ROWS, tst.JACOBI2_STRIP
+    count = np.zeros((nx, ny), dtype=np.int64)
+    for by in range(runs):
+        for bx in range(strips):
+            i0, j0 = by * h, bx * wd
+            assert i0 < nx and j0 < ny
+            count[i0:min(nx, i0 + h), j0:min(ny, j0 + wd)] += 1
+    assert (count == 1).all()
+    if steps < tst.JACOBI2_MAX_STEPS:
+        longer = -(-nx // (2 * h))
+        assert strips * longer < tst.JACOBI2_MIN_BLOCKS
+
+
 def test_wrappers_reject_bad_operands():
     u = torch.zeros(16 * 128, dtype=torch.float32)
     kw = dict(nx=16, ny=128, coeffs=COEFFS, ncols=9, nrows=9)

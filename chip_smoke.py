@@ -3,10 +3,13 @@
 multigrid-CG Poisson solve, benchmarks/northstar.py's restarted-GMRES
 convection-diffusion solve, the Ritz-deflated and recycling GMRES of
 benchmarks/suite.py's config 4 (shifted Laplacian) at the north star's
-size, and the multi-device path on rank processes that share the card.
+size, its configs 1-3 (GMRES on the README diagonal; CG and MINRES with
+a weighted inner product and the unpadded V-cycle; restarted GMRES with
+``Ml``, ``M`` and ``Mr``), and the multi-device path on rank processes
+that share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
-                           --only {stencil,ortho}]
+                           --only {stencil,ortho,baseline}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -82,7 +85,35 @@ before printing its last line):
    plain GMRES, on both lanes, the lanes' iteration counts within 3 of
    each other; the recycled solves' true residuals are recorded beside
    the unrecycled ones' (``recycled_iterates_usable``); one JSON line;
-10. the mesh phase: single-device references in this process (K1's
+10. the baseline phase (benchmarks/suite.py's configs 1-3,
+   ``krypy_tpu_torch.suite``): K1 through the ``stencil5_pipelined``
+   entry on every odd-width level of configs 2 and 3's unpadded V-cycle
+   (4095^2 down to the coarsest, 31^2), on a ragged 1021x1000 grid and
+   on small ones, with the Laplacian and config 3's convection-diffusion
+   constants, against its plain version (the stencil phase's tolerance),
+   timed on the four finest levels beside the bound and ``F.conv2d``;
+   the unpadded level Laplacian as K1 and as the plain stencil, per call,
+   at every level size (the crossover behind K1 at every level); K7 at
+   config 3's shape (along a second basis, 31 x 4095^2, rows 16, 30 and
+   31), held as in phase 5 and timed; config 1
+   against the JAX package's recorded count (``C1_JAX``); config 2 (CG
+   and MINRES, float32 inside float64 refinement to 1e-8) at 4095^2 on
+   the kernel lane (``impl="cuda"``: K1 in the matvec and at every
+   V-cycle level) and the plain lane, each warm, then once with its
+   launches counted: true float64 residual at most 1e-8, equal
+   refinement cycles, K1 the only kernel of the kernel lane and none on
+   the plain lane; the lanes' inner iterations within 3 at 1023^2
+   (``C2_GATE_NX``, ``"reduced_from": 4095``; above it the totals depend
+   on the rounding, ROADMAP.md queue C, and each cycle is bounded
+   instead: first cycles within 1, none past the plain lane's longest
+   plus 1); config 3 (restarted GMRES(30) with
+   ``Ml``, ``M``, ``Mr``, ``compiled=True``) at 4095^2, the kernel lane
+   with ``ortho="cgs2_pallas"`` (K1, and K7 twice per iteration along the
+   dual basis P), the plain lane with ``cgs2``, gated as config 2 with
+   the inner iterations; then both configs' lanes timed, ``BL_ROUNDS``
+   interleaved solves each, with the device busy share of one profiled
+   solve; one JSON line per config;
+11. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
    takes no two ranks on one card): NCCL of 1 rank, gloo of 2 and 4.
@@ -104,23 +135,26 @@ before printing its last line):
    iteration, one halo exchange per matvec, the second recycled solve
    deflated.  Any rank's failure or the world's deadline fails the run.
    The times are per shard on ONE card: no multi-GPU speed-up;
-11. output: a JSON line of per-kernel results (``timed_by`` says, for
+12. output: a JSON line of configs 2 and 3's walls, a JSON line of
+   per-kernel results (``timed_by`` says, for
    each time, whether it is a profiled device time, ``"profiler"``, or
    the wall of back-to-back calls, ``"events"``, taken only where the
    profiler recorded no device events), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
-``--witness`` runs only the witnesses of config 4's float32 findings
-(float64 inner arithmetic at three sizes, the six pairings of ``impl``
-and two-pass ``ortho`` at 4095^2) and prints no result line.
+``--witness`` runs only the witnesses of config 4's and config 2's
+float32 findings (float64 inner arithmetic at three sizes, the six
+pairings of ``impl`` and two-pass ``ortho`` at 4095^2; config 2 at
+4095^2 cycle by cycle on both lanes, with the right-hand side times 3
+and in float64) and prints no result line.
 ``--mesh-faults`` runs only the mesh phase's main path, on one device and
 on a gloo world of 2 ranks, sound and with each planted fault (a zeroed
 halo, an unreduced inner product), and fails unless ``MESH_RTOL`` lies
 between the sound readings and the faults'; it prints no result line.
-``--only stencil`` (``ortho``) runs only the stencil phase (the
-prefix-sweep phase) and prints no result line; a copy of the script in
-a checkout of an earlier commit times that commit's K1-K3 (K4-K6) at
-the same shapes, in the same way.
+``--only stencil`` (``ortho``, ``baseline``) runs only the stencil phase
+(the prefix-sweep phase, the baseline phase) and prints no result line;
+a copy of the script in a checkout of an earlier commit times that
+commit's K1-K3 (K4-K6) at the same shapes, in the same way.
 ``--profile DIR`` also profiles one solve of each slice: device busy
 share, device time by kernel (written to DIR), the host time of the
 V-cycle's parts and of the deflated solve's parts (the oblique
@@ -555,48 +589,87 @@ def laplacian_entry_phase(device):
               flush=True)
 
 
-def project_phase(device):
-    """K7 on the config-4 basis (26 rows of 4096^2), float32 and float64
-    at rows 13 and 26, along ``V`` itself and along a second basis, and
-    at two ragged N: both outputs held to float64 by
+def _project_parity(V, w, mask, rows, bases, report):
+    """K7 along each basis of ``bases`` (``None``: ``V`` itself) against
+    its plain version: both outputs held to float64 by
     :class:`krypy_tpu_torch.kernels.parity.ProjectCheck`, each planted
-    fault shown to fail it, a repeated call bit-identical; float32 device
-    times beside the bound and the pair of cuBLAS calls."""
+    fault shown to fail it, a repeated call bit-identical; float32 errors
+    go into ``report["max_abs_err"]``."""
     import torch
     from krypy_tpu_torch.kernels import orthogonalize as korth
     from krypy_tpu_torch.kernels.parity import ProjectCheck
 
+    for basis in bases:
+        got = korth.cgs_project(V, w, mask, basis, rows=rows)
+        again = korth.cgs_project(V, w, mask, basis, rows=rows)
+        plain = korth.cgs_project_torch(
+            V, w, mask, V if basis is None else basis, rows)
+        label = (f"{str(V.dtype):13s} rows={rows:2d} of {V.shape[0]} "
+                 f"N={V.shape[1]} basis={'V' if basis is None else 'B'}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"cgs_project {label}: a repeated call "
+                                 "gave other bits")
+        ck = ProjectCheck(V, w, mask, rows, plain, basis)
+        bad = ck.failures(got)
+        if bad:
+            raise AssertionError(f"cgs_project {label}: {bad} miss "
+                                 "their float64 values")
+        planted = ck.assert_faults_caught(got)
+        err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        if V.dtype == torch.float32:
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+        print(f"parity cgs_project    {label} max_abs_err={err:.3e} "
+              f"(vs plain); repeat bit-identical; all {planted} planted "
+              "faults fail the check", flush=True)
+        del ck, got, again, plain
+
+
+def _project_timing(V, w, mask, rows, basis):
+    """K7's float32 device time at ``rows`` along ``basis`` (``None``:
+    ``V``), its plain version's and the pair of cuBLAS calls, beside the
+    bound and the floor of two sweeps; prints one line and returns the
+    record."""
+    import torch
+    from krypy_tpu_torch.kernels import orthogonalize as korth
+
+    N = V.shape[1]
+    Bb = V if basis is None else basis
+    # the function's own traffic: each input once (one basis or two), w'
+    # written once
+    nb = (rows if basis is None else 2 * rows) + 2
+    b_ms, b_by = bound(nb * N * 4, 4 * rows * N)
+    # what two sweeps must move: both prefixes, w twice
+    sweep_ms = 1e3 * (2 * rows + 3) * N * 4 / PEAK_BYTES
+    ms, ms_src = _device_ms(
+        lambda: korth.cgs_project(V, w, mask, basis, rows=rows), b_ms)
+    plain_ms, plain_src = _device_ms(
+        lambda: korth.cgs_project_torch(V, w, mask, Bb, rows), b_ms)
+    lib_ms, lib_src = _device_ms(
+        lambda: torch.addmv(w, Bb[:rows].T, torch.mv(V[:rows], w)
+                            * mask[:rows], alpha=-1), b_ms)
+    print(f"timing cgs_project    rows={rows:2d} of {V.shape[0]} N={N} "
+          f"basis={'V' if basis is None else 'B'} device_ms "
+          f"kernel={ms:.5f} ({ms_src}) plain={plain_ms:.5f} ({plain_src}) "
+          f"mv+addmv={lib_ms:.5f} ({lib_src}) bound={b_ms:.5f} ({b_by}) "
+          f"two_sweeps={sweep_ms:.5f} "
+          f"rate={(2 * rows + 3) * N * 4 / ms / 1e9:.3f} "
+          "TB/s over two sweeps", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, two_sweep_floor_ms=sweep_ms,
+                timed_by=dict(ms=ms_src, plain_ms=plain_src,
+                              library_ms=lib_src))
+
+
+def project_phase(device):
+    """K7 on the config-4 basis (26 rows of 4096^2), float32 and float64
+    at rows 13 and 26, along ``V`` itself and along a second basis, and
+    at two ragged N (:func:`_project_parity`); float32 device times at
+    4096^2 (:func:`_project_timing`)."""
+    import torch
+
     m = NS_ROWS[1]
     gen = torch.Generator(device=device).manual_seed(7)
     report = {"max_abs_err": 0.0, "times": {}}
-
-    def check(V, B, w, rows, dtype):
-        mask = (torch.arange(m, device=device) < rows - 2).to(dtype)
-        for basis in (None, B):
-            got = korth.cgs_project(V, w, mask, basis, rows=rows)
-            again = korth.cgs_project(V, w, mask, basis, rows=rows)
-            plain = korth.cgs_project_torch(
-                V, w, mask, V if basis is None else basis, rows)
-            label = (f"{str(dtype):13s} rows={rows:2d} N={V.shape[1]} "
-                     f"basis={'V' if basis is None else 'B'}")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"cgs_project {label}: a repeated call "
-                                     "gave other bits")
-            ck = ProjectCheck(V, w, mask, rows, plain, basis)
-            bad = ck.failures(got)
-            if bad:
-                raise AssertionError(f"cgs_project {label}: {bad} miss "
-                                     "their float64 values")
-            planted = ck.assert_faults_caught(got)
-            err = max(float((g - p).abs().max())
-                      for g, p in zip(got, plain))
-            if dtype == torch.float32:
-                report["max_abs_err"] = max(report["max_abs_err"], err)
-            print(f"parity cgs_project    {label} max_abs_err={err:.3e} "
-                  f"(vs plain); repeat bit-identical; all {planted} planted "
-                  "faults fail the check", flush=True)
-            del ck, got, again, plain
-
     for dtype in (torch.float32, torch.float64):
         for N in (4097, 600001, (NS_NX + 1) ** 2):
             V, B = (torch.randn(m, N, generator=gen, device=device,
@@ -604,43 +677,13 @@ def project_phase(device):
                     for _ in range(2))
             w = torch.randn(N, generator=gen, device=device, dtype=dtype)
             for rows in NS_ROWS:
-                check(V, B, w, rows, dtype)
+                mask = (torch.arange(m, device=device) < rows - 2).to(dtype)
+                _project_parity(V, w, mask, rows, (None, B), report)
                 if dtype != torch.float32 or N != (NS_NX + 1) ** 2:
                     continue
-                mask = (torch.arange(m, device=device) < rows - 2).to(dtype)
                 for basis in (None, B):
-                    Bb = V if basis is None else basis
-                    # the function's own traffic: each input once (one
-                    # basis or two), w' written once
-                    nb = (rows if basis is None else 2 * rows) + 2
-                    b_ms, b_by = bound(nb * N * 4, 4 * rows * N)
-                    # what two sweeps must move: both prefixes, w twice
-                    sweep_ms = 1e3 * (2 * rows + 3) * N * 4 / PEAK_BYTES
-                    ms, ms_src = _device_ms(
-                        lambda: korth.cgs_project(V, w, mask, basis,
-                                                  rows=rows), b_ms)
-                    plain_ms, plain_src = _device_ms(
-                        lambda: korth.cgs_project_torch(V, w, mask, Bb,
-                                                        rows), b_ms)
-                    lib_ms, lib_src = _device_ms(
-                        lambda: torch.addmv(
-                            w, Bb[:rows].T, torch.mv(V[:rows], w) * mask[:rows],
-                            alpha=-1), b_ms)
-                    key = (rows, "V" if basis is None else "B")
-                    report["times"][key] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms,
-                        two_sweep_floor_ms=sweep_ms,
-                        timed_by=dict(ms=ms_src, plain_ms=plain_src,
-                                      library_ms=lib_src))
-                    print(f"timing cgs_project    rows={rows:2d} N={N} "
-                          f"basis={key[1]} device_ms kernel={ms:.5f} "
-                          f"({ms_src}) plain={plain_ms:.5f} ({plain_src}) "
-                          f"mv+addmv={lib_ms:.5f} ({lib_src}) "
-                          f"bound={b_ms:.5f} ({b_by}) "
-                          f"two_sweeps={sweep_ms:.5f} "
-                          f"rate={(2 * rows + 3) * N * 4 / ms / 1e9:.3f} "
-                          "TB/s over two sweeps", flush=True)
+                    report["times"][rows, "V" if basis is None else "B"] = \
+                        _project_timing(V, w, mask, rows, basis)
             del V, B, w
             torch.cuda.empty_cache()
     return {"cgs_project": report}
@@ -1661,6 +1704,10 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
             print(f"{tag}: timing {name} per shard device_ms kernel={ms:.5f} "
                   f"({src}) plain={plain_ms:.5f} ({plain_src}) "
                   f"bound={b_ms:.5f} ({b_by})", flush=True)
+        # K9's floor as the composition it is: the bounds of its three
+        # sweeps, K4 (V, w read), K5 and K6 (V, w read, w' written)
+        rec["times"]["cgs2_fused_sharded"]["three_sweep_floor_ms"] = bound(
+            (3 * rows * n_loc + 5 * n_loc) * 4, 8 * rows * n_loc)[0]
         u = x_loc.view(-1, nx)
         rec["host_ms"] = {
             "all_reduce_sum (26 float32)": _host_ms(
@@ -1836,7 +1883,10 @@ def mesh_phase(device):
                   f"device ms K8 {t['stencil5_sharded']['ms']:.5f} (bound "
                   f"{t['stencil5_sharded']['bound_ms']:.5f}), K9 "
                   f"{t['cgs2_fused_sharded']['ms']:.5f} (bound "
-                  f"{t['cgs2_fused_sharded']['bound_ms']:.5f}); host ms "
+                  f"{t['cgs2_fused_sharded']['bound_ms']:.5f}, three "
+                  "sweeps "
+                  f"{t['cgs2_fused_sharded']['three_sweep_floor_ms']:.5f});"
+                  f" host ms "
                   f"{ranks[0]['host_ms']} (P ranks share ONE card: per-shard "
                   "kernels and the transport's host cost, no multi-GPU "
                   "speed-up)", flush=True)
@@ -1892,6 +1942,405 @@ def mesh_fault_phase(device):
             f"{caught['none']}; faults caught nowhere: "
             f"{[p for p in MESH_FAULTS if not caught[p]]}; solves that "
             f"catch no fault: {blind}")
+
+
+# ---------------------------------------------------------------------------
+# BASELINE configs 1-3 (the baseline phase)
+# ---------------------------------------------------------------------------
+
+#: configs 2 and 3: the north star's grid, 4095^2 = 16,769,025 unknowns
+BL_NX = NS_NX
+#: timed solves per lane and solver of configs 2 and 3 (after the gated
+#: one, which follows a warm-up solve)
+BL_ROUNDS = 3
+#: config 1 in the JAX package, ``JAX_PLATFORMS=cpu python
+#: benchmarks/suite.py --configs 1`` on the CPU (float64)
+C1_JAX = {"niter": 65, "converged": True}
+#: the unpadded V-cycle's levels of configs 2 and 3, finest first: K1
+#: runs at every one of them (31 the coarsest, its 60 sweeps); the first
+#: four are also timed; and a ragged grid (rows and columns of no common
+#: width)
+UNPADDED_LEVELS = (BL_NX, 2047, NX, 511, 255, 127, 63, 31)
+UNPADDED_TIMED = UNPADDED_LEVELS[:4]
+UNPADDED_RAGGED = (1021, 1000)
+#: config 2's lane gate on inner iterations (within 3) holds at this size,
+#: benchmarks/suite.py's own full size for config 2: from 2047^2 up the
+#: float32 inner solves stop on their stagnation window at the float32
+#: floor, and whether a late cycle takes ~6 iterations or ~26 depends on
+#: the rounding alone (``--witness``; ROADMAP.md queue C).  Above it each
+#: cycle is bounded instead (``_bl_lanes_agree``)
+C2_GATE_NX = 1023
+#: small unpadded grids of K1's parity (no timing): levels below the
+#: V-cycle's coarsest and a ragged one
+UNPADDED_SMALL = ((1, 1), (3, 3), (7, 7), (33, 17))
+#: K7 as config 3 runs it: restarted GMRES(30) builds a 31-row basis of
+#: 4095^2 and projects along the dual basis P at rows 1..30 (16 the
+#: middle launch, 30 the largest); 31 the basis's full height
+C3_PROJECT_M = 31
+C3_PROJECT_ROWS = (16, 30, 31)
+#: the grids at which the unpadded Laplacian is timed as K1 and as the
+#: plain stencil: the crossover behind K1 at every level of the unpadded
+#: V-cycle (``ops._multigrid_unpadded``)
+CROSSOVER_LEVELS = (1, 3, 7, 15, 31, 63, 127, 255, 511, 1023, 2047, 4095)
+#: the lanes of configs 2 and 3: (name, impl, config 3's ortho)
+BL_LANES = (("cuda", "cuda", "cgs2_pallas"), ("torch", "torch", "cgs2"))
+
+
+def _lap_coeffs(n, m):
+    """``ops.poisson_2d``'s stencil on an n x m grid."""
+    hx2, hy2 = (1.0 / (n + 1)) ** 2, (1.0 / (m + 1)) ** 2
+    return (2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2,
+            -1.0 / hy2)
+
+
+def _cd3_coeffs(n, m):
+    """Config 3's convection-diffusion stencil (eps 1, wind (1, 0.5),
+    upwind) on an n x m grid, as ``ops.convection_diffusion_2d``."""
+    hx, hy = 1.0 / (n + 1), 1.0 / (m + 1)
+    return (2.0 / hx ** 2 + 2.0 / hy ** 2 + 1.0 / hx + 0.5 / hy,
+            -1.0 / hx ** 2 - 1.0 / hx, -1.0 / hx ** 2,
+            -1.0 / hy ** 2 - 0.5 / hy, -1.0 / hy ** 2)
+
+
+def unpadded_stencil_phase(device):
+    """K1 on the unpadded odd-width grids of the unpadded V-cycle and on a
+    ragged grid, through the ``stencil5_pipelined`` entry, against its
+    plain version: float32 ``rtol=2e-6`` and the FMA-aware ``atol``, with
+    the Laplacian constants and config 3's convection-diffusion
+    constants; on ``UNPADDED_TIMED`` its device time, its plain
+    version's and ``F.conv2d``'s (zero padding is the Dirichlet ghost)
+    beside the bound.  Returns ``{"max_abs_err", "times"}``."""
+    import torch
+    from krypy_tpu_torch.kernels import stencil as kst
+    from krypy_tpu_torch.kernels.parity import fma_atol
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(11)
+    out = {"max_abs_err": 0.0, "times": {}}
+    for n, m in (*((n, n) for n in UNPADDED_LEVELS), UNPADDED_RAGGED,
+                 *UNPADDED_SMALL):
+        x = torch.randn(n * m, generator=gen, device=device)
+        for kind, co in (("lap", _lap_coeffs(n, m)),
+                         ("cd3", _cd3_coeffs(n, m))):
+            def kern(co=co):
+                return kst.stencil5_pipelined(x, nx=n, ny=m, coeffs=co)
+
+            def plain(v, co=co):
+                return kst.stencil5_affine_torch(v.view(n, m), None, co, n,
+                                                 m).view(-1)
+
+            got, want, want64 = kern(), plain(x), plain(x.double())
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            atol = fma_atol(want, want64)
+            max_err = float(err.max())
+            if not bool(torch.all(err <= atol + 2e-6 * want.abs())) or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"stencil5_affine unpadded {kind} at {n}x{m}: max abs "
+                    f"err {max_err:.3e} exceeds rtol=2e-6, atol={atol:.3e}")
+            out["max_abs_err"] = max(out["max_abs_err"], max_err)
+            line = (f"parity stencil5_affine unpadded {kind} matvec {n}x{m} "
+                    f"max_abs_err={max_err:.3e} atol={atol:.3e}")
+            if n == m and n in UNPADDED_TIMED:
+                # x read, out written; ~13 operations per element
+                b_ms, b_by = bound(8 * n * m, 15 * n * m)
+                ms, ms_src = _device_ms(kern, b_ms)
+                plain_ms, plain_src = _device_ms(lambda: plain(x), b_ms)
+                lib = _conv2d_matvec(x, n, m, co)
+                lib_err = float((lib - got).abs().max())
+                lib_ms, lib_src = _device_ms(
+                    lambda co=co: _conv2d_matvec(x, n, m, co), b_ms)
+                out["times"][(n, kind)] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by,
+                    timed_by=dict(ms=ms_src, plain_ms=plain_src,
+                                  library_ms=lib_src))
+                line += (f" conv2d_ms={lib_ms:.5f} conv2d_err={lib_err:.2e}"
+                         f" device_ms kernel={ms:.5f} ({ms_src}) "
+                         f"plain={plain_ms:.5f} ({plain_src}) "
+                         f"bound={b_ms:.5f} ({b_by})")
+            print(line, flush=True)
+        del x
+    return out
+
+
+def k1_crossover(device):
+    """The unpadded level Laplacian as one K1 launch and as the plain
+    stencil (``ops._lap2d_grid``: K1's plain version with the Laplacian's
+    coefficients), per call over back-to-back calls (CUDA events: the
+    launch gaps count, which is what a host-bound V-cycle pays), at every
+    level size of ``CROSSOVER_LEVELS``.  Prints one JSON line."""
+    import torch
+    from krypy_tpu_torch import kernels, ops
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = []
+    for n in CROSSOVER_LEVELS:
+        h2 = (1.0 / (n + 1)) ** 2
+        u = torch.randn((n, n), generator=gen, device=device)
+        co = ops._lap_coeffs(h2)
+        rows.append({
+            "n": n,
+            "plain_ms": _time_ms(lambda: ops._lap2d_grid(u, h2)),
+            "k1_ms": _time_ms(lambda: kernels.stencil5_pipelined(
+                u.reshape(-1), nx=n, ny=n, coeffs=co))})
+    print(json.dumps({"k1_unpadded_crossover": rows,
+                      "k1_faster_at": [r["n"] for r in rows
+                                       if r["k1_ms"] < r["plain_ms"]]}),
+          flush=True)
+    return rows
+
+
+def config1_phase(device):
+    """Config 1 on the card against the JAX package's recorded counts."""
+    from krypy_tpu_torch import suite
+
+    rec = suite.config1_readme_gmres(device)
+    print(json.dumps({"phase": "config1", **rec, "jax": C1_JAX}), flush=True)
+    if rec["niter"] != C1_JAX["niter"] or \
+            rec["converged"] != C1_JAX["converged"]:
+        raise AssertionError(f"config 1: {rec}, the JAX package {C1_JAX}")
+    return rec
+
+
+def _bl_solve(what, lane, solve, A64, b, nx, record):
+    """A refined solve of config 2 or 3: warm (kernel build, first
+    launches, the hidden warm-up), then once with its launches counted,
+    through ``refine_to`` around the pipeline's inner solve (as ``solve``
+    runs it) counting each cycle's inner iterations
+    (``info["inner_niters"]``); checks the true float64 residual.
+    Returns ``(result, info, rel, counts)``."""
+    import torch
+    from krypy_tpu_torch import functional as F, kernels, suite
+
+    niters = []
+
+    def inner(rr):
+        r = solve.inner(rr)
+        niters.append(int(r.niter))
+        return r
+
+    solve(b)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res, info = F.refine_to(A64, b, inner, tol=suite.TOL, compiled=True,
+                            warm=False)
+    counts = kernels.launch_counts()
+    info["inner_niters"] = niters
+    hist = res.resnorms.cpu().numpy()
+    rel = float(torch.linalg.vector_norm(b - A64(res.x))
+                / torch.linalg.vector_norm(b))
+    used = {k: c for k, c in counts.items() if c}
+    print(f"{what} lane={lane} nx={nx} wall_s={info['wall_s']:.6f} "
+          f"cycles={info['cycles']} inner_iters={info['inner_iters']} "
+          f"{info['inner_niters']} rel={rel:.3e} outer residuals "
+          f"{hist.tolist()} launches={used}", flush=True)
+    _check_solution(res.x, nx * nx, rel, hist)
+    record[what, lane] = {"cycles": info["cycles"],
+                          "inner_iters": info["inner_iters"],
+                          "inner_niters": info["inner_niters"], "rel": rel,
+                          "outer_residuals": hist.tolist(),
+                          "launches": used}
+    return res, info, rel, counts
+
+
+def _bl_lanes_agree(what, runs, want_kernels, inner=True):
+    """Equal refinement cycles and, with ``inner``, inner iterations
+    within 3; without it, each cycle bounded: the first cycles within 1
+    and no cycle of the kernel lane longer than the plain lane's longest
+    plus 1 (at the float32 floor a cycle ends 20 iterations after its
+    best, and rounding moves a late cycle between ~5 and the first
+    cycle's ~26 (``--witness``), but not past it; a weaker V-cycle delays
+    every cycle's best).  On the kernel lane each kernel of
+    ``want_kernels`` launched (``cgs_project`` twice per GMRES iteration)
+    and no other, on the plain lane none."""
+    (_, ic, _, cc), (_, it, _, ct) = runs["cuda"], runs["torch"]
+    if ic["cycles"] != it["cycles"] or inner and abs(
+            ic["inner_iters"] - it["inner_iters"]) > 3:
+        raise AssertionError(
+            f"{what}: kernel lane {ic['cycles']} cycles / "
+            f"{ic['inner_iters']} inner iterations against plain lane "
+            f"{it['cycles']} / {it['inner_iters']} (allowed: equal cycles"
+            + (", inner iterations within 3)" if inner else ")"))
+    kn, pn = ic["inner_niters"], it["inner_niters"]
+    if not inner and (abs(kn[0] - pn[0]) > 1 or max(kn) > max(pn) + 1):
+        raise AssertionError(
+            f"{what}: kernel lane's inner iterations per cycle {kn} "
+            f"against the plain lane's {pn} (allowed: first cycles within "
+            "1, no cycle past the plain lane's longest plus 1)")
+    if any(ct.values()):
+        raise AssertionError(f"{what}: the plain lane launched kernels: {ct}")
+    for name, c in cc.items():
+        if (c > 0) != (name in want_kernels):
+            raise AssertionError(f"{what}: kernel lane launched {name} {c} "
+                                 f"times (expected: {want_kernels} only)")
+    if "cgs_project" in want_kernels and \
+            cc["cgs_project"] != 2 * ic["inner_iters"]:
+        raise AssertionError(
+            f"{what}: {cc['cgs_project']} K7 launches in "
+            f"{ic['inner_iters']} GMRES iterations (2 per iteration)")
+
+
+def _busy_share(label, solve, b, median_wall):
+    """One profiled solve: its device time (kernels and copies,
+    torch.profiler) over the unprofiled median wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve(b)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in _device_events(prof)) / 1e6
+    print(f"busy {label}: device {busy:.6f} s per solve, "
+          f"{100 * busy / median_wall:.1f}% of the median wall "
+          f"{median_wall:.6f} s", flush=True)
+    return busy
+
+
+def _bl_timing(label, solves, b, record):
+    """``BL_ROUNDS`` interleaved solves per lane and the busy share of
+    each; the summary goes into ``record[label]``."""
+    walls = timing_phase(label, solves, b, BL_ROUNDS)
+    record[label] = {}
+    for lane, ts in walls.items():
+        med = statistics.median(ts)
+        record[label][lane] = dict(
+            median=med, min=min(ts), max=max(ts),
+            busy_s=_busy_share(f"{label} lane={lane}", solves[lane], b, med))
+        record[label][lane]["busy_share"] = \
+            record[label][lane]["busy_s"] / med
+
+
+def config2_phase(device, nx=BL_NX, timed=True):
+    """Config 2 (``suite.make_config2``) on both lanes: CG and MINRES in
+    float64 refinement to 1e-8, gated on the true residual, on each other
+    (equal cycles; inner iterations within 3 at ``C2_GATE_NX`` and below,
+    each cycle bounded above it)
+    and on K1 (the only kernel of the kernel lane; none on the plain
+    lane); then, with ``timed``, timed.  Returns the kernel lane's
+    launches and the record."""
+    import torch
+    from krypy_tpu_torch import suite
+
+    gate_inner = nx <= C2_GATE_NX
+    record = {"phase": "config2", "nx": nx, "N": nx * nx}
+    if gate_inner and nx < BL_NX:
+        record["reduced_from"] = BL_NX
+    elif not gate_inner:
+        record["inner_iters_gated_at"] = C2_GATE_NX
+    runs, solves, total = {}, {}, {}
+    for lane, impl, _ in BL_LANES:
+        _, A64, _, _, b, s = suite.make_config2(nx, impl, device)
+        for name, solve in s.items():
+            runs[name, lane] = _bl_solve(f"config2 {name}", lane, solve, A64,
+                                         b, nx, record)
+            solves.setdefault(name, {})[lane] = solve
+        torch.cuda.empty_cache()
+    for name in solves:
+        _bl_lanes_agree(f"config2 {name} nx={nx}",
+                        {lane: runs[name, lane] for lane in ("cuda", "torch")},
+                        ("stencil5_affine",), inner=gate_inner)
+        for k, c in runs[name, "cuda"][3].items():
+            total[k] = total.get(k, 0) + c
+    if timed:
+        for name, lanes in solves.items():
+            _bl_timing(f"config2 {name}", lanes, b, record)
+    return total, record
+
+
+def config3_phase(device, nx=BL_NX):
+    """Config 3 (``suite.make_config3``) on both lanes (K1 and K7 along
+    the dual basis P with ``ortho="cgs2_pallas"``; the plain versions and
+    ``cgs2``), gated as config 2 with K7 twice per GMRES iteration; then
+    timed.  Returns the kernel lane's launches and the record."""
+    import torch
+    from krypy_tpu_torch import suite
+
+    record = {"phase": "config3", "nx": nx, "N": nx * nx}
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    runs, solves = {}, {}
+    for lane, impl, ortho in BL_LANES:
+        solve, A64 = suite.make_config3(nx, impl, ortho, device)
+        runs[lane] = _bl_solve("config3", lane, solve, A64, b, nx, record)
+        solves[lane] = solve
+    _bl_lanes_agree("config3", runs, ("stencil5_affine", "cgs_project"))
+    _bl_timing("config3", solves, b, record)
+    return runs["cuda"][3], record
+
+
+def config3_project_phase(device, nx=BL_NX):
+    """K7 at the shape config 3 gives it: a float32 ``C3_PROJECT_M``-row
+    basis of ``nx^2`` (odd) columns projected along a second basis (the
+    dual basis P), with GMRES's mask (every row below ``rows``), at
+    ``C3_PROJECT_ROWS``: held to float64 with the planted faults
+    (:func:`_project_parity`) and timed (:func:`_project_timing`).
+    Returns ``{"max_abs_err", "times"}``."""
+    import torch
+
+    N, m = nx * nx, C3_PROJECT_M
+    gen = torch.Generator(device=device).manual_seed(13)
+    V, P = (torch.randn(m, N, generator=gen, device=device) / math.sqrt(N)
+            for _ in range(2))
+    w = torch.randn(N, generator=gen, device=device)
+    report = {"max_abs_err": 0.0, "times": {}}
+    for rows in C3_PROJECT_ROWS:
+        mask = (torch.arange(m, device=device) < rows).float()
+        _project_parity(V, w, mask, rows, (P,), report)
+        report["times"][rows] = _project_timing(V, w, mask, rows, P)
+    del V, P, w
+    torch.cuda.empty_cache()
+    return report
+
+
+def baseline_witness(device, nx=BL_NX):
+    """Witnesses of config 2's float32 finding (``--witness``; gates
+    nothing, ROADMAP.md queue C reads it): at ``nx``, CG and MINRES on
+    both lanes cycle by cycle, with the right-hand side and with it times
+    3 (the same relative residuals in exact arithmetic, other roundings),
+    and on the plain lane with float64 inner arithmetic: how far the inner
+    iteration counts depend on rounding alone."""
+    import torch
+    from krypy_tpu_torch import suite
+
+    for lane, impl, _ in BL_LANES:
+        for dtype in ((torch.float32, torch.float64) if impl == "torch"
+                      else (torch.float32,)):
+            _, A64, _, _, b, s = suite.make_config2(nx, impl, device,
+                                                    dtype=dtype)
+            for name, solve in s.items():
+                for scale in ((1.0, 3.0) if dtype == torch.float32
+                              else (1.0,)):
+                    _, rels, niters = _cycles(solve.inner, A64, scale * b, 8,
+                                              dtype, stop_at=suite.TOL)
+                    print(f"witness config2 nx={nx} lane={lane} {name} "
+                          f"{str(dtype)[6:]} rhs times {scale:g}: "
+                          f"cycles={len(niters)} "
+                          f"inner_iters={sum(niters)} inner iterations "
+                          f"{niters} outer residuals {rels}", flush=True)
+            torch.cuda.empty_cache()
+
+
+def baseline_phase(device):
+    """Unpadded K1 parity and the crossover, K7 at config 3's shape,
+    then configs 1, 2 (at ``BL_NX``, and its inner-iteration gate at
+    ``C2_GATE_NX``) and 3.  Returns the unpadded K1 report (K7's under
+    ``"cgs_project"``), each config's kernel-lane launches and the
+    records."""
+    report = unpadded_stencil_phase(device)
+    report["crossover"] = k1_crossover(device)
+    report["cgs_project"] = config3_project_phase(device)
+    config1_phase(device)
+    c2_counts, c2_record = config2_phase(device)
+    _, c2_cut = config2_phase(device, C2_GATE_NX, timed=False)
+    for rec in (c2_record, c2_cut):
+        print(json.dumps({k if isinstance(k, str) else " ".join(k): v
+                          for k, v in rec.items()}), flush=True)
+    c3_counts, c3_record = config3_phase(device)
+    print(json.dumps({k if isinstance(k, str) else " ".join(k): v
+                      for k, v in c3_record.items()}), flush=True)
+    return report, c2_counts, c3_counts, c2_record, c3_record
 
 
 def level_ranking(report, ns_counts):
@@ -1998,6 +2447,11 @@ def _mesh_rows(worlds):
             "ms_by_world": {f"{b} P={P}": ranks[0]["times"][name]["ms"]
                             for (b, P), ranks in worlds.items()},
         })
+        if key == "k9":
+            # K4 + K5 + K6: the floor of the composition's three sweeps
+            rows[-1]["three_sweep_floor_ms_by_world"] = {
+                f"{b} P={P}": ranks[0]["times"][name]["three_sweep_floor_ms"]
+                for (b, P), ranks in worlds.items()}
     return rows
 
 
@@ -2014,9 +2468,10 @@ def main(argv=None):
                     help="run ONLY the mesh phase's solves with planted "
                          "faults, against its residual-history limits; "
                          "prints no result line")
-    ap.add_argument("--only", choices=("stencil", "ortho"),
-                    help="run ONLY this kernel phase (K1-K3 or K4-K6 "
-                         "against their plain versions, and their times); "
+    ap.add_argument("--only", choices=("stencil", "ortho", "baseline"),
+                    help="run ONLY this phase (K1-K3 or K4-K6 against "
+                         "their plain versions, and their times; or the "
+                         "baseline phase, unpadded K1 and configs 1-3); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -2053,12 +2508,14 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     if args.witness:
         witness_phase(device)
+        baseline_witness(device)
         return
     if args.mesh_faults:
         mesh_fault_phase(device)
         return
     if args.only:
-        {"stencil": stencil_phase, "ortho": ortho_phase}[args.only](device)
+        {"stencil": stencil_phase, "ortho": ortho_phase,
+         "baseline": baseline_phase}[args.only](device)
         return
     report = stencil_phase(device)
     laplacian_entry_phase(device)
@@ -2083,6 +2540,7 @@ def main(argv=None):
     s3_counts = {k: full_counts[k] + c + rec_counts[k]
                  for k, c in c4_counts.items()}
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
+    bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
     worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
@@ -2132,7 +2590,30 @@ def main(argv=None):
             rows[-1]["ms_by_rows"] = {
                 f"{r} rows": {k: v[k] for k in keep}
                 for r, v in report[name]["times"].items()}
+        if name == "stencil5_affine":
+            # the unpadded odd-width grids of configs 2 and 3's V-cycle
+            rows[-1]["max_abs_err_unpadded"] = bl_report["max_abs_err"]
+            rows[-1]["ms_by_unpadded_grid"] = {
+                f"{n}^2 {kind}": {k: v[k] for k in keep}
+                for (n, kind), v in bl_report["times"].items()}
+        elif own:
+            # config 3's use: along the dual basis P of a 31-row basis of
+            # 4095^2
+            c3 = bl_report["cgs_project"]
+            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                          c3["max_abs_err"])
+            rows[-1][f"ms_by_rows_config3@{BL_NX}"] = {
+                f"{r} of {C3_PROJECT_M} rows along P": {
+                    k: v[k] for k in keep + ("two_sweep_floor_ms",)}
+                for r, v in c3["times"].items()}
+        if name in ("stencil5_affine", "cgs_project"):
+            rows[-1][f"launches_config2@{BL_NX}"] = c2_counts.get(name, 0)
+            rows[-1][f"launches_config3@{BL_NX}"] = c3_counts[name]
     rows += _mesh_rows(worlds)
+    print(json.dumps({"walls_s": {
+        label: record[label] for record in (c2_rec, c3_rec)
+        for label in record if str(label).startswith("config")}}),
+        flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Solver cores of the PyTorch port (counterpart of
-:mod:`krypy_tpu.functional`; ported so far: ``cg``, ``gmres``,
-``restarted_gmres``, ``refine_to`` and the deflation module:
-``deflated_gmres``, ``deflated_cg``, the Ritz extraction and
-``RecyclingGmres``)."""
+:mod:`krypy_tpu.functional`; ported so far: ``cg``, ``minres``,
+``gmres``, ``restarted_gmres``, ``refine_to`` and the deflation module:
+``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the Ritz
+extraction and ``RecyclingGmres``)."""
 
 from .cg import cg
 from .common import (
@@ -25,10 +25,12 @@ from .deflation import (
     weighted_qr,
 )
 from .gmres import gmres, restarted_gmres
+from .minres import minres
 from .refine import refine_to
 
 __all__ = [
     "cg",
+    "minres",
     "gmres",
     "restarted_gmres",
     "refine_to",

@@ -32,7 +32,7 @@ from .common import (
     system_dtype,
 )
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue A, item 4)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md queue A, A3)"
 
 
 def cg(
@@ -48,6 +48,7 @@ def cg(
     maxiter=None,
     explicit_residual=False,
     exact_solution=None,
+    progress=False,
     stagnation_window=0,
     operator_override=None,
     projected_r0=None,
@@ -67,6 +68,7 @@ def cg(
     :param maxiter: iteration cap (default N).
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
+    :param progress: print the relative residual of each iteration.
     :param operator_override: deflation hook: replaces the iteration
       operator :math:`M_l A M_r` (the projected operator).
     :param projected_r0: deflation hook: maps the left-preconditioned
@@ -176,6 +178,8 @@ def cg(
             rel_new = np_real(safe_div(rkn, MMlb_norm).item())
             rho_new = rkn ** 2
         rho_old, rho = rho, rho_new
+        if progress:
+            print(f"cg iter {k + 1}: rel={rel_new:.3e}")
         resnorms.append(rel_new)
         if errnorm is not None:
             errs.append(errnorm(xk_of(y)))

@@ -371,10 +371,13 @@ def deflated_cg(A, b, U, **kwargs):
 
 
 def deflated_minres(A, b, U, **kwargs):
-    """Deflated MINRES: not ported (it needs ``minres``)."""
-    raise NotImplementedError(
-        "deflated_minres is not ported yet: it needs functional.minres "
-        "(ROADMAP.md queue A, slice 3)")
+    """Deflated preconditioned MINRES (reference: krypy/deflation.py
+    DeflatedMinres).  Accepts the parameters of
+    :func:`krypy_tpu_torch.functional.minres.minres` plus the deflation
+    basis U (and ``Minv``, ``ip_defl`` as :func:`deflated_gmres`)."""
+    from .minres import minres as _minres
+
+    return _deflated_short_recurrence(_minres, A, b, U, kwargs)
 
 
 def _augmented_galerkin(internals):

@@ -33,7 +33,9 @@ is a local partial and one all-reduce, through
 :func:`~krypy_tpu_torch.functional.common.make_inner`, and
 ``"cgs2_fused"`` runs K9 (:func:`~krypy_tpu_torch.kernels.orthogonalize.
 cgs2_fused_blocks`) on blocks of any length: three all-reduces per
-iteration either way.  The
+iteration either way.  ``"cgs_pallas"``/``"cgs2_pallas"`` run K7's
+sharded form, K4, an all-reduce and K6 per pass (:func:`~krypy_tpu_torch.
+kernels.orthogonalize.cgs_project_blocks`).  The
 Hessenberg matrix, the rotations and the projected right-hand side are
 replicated, the same bits on every rank, so every rank takes the same
 branches.  A solve starts with one all-reduce more than on one device,
@@ -47,6 +49,7 @@ from ..kernels.orthogonalize import (
     cgs2_fused,
     cgs2_fused_blocks,
     cgs_project,
+    cgs_project_blocks,
     max_rows,
 )
 from ..parallel import active_mesh
@@ -90,9 +93,8 @@ def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None):
     sharded kernel takes equal blocks only; the port's K9 takes the
     blocks of any N.  An explicit kernel scheme on a CUDA device with a
     basis taller than its kernels take raises here, before the first
-    iteration; so do ``cgs2_fused`` with ``M`` (it has no dual-basis
-    form) and ``cgs_pallas`` / ``cgs2_pallas`` on a mesh (K7 has no
-    sharded form)."""
+    iteration; so does ``cgs2_fused`` with ``M`` (it has no dual-basis
+    form)."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
     if ortho == "auto":
         if dtype == torch.float32 and device.type == "cuda" and \
@@ -103,12 +105,6 @@ def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None):
         raise ValueError(
             "ortho='cgs2_fused' does not support the dual-basis form "
             "required by M; use ortho='cgs2' or 'cgs2_pallas'")
-    if mesh is not None and ortho in ("cgs_pallas", "cgs2_pallas"):
-        raise NotImplementedError(
-            f"gmres ortho={ortho!r} on a mesh: K7 sums its coefficients "
-            "between its two phases inside one C entry, so a sharded K7 "
-            "needs that entry split (ROADMAP.md queue B); use "
-            "ortho='cgs2' or 'cgs2_fused'")
     if ortho in _KERNEL_OF and device.type == "cuda":
         limit = max_rows(itemsize, _KERNEL_OF[ortho])
         if rows > limit:
@@ -173,8 +169,10 @@ def gmres(
       float32), ``"cgs2"`` otherwise.  A kernel scheme on a CUDA device
       with a taller basis than its kernels take raises ``ValueError``.
       Under an active mesh ``"cgs2_fused"`` runs K9 on the ranks'
-      blocks, whether or not N divides over the mesh;
-      ``"cgs_pallas"``/``"cgs2_pallas"`` raise ``NotImplementedError``.
+      blocks, whether or not N divides over the mesh, and
+      ``"cgs_pallas"``/``"cgs2_pallas"`` K7's sharded form
+      (:func:`~krypy_tpu_torch.kernels.orthogonalize.cgs_project_blocks`:
+      K4, an all-reduce, K6).
     :param explicit_residual: recompute the true residual every iteration.
     :param exact_solution: optional ``(N,)`` for error-norm tracking.
     :param progress: print the relative residual of each iteration.
@@ -306,7 +304,10 @@ def gmres(
             return cgs2_fused(V, w.contiguous(), mask, rows=k + 1)
         h = torch.zeros(m + 1, dtype=dtype, device=dev)
         for _ in range(passes):
-            if ortho in ("cgs_pallas", "cgs2_pallas"):
+            if ortho in ("cgs_pallas", "cgs2_pallas") and mesh is not None:
+                w, coeffs = cgs_project_blocks(V, w.contiguous(), mask, basis,
+                                               mesh=mesh, rows=k + 1)
+            elif ortho in ("cgs_pallas", "cgs2_pallas"):
                 w, coeffs = cgs_project(V, w.contiguous(), mask, basis,
                                         rows=k + 1)
             else:

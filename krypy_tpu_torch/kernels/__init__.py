@@ -8,6 +8,7 @@ from .orthogonalize import (
     cgs2_fused_blocks,
     cgs2_fused_sharded,
     cgs_project,
+    cgs_project_blocks,
     project_prefix,
     update_prefix,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "cgs2_fused_sharded",
     "cgs2_fused_blocks",
     "cgs_project",
+    "cgs_project_blocks",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -22,7 +22,8 @@ split over a mesh.  And the one behind
 * :func:`cgs_project` (K7): one classical Gram-Schmidt pass, ``c =
   (conj(V[:rows]) w) * mask`` and ``w - c^T B[:rows]`` with ``B`` either
   ``V`` or a second (dual) basis, the only kernel that serves GMRES with
-  an inner-product-changing preconditioner ``M`` (``V = M B``).
+  an inner-product-changing preconditioner ``M`` (``V = M B``), with
+  :func:`cgs_project_blocks` its form on a basis split over a mesh.
 
 Coefficient vectors have length m, zero past ``rows``.
 
@@ -48,6 +49,7 @@ __all__ = [
     "cgs2_fused_sharded",
     "cgs2_fused_blocks",
     "cgs_project",
+    "cgs_project_blocks",
     "cgs_project_torch",
     "project_prefix_torch",
     "apply_project_torch",
@@ -332,6 +334,21 @@ def cgs2_fused_blocks(V, w, mask, *, mesh, rows=None):
     if V.is_cuda:
         LAUNCHES["cgs2_fused_sharded"] += 1
     return w2, c1 + c2
+
+
+def cgs_project_blocks(V, w, mask, basis=None, *, mesh, rows=None):
+    """K7 on a basis whose columns are split over ``mesh`` (a
+    :class:`krypy_tpu_torch.parallel.Mesh`): ``V``, ``basis`` (default
+    ``V``) and ``w`` are the rank's columns, of any length.  K7's phase 0
+    is K4's sweep and its phase 1 K6's update, so the sharded form is K4
+    on the rank's columns, the sum of the partial coefficients over the
+    ranks (one :func:`~krypy_tpu_torch.parallel.all_reduce_sum` of m
+    values), then K6 along ``basis``: ``c = (conj(V[:rows]) w) * mask``,
+    ``w - c^T B[:rows]``.  Returns ``(w_orth, c)``, the rank's block and
+    the coefficients, the same on every rank; the launches count as K4's
+    and K6's."""
+    c = all_reduce_sum(project_prefix(V, w, mask, rows=rows), mesh)
+    return update_prefix(V if basis is None else basis, w, c, rows=rows), c
 
 
 def cgs_project(V, w, mask, basis=None, *, rows=None):

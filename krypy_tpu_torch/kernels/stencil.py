@@ -132,9 +132,12 @@ def stencil5_affine_torch(u, g, coeffs, nrows, ncols, alpha=0.0, beta=0.0):
     None."""
     a, b, c, d, e = _grouped(coeffs)
     R, P = u.shape
-    inside = _logical_mask(R, P, nrows, ncols, u.device)
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
-    uz = torch.where(inside, u, zero)
+    # an unpadded grid is its own logical region: no mask to apply
+    full = (nrows, ncols) == (R, P)
+    if not full:
+        inside = _logical_mask(R, P, nrows, ncols, u.device)
+        zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    uz = u if full else torch.where(inside, u, zero)
     zr = torch.zeros((1, P), dtype=u.dtype, device=u.device)
     zc = torch.zeros((R, 1), dtype=u.dtype, device=u.device)
     up = torch.cat([zr, uz[:-1]], 0)
@@ -148,7 +151,7 @@ def stencil5_affine_torch(u, g, coeffs, nrows, ncols, alpha=0.0, beta=0.0):
         out = out + alpha * u
     if g is not None and beta != 0.0:
         out = out + beta * g
-    return torch.where(inside, out, zero)
+    return out if full else torch.where(inside, out, zero)
 
 
 def _jacobi2_stages(coeffs, w, s):
@@ -309,20 +312,26 @@ def laplacian_2d(nx, ny=None, device="cuda"):
     return matvec
 
 
-def _sharded(x, nx, ny, coeffs, mesh, local):
+def _sharded(x, nx, ny, coeffs, mesh, local, kernel):
     """The row-sharded matvec around a per-shard stencil ``local(x_loc,
     nx_loc)`` (which applies Dirichlet zeros at the block's first and last
     rows): post the exchange of the block's edge rows, run ``local`` while
     it is in flight, then add ``cu * top`` to the first row and ``cd *
     bottom`` to the last, the neighbours' contributions; the edge ranks
     receive zeros, the Dirichlet boundary.  The JAX package adds them
-    outside its kernel too (stencil.py:603-604)."""
+    outside its kernel too (stencil.py:603-604).  The operand is checked
+    before the exchange is posted: for the kernel (``kernel``) as K1
+    checks it, for the plain stencil, which takes any dtype, its length."""
     P = mesh.size
     if nx % P != 0:
         raise ValueError(f"nx={nx} must be divisible by the mesh size {P} "
                          "for the sharded stencil")
     nx_loc = nx // P
-    _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x)
+    if kernel:
+        _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x)
+    elif x.numel() != nx_loc * ny:
+        raise ValueError(f"stencil5_sharded: operand has {x.numel()} "
+                         f"elements, expected {nx_loc}*{ny}")
     u = x.reshape(nx_loc, ny)
     halo = halo_exchange(u[0], u[-1], mesh=mesh, async_op=True)
     out = local(x, nx_loc).reshape(nx_loc, ny)
@@ -339,7 +348,7 @@ def stencil5_sharded_torch(x, *, nx, ny, coeffs, mesh):
     return _sharded(
         x, nx, ny, coeffs, mesh,
         lambda xs, n: stencil5_affine_torch(xs.reshape(n, ny), None, coeffs,
-                                            n, ny).reshape(-1))
+                                            n, ny).reshape(-1), False)
 
 
 def stencil5_sharded(x, *, nx, ny, coeffs, mesh):
@@ -354,7 +363,8 @@ def stencil5_sharded(x, *, nx, ny, coeffs, mesh):
     own."""
     out = _sharded(
         x, nx, ny, coeffs, mesh,
-        lambda xs, n: stencil5_pipelined(xs, nx=n, ny=ny, coeffs=coeffs))
+        lambda xs, n: stencil5_pipelined(xs, nx=n, ny=ny, coeffs=coeffs),
+        True)
     if x.is_cuda:
         LAUNCHES["stencil5_sharded"] += 1
     return out

@@ -1,5 +1,7 @@
-"""Operators of the multigrid-CG, north-star and deflation slices
-(counterpart of the matching parts of :mod:`krypy_tpu.ops`).
+"""Operators of the ported slices (counterpart of the matching parts of
+:mod:`krypy_tpu.ops`): the README diagonal and the 1-D and 2-D Poisson,
+convection-diffusion and shifted-Laplacian stencils, the Jacobi, SSOR and
+DST preconditioners, and the multigrid V-cycle on both layouts.
 
 Operators are plain callables on 1-D ``(N,)`` tensors that carry
 ``.shape`` (and ``.grid``, ``.nx_pad``, ``.ny_pad``, ``.diag`` where the
@@ -7,13 +9,14 @@ JAX operator has them).  They are not ``nn.Module``s: a solver operator
 has no parameters.  Their output dtype follows the input vector.
 
 ``impl="torch"`` is the JAX package's ``impl="jnp"`` and ``impl="cuda"``
-its ``impl="pallas"``: on the cuda lane the fine multigrid levels and the
+its ``impl="pallas"``: on the cuda lane the multigrid levels and the
 float32 stencil matvecs go through the hand-written kernels of
-:mod:`krypy_tpu_torch.kernels`, under the JAX package's dispatch rules
-(kernels only at ``n >= 256`` and on float32; float64 through the plain
-stencil).
+:mod:`krypy_tpu_torch.kernels` (the padded V-cycle at ``n >= 256`` as in
+the JAX package, the unpadded one at every level; float32 only, float64
+through the plain stencil).
 
-Every constructor takes ``device``, where the operator keeps its own
+Every constructor takes the JAX package's arguments in its positional
+order and, keyword-only, ``device``, where the operator keeps its own
 tensors (``.diag``); it defaults to ``"cuda"``, the current CUDA device,
 and raises where torch sees no CUDA device.  Pass ``device="cpu"`` to
 build an operator on the CPU.
@@ -30,6 +33,7 @@ one.  ``pad_cols=True`` with ``mesh=`` raises ``ValueError``, as in the
 JAX package.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,10 +43,14 @@ from .parallel import active_mesh, block_of
 
 __all__ = [
     "diagonal",
+    "readme_diag",
+    "poisson_1d",
     "poisson_2d",
     "convection_diffusion_2d",
     "shifted_laplacian_2d",
     "jacobi_preconditioner",
+    "poisson_dst_solver",
+    "ssor_poisson_preconditioner",
     "multigrid_poisson_preconditioner",
     "pad_cols_width",
     "pad_rows_width",
@@ -134,8 +142,39 @@ def diagonal(d):
     return matvec
 
 
-def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda",
-               mesh=None):
+def readme_diag(n=100, *, device="cuda"):
+    """The README example operator ``A = diag(1e-3, 2, 3, ..., n)``, in
+    float64 on ``device`` (BASELINE config 1)."""
+    device = _device(device)
+    d = torch.cat([torch.tensor([1.0e-3], dtype=torch.float64),
+                   torch.arange(2.0, n + 1, dtype=torch.float64)])
+    return diagonal(d.to(device))
+
+
+def _lap1d_apply(u, h2):
+    """1-D central second difference with Dirichlet boundaries."""
+    left = F.pad(u[:-1], (1, 0))
+    right = F.pad(u[1:], (0, 1))
+    return (2.0 * u - left - right) / h2
+
+
+def poisson_1d(n, *, device="cuda"):
+    """1-D Dirichlet Laplacian on n interior points of (0, 1); SPD.
+    ``device`` places ``.diag``."""
+    device = _device(device)
+    h2 = (1.0 / (n + 1)) ** 2
+
+    def matvec(x):
+        return _lap1d_apply(x, h2)
+
+    matvec.shape = (n, n)
+    matvec.diag = torch.full((n,), 2.0 / h2, dtype=torch.float64,
+                             device=device)
+    return matvec
+
+
+def poisson_2d(nx, ny=None, impl="torch", mesh=None, pad_cols=False, *,
+               device="cuda"):
     """5-point Laplacian on an nx x ny interior grid of the unit square,
     Dirichlet boundaries; SPD, N = nx*ny.
 
@@ -196,8 +235,8 @@ def poisson_2d(nx, ny=None, impl="torch", pad_cols=False, device="cuda",
 
 
 def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
-                            impl="torch", pad_cols=False, device="cuda",
-                            mesh=None):
+                            impl="torch", mesh=None, pad_cols=False, *,
+                            device="cuda"):
     """Nonsymmetric convection-diffusion operator ``-eps * Lap(u) +
     w . grad(u)`` with first-order upwind convection (wind components
     non-negative), Dirichlet boundaries; N = nx*ny.
@@ -262,7 +301,7 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
     return _finish(matvec, nx, ny, coeffs[0], device, mesh)
 
 
-def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
+def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None, *,
                          device="cuda"):
     """Shifted Laplacian ``Lap - sigma I`` (indefinite for sigma inside
     the spectrum) on an nx x ny Dirichlet grid.  ``impl="cuda"`` folds
@@ -299,9 +338,9 @@ def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None,
 def jacobi_preconditioner(op_or_diag):
     """Jacobi preconditioner M = diag(A)^{-1} from an operator exposing
     ``.diag`` or from an explicit diagonal tensor."""
-    d = getattr(op_or_diag, "diag", None)
-    if d is None:
-        d = op_or_diag
+    # a tensor's own .diag is a method, not a diagonal
+    d = (op_or_diag if isinstance(op_or_diag, torch.Tensor)
+         else op_or_diag.diag)
     inv = 1.0 / d
 
     def matvec(x):
@@ -427,6 +466,111 @@ def _prolong_bilinear_1d(c, axis):
     return torch.movedim(out, 0, axis)
 
 
+def _lap_coeffs(h2):
+    """The 5-point Laplacian's stencil coefficients ``(centre, up, down,
+    left, right)`` at grid spacing squared ``h2``."""
+    return (4.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2)
+
+
+def _lap2d_grid(u, h2):
+    """5-point Laplacian on a 2-D grid array (Dirichlet): K1's plain
+    version with the Laplacian's coefficients."""
+    return _kst.stencil5_affine_torch(u, None, _lap_coeffs(h2), *u.shape)
+
+
+def _restrict_fw(r):
+    """Full-weighting restriction (vertex-centered, ``nx = 2 nc + 1``)."""
+    return _restrict_fw_1d(_restrict_fw_1d(r, 0), 1)
+
+
+def _prolong_bilinear(c, nx):
+    """Bilinear prolongation (``nx = 2 nc + 1``)."""
+    return _prolong_bilinear_1d(_prolong_bilinear_1d(c, 0), 1)
+
+
+def _dst1(u, dim):
+    """DST-I along ``dim`` through the FFT of the odd extension (length
+    2(n+1))."""
+    u = torch.movedim(u, dim, -1)
+    n = u.shape[-1]
+    zero = torch.zeros(u.shape[:-1] + (1,), dtype=u.dtype, device=u.device)
+    z = torch.cat([zero, u, zero, -u.flip(-1)], dim=-1)
+    out = -torch.fft.rfft(z, dim=-1).imag[..., 1:n + 1] / 2.0
+    return torch.movedim(out.to(u.dtype), -1, dim)
+
+
+def poisson_dst_solver(nx, ny=None, *, device="cuda"):
+    r"""Fast direct solver for the 2-D Dirichlet Poisson operator by sine
+    diagonalization: :math:`x = S \Lambda^{-1} S b` with S the DST-I in
+    both grid directions (four FFTs per solve).  Exactly :math:`A^{-1}`
+    for :func:`poisson_2d`; the multigrid's ``coarse_solver="dst"``.
+    The eigenvalues are kept in float64 on ``device`` and rounded to the
+    vector's dtype at each application."""
+    device = _device(device)
+    ny = nx if ny is None else ny
+    hx2 = (1.0 / (nx + 1)) ** 2
+    hy2 = (1.0 / (ny + 1)) ** 2
+    ii = np.arange(1, nx + 1)
+    jj = np.arange(1, ny + 1)
+    lam_x = 4.0 * np.sin(ii * np.pi / (2 * (nx + 1))) ** 2 / hx2
+    lam_y = 4.0 * np.sin(jj * np.pi / (2 * (ny + 1))) ** 2 / hy2
+    lam = torch.from_numpy(lam_x[:, None] + lam_y[None, :]).to(device)
+    # DST-I is involutory up to the factor 2/(n+1) per direction
+    scale = (2.0 / (nx + 1)) * (2.0 / (ny + 1))
+
+    def matvec(b):
+        u = b.reshape(nx, ny)
+        u = _dst1(_dst1(u, 0), 1)
+        u = u / lam.to(u.dtype)
+        u = _dst1(_dst1(u, 0), 1) * scale
+        return u.reshape(-1)
+
+    matvec.shape = (nx * ny, nx * ny)
+    return matvec
+
+
+def _checkerboard(nx, ny, device):
+    """The red points ``(i + j) % 2 == 0`` of an nx x ny grid, and the
+    black ones."""
+    red = (torch.arange(nx, device=device)[:, None]
+           + torch.arange(ny, device=device)[None, :]) % 2 == 0
+    return red, ~red
+
+
+def _rb_gs_half(u, r, mask, diag, omega, apply_A):
+    """One red-black Gauss-Seidel half-update on a grid: the masked
+    colour's value by the residual form ``u + (omega/diag)(r - A u)``."""
+    return torch.where(mask, u + (omega / diag) * (r - apply_A(u)), u)
+
+
+def ssor_poisson_preconditioner(nx, ny=None, omega=1.0, sweeps=1, *,
+                                device="cuda"):
+    r"""Red-black SSOR preconditioner for the 2-D 5-point Laplacian: each
+    application runs ``sweeps`` symmetric Gauss-Seidel sweeps (forward
+    red then black, backward black then red) from zero, each colour a
+    masked stencil update.  SPD for the symmetric operator, so a CG
+    preconditioner.  The colour masks are built once, on ``device``."""
+    device = _device(device)
+    ny = nx if ny is None else ny
+    h2 = (1.0 / (nx + 1)) ** 2
+    diag = 4.0 / h2
+    red, black = _checkerboard(nx, ny, device)
+
+    def apply_A(u):
+        return _lap2d_grid(u, h2)
+
+    def matvec(rv):
+        r = rv.reshape(nx, ny)
+        u = torch.zeros_like(r)
+        for _ in range(int(sweeps)):
+            for mask in (red, black, black, red):
+                u = _rb_gs_half(u, r, mask, diag, omega, apply_A)
+        return u.reshape(-1)
+
+    matvec.shape = (nx * ny, nx * ny)
+    return matvec
+
+
 def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
                       impl, scale=1.0, device="cuda"):
     """Grid-padded V-cycle with damped-Jacobi smoothing (counterpart of
@@ -441,7 +585,7 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
 
     def step_fn(n, R, P, h2, dtype_is_f32, s=1.0):
         diag = 4.0 / h2
-        lapc = (4.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2)
+        lapc = _lap_coeffs(h2)
         w = omega / diag
         if impl == "cuda" and n >= 256 and dtype_is_f32:
             # s*(u + w*(r - A u)) as ONE kernel: alpha*u + beta*r + S(u)
@@ -533,11 +677,15 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
 
         if n <= coarsest:
             # first sweep from u=0 is the elementwise u1 = w*r
-            u = smooth(w * r, r, step, coarse_sweeps - 1)
+            u = (smooth(w * r, r, step, coarse_sweeps - 1) if coarse_sweeps
+                 else torch.zeros_like(r))
             return scale * u if (top and scale != 1.0) else u
 
-        # sweeps 1+2 from u=0 collapse into ONE stencil pass on r
-        u = smooth(presmooth2(r), r, step, nu_pre - 2)
+        if nu_pre >= 2:
+            # sweeps 1+2 from u=0 collapse into ONE stencil pass on r
+            u = smooth(presmooth2(r), r, step, nu_pre - 2)
+        else:
+            u = w * r if nu_pre == 1 else torch.zeros_like(r)
         if resrestrict is not None:
             rc_grid = resrestrict(u, r)
         else:
@@ -577,44 +725,139 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
     return matvec
 
 
+def _multigrid_unpadded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
+                        coarse_solver, impl, smoother, scale, device):
+    """The unpadded V-cycle on ``(nx, nx)`` grids (counterpart of the JAX
+    package's ``multigrid_poisson_preconditioner`` without ``pad_cols``):
+    each level's Laplacian is K1 (:func:`~krypy_tpu_torch.kernels.
+    stencil.stencil5_pipelined`) on float32 with ``impl="cuda"``, the
+    plain stencil otherwise; every other leg is plain torch.
+
+    K1 runs at every level.  The JAX package starts its kernel at 256 (a
+    TPU choice); on the H100 (80GB HBM3, 700 W) one K1 launch took less
+    time per call than the plain stencil's chain of launches at every
+    level size measured, 1^2 to 4095^2: below 2047^2 the cost is the
+    launches, not the bytes (``chip_smoke.py``'s
+    ``k1_unpadded_crossover``; its readings are in PERF.md)."""
+    device = _device(device)
+    if coarse_solver == "dst":
+        coarse_solver = poisson_dst_solver(coarsest, device=device)
+    masks = {}
+    if smoother == "rbgs":
+        n = nx
+        while True:
+            masks[n] = _checkerboard(n, n, device)
+            if n <= coarsest:
+                break
+            n = (n - 1) // 2
+
+    def lap_grid(u, n, h2):
+        if impl == "cuda" and u.dtype == torch.float32:
+            return kernels.stencil5_pipelined(
+                u.reshape(-1), nx=n, ny=n, coeffs=_lap_coeffs(h2),
+            ).reshape(n, n)
+        return _lap2d_grid(u, h2)
+
+    def vcycle(r, n):
+        h2 = (1.0 / (n + 1)) ** 2
+        diag = 4.0 / h2
+
+        def A(u):
+            return lap_grid(u, n, h2)
+
+        def step(u, reverse=False):
+            if smoother == "rbgs":
+                # omega=1: plain Gauss-Seidel; the post-smoother runs the
+                # colours reversed, so the cycle stays symmetric
+                red, black = masks[n]
+                for mask in ((black, red) if reverse else (red, black)):
+                    u = _rb_gs_half(u, r, mask, diag, 1.0, A)
+                return u
+            return u + (omega / diag) * (r - A(u))
+
+        def smooth(u, k, reverse=False):
+            for _ in range(k):
+                u = step(u, reverse)
+            return u
+
+        if n <= coarsest:
+            if coarse_solver is not None:
+                return coarse_solver(r.reshape(-1)).reshape(r.shape)
+            u = torch.zeros_like(r)
+            if smoother == "rbgs":
+                # (forward, reverse) pairs keep the coarse smoothing
+                # symmetric: coarse_sweeps rounds up to a pair
+                for _ in range((coarse_sweeps + 1) // 2):
+                    u = step(step(u), reverse=True)
+                return u
+            return smooth(u, coarse_sweeps)
+
+        if smoother == "rbgs" or nu_pre < 2:
+            u = smooth(torch.zeros_like(r), nu_pre)
+        else:
+            # Jacobi sweeps 1+2 from u=0 collapse to one stencil pass
+            w = omega / diag
+            u = smooth((2.0 * w) * r - (w * w) * A(r), nu_pre - 2)
+        res = r - A(u)
+        ec = vcycle(_restrict_fw(res), (n - 1) // 2)
+        u = u + _prolong_bilinear(ec, n)
+        return smooth(u, nu_post, reverse=True)
+
+    def matvec(x):
+        if active_mesh() is not None:
+            raise NotImplementedError(
+                "the V-cycle on a mesh is not ported (ROADMAP.md queue A, "
+                "A4)")
+        if x.device != device:
+            raise ValueError(f"multigrid built for {device}, applied to a "
+                             f"vector on {x.device}")
+        u = vcycle(x.reshape(nx, nx), nx).reshape(-1)
+        return scale * u if scale != 1.0 else u
+
+    matvec.shape = (nx * nx, nx * nx)
+    return matvec
+
+
 def multigrid_poisson_preconditioner(
     nx, nu_pre=2, nu_post=2, omega=0.8, coarsest=7, coarse_sweeps=20,
     coarse_solver=None, impl="torch", smoother="jacobi", pad_cols=False,
-    scale=1.0, device="cuda",
+    scale=1.0, *, device="cuda",
 ):
     r"""Geometric multigrid V-cycle preconditioner for the 2-D Dirichlet
-    Poisson operator (``nx = 2^k - 1``): damped-Jacobi smoothing,
-    full-weighting restriction, bilinear prolongation, a sweep solve on
-    the coarsest level.  M becomes ``scale * V(r)``.
+    Poisson operator (``nx = 2^k - 1``): full-weighting restriction,
+    bilinear prolongation, ``nu_pre`` / ``nu_post`` smoothing sweeps
+    (``smoother="jacobi"``, damped by ``omega``, or ``"rbgs"``, red-black
+    Gauss-Seidel whose post-smoother runs the colours reversed so that
+    the cycle stays symmetric) and, on the coarsest level, the smoother
+    from zero (``coarse_sweeps``; ``rbgs`` rounds up to symmetric pairs)
+    or ``coarse_solver`` (a matvec, or ``"dst"`` for
+    :func:`poisson_dst_solver`).  M becomes ``scale * V(r)``.
 
-    Only the grid-padded V-cycle (``pad_cols=True``) is ported; the
-    unpadded lane and ``smoother="rbgs"`` raise ``NotImplementedError``
-    (ROADMAP.md queue A, item 3).  ``nu_pre < 2`` and ``coarse_sweeps <
-    1`` raise ``ValueError``: the JAX padded lane runs one sweep too many
-    there (ROADMAP.md queue C).  The operator makes no tensors of its own
-    and runs in the dtype of the vector it is applied to, which must lie
-    on ``device`` (default ``"cuda"``, the current CUDA device; raises
-    where torch sees none).
+    Without ``pad_cols`` the cycle runs on ``(nx, nx)`` grids (K1 for
+    every float32 level Laplacian with ``impl="cuda"``).
+    ``pad_cols=True`` is the grid-padded lane (K1-K3 at ``n >= 256``),
+    which takes the jacobi smoother and the sweep coarse solve only
+    (``ValueError`` otherwise, as in the JAX package);
+    its ``nu_pre`` of 0 and 1 and ``coarse_sweeps=0`` run as many sweeps
+    as the unpadded lane (the JAX padded lane runs one more there).  The
+    operator makes no tensors of its own apart from the ``rbgs`` masks
+    and the ``dst`` eigenvalues, and runs in the dtype of the vector it
+    is applied to, which must lie on ``device`` (default ``"cuda"``, the
+    current CUDA device; raises where torch sees none).
     """
     _check_impl(impl)
     if (nx + 1) & nx != 0:
         raise ValueError("multigrid requires nx = 2^k - 1")
     if smoother not in ("jacobi", "rbgs"):
         raise ValueError(f"unknown smoother {smoother!r}")
-    if not pad_cols or smoother != "jacobi":
-        raise NotImplementedError(
-            "only the grid-padded jacobi V-cycle (pad_cols=True) is ported "
-            "yet (ROADMAP.md queue A, item 3)"
-        )
-    if coarse_solver is not None:
+    if not pad_cols:
+        return _multigrid_unpadded(
+            nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
+            coarse_solver, impl, smoother, scale, device)
+    if smoother != "jacobi" or coarse_solver is not None:
         raise ValueError(
             "pad_cols multigrid supports the jacobi smoother with the sweep "
             "coarse solve only"
-        )
-    if nu_pre < 2 or coarse_sweeps < 1:
-        raise ValueError(
-            "the padded V-cycle needs nu_pre >= 2 and coarse_sweeps >= 1 "
-            f"(got nu_pre={nu_pre}, coarse_sweeps={coarse_sweeps})"
         )
     return _multigrid_padded(
         nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps, impl,

@@ -157,9 +157,20 @@ class Mesh:
         return False
 
 
-def make_mesh(n_devices=None, device=None):
+def _check_axis(axis_name):
+    """A mesh of the port has the one axis ``"n"`` (the world's group);
+    ``axis_name`` is accepted for the JAX package's signatures and must
+    name it."""
+    if axis_name not in (None, "n"):
+        raise ValueError(f"axis_name={axis_name!r}: a mesh of the port is "
+                         "the world's process group on the one axis 'n'")
+
+
+def make_mesh(n_devices=None, axis_name="n", device=None):
     """The mesh over the whole world.  ``n_devices``, where given, must be
-    the world's size: a mesh has one rank per shard."""
+    the world's size: a mesh has one rank per shard.  ``axis_name`` must
+    be ``"n"`` (``ValueError`` otherwise)."""
+    _check_axis(axis_name)
     mesh = Mesh(device=device)
     if n_devices is not None and n_devices != mesh.size:
         raise ValueError(f"n_devices={n_devices}, but the process group has "
@@ -187,23 +198,26 @@ def block_of(n, mesh):
     return slice(min(mesh.rank * step, n), min((mesh.rank + 1) * step, n))
 
 
-def shard_vector(x, mesh):
+def shard_vector(x, mesh, axis_name=None):
     """This rank's block of a vector (or of a row-major basis: the LAST
     axis is split, as the JAX ``shard_vector`` does), contiguous on
     ``mesh.device``.  ``x`` is the whole array on every rank (a tensor or
-    anything ``np.asarray`` takes)."""
+    anything ``np.asarray`` takes); ``axis_name``, where given, must be
+    ``"n"``."""
+    _check_axis(axis_name)
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.asarray(x))
     return x[..., block_of(x.shape[-1], mesh)].to(mesh.device).contiguous()
 
 
 def make_global_vector(mesh, data_for_index, global_shape, dtype=None,
-                       sharded_axis=0):
+                       axis_name=None, sharded_axis=0):
     """This rank's block of an array that no process holds whole:
     ``data_for_index`` maps the block's index tuple (slices into the
     ``global_shape`` array) to its data, as in the JAX
     ``make_global_vector``; ``sharded_axis`` is split, the others are
-    whole."""
+    whole; ``axis_name``, where given, must be ``"n"``."""
+    _check_axis(axis_name)
     index = [slice(None)] * len(global_shape)
     index[sharded_axis] = block_of(global_shape[sharded_axis], mesh)
     arr = np.asarray(data_for_index(tuple(index)))

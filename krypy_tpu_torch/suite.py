@@ -18,15 +18,27 @@ Ritz deflation removes.
     result, info = make_solve(U)(torch.ones(4095 ** 2, dtype=torch.float64,
                                             device="cuda"))   # step 2
     runs = recycling_sequence(4095, "cuda", "cgs2_pallas")    # step 3
+
+Beside it, BASELINE configs 1-3 as benchmarks/suite.py runs them
+(:func:`config1_readme_gmres`, :func:`make_config2`,
+:func:`make_config3`): GMRES on the README diagonal; CG and MINRES on the
+2-D Poisson operator weighted by ``w = linspace(1, 2, N)``, with the
+unpadded V-cycle of ``w r`` and the inner product ``<x, w y>``; and
+restarted GMRES(30) with ``Ml`` (the V-cycle), ``M`` and ``Mr`` on
+convection-diffusion; configs 2 and 3 in float64 refinement to 1e-8.
 """
+
+import time
 
 import numpy as np
 import torch
 
-from . import functional as F, ops
+from . import functional as F, interop, ops
 
 __all__ = ["SIGMA", "SIGMAS", "N_VECTORS", "INNER_TOL", "RESTART", "TOL",
-           "kappa_bound", "make_config4", "recycling_sequence"]
+           "kappa_bound", "make_config4", "recycling_sequence",
+           "config1_readme_gmres", "config2_weights", "make_config2",
+           "make_config3"]
 
 #: the shift of config 4
 SIGMA = 200.0
@@ -171,3 +183,137 @@ def recycling_sequence(nx, impl, ortho, device="cuda", recycle=True,
                      "status": int(res.status),
                      "rel_prec": float(rel_prec), "rel": float(rel)})
     return runs
+
+
+# ---------------------------------------------------------------------------
+# BASELINE configs 1-3 (benchmarks/suite.py:47-151)
+# ---------------------------------------------------------------------------
+
+#: inner tolerance of configs 2 and 3, and config 2's iteration cap and
+#: stagnation window
+C23_INNER_TOL = 1e-4
+C2_MAXITER = 200
+C2_STAGNATION = 20
+#: config 3's restart length and restarts
+C3_RESTART = 30
+C3_MAX_RESTARTS = 10
+
+
+def config1_readme_gmres(device="cuda"):
+    """Config 1: GMRES (tol 1e-8, maxiter 100) on the README system
+    ``diag(1e-3, 2, ..., 100) x = ones`` in float64; returns the JSON
+    record of benchmarks/suite.py (``niter``, ``converged``, ``wall_s``:
+    the best of 3 solves after one warm-up)."""
+    device = ops._device(device)
+    A = ops.readme_diag(100, device=device)
+    b = torch.ones(100, dtype=torch.float64, device=device)
+    res = F.gmres(A, b, tol=1e-8, maxiter=100)
+    wall = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = F.gmres(A, b, tol=1e-8, maxiter=100)
+        niter = int(res.niter)  # the read synchronises
+        wall = min(wall, time.perf_counter() - t0)
+    return {"config": "1_readme_gmres", "niter": niter,
+            "converged": bool(int(res.status) == F.CONVERGED),
+            "wall_s": wall}
+
+
+def config2_weights(nx):
+    """Config 2's weights ``w = linspace(1, 2, N)`` in float32, as numpy:
+    the state both packages take from here, so that they use the same
+    bits."""
+    return np.linspace(1.0, 2.0, nx * nx).astype(np.float32)
+
+
+def make_config2(nx, impl, device="cuda", dtype=torch.float32):
+    """Config 2 on an ``nx``-grid: ``A = W^{-1} Lap`` (self-adjoint and
+    positive definite in ``ip(x, y) = <x, w y>``), ``M = V(w r)`` with
+    ``V`` the unpadded V-cycle (coarsest 31, 60 coarse sweeps; Jacobi on
+    ``diag(A)`` where nx is not ``2^k - 1``) and ``b = ones``.
+    ``impl="cuda"`` runs K1 in the float32 matvec and in the V-cycle's
+    level Laplacians, ``impl="torch"`` their plain versions; ``dtype`` is
+    the inner solves' arithmetic (float32 is the configuration).  Returns
+    ``(A, A64, M, ip, b, solves)``: ``solves["cg"]`` and
+    ``solves["minres"]`` map ``b -> (result, info)``, float64 refinement
+    to ``TOL`` around the inner solve (tol 1e-4, maxiter 200, stagnation
+    window 20), which each carries as ``.inner``."""
+    device = ops._device(device)
+    lap = ops.poisson_2d(nx, impl=impl, device=device)
+    N = nx * nx
+    b = torch.ones(N, dtype=torch.float64, device=device)
+    w = interop.from_numpy(config2_weights(nx), device)
+    w64 = w.to(torch.float64)
+
+    def A(x):
+        return lap(x) / w.to(x.dtype)
+
+    def A64(x):
+        return lap(x) / w64
+
+    def ip(x, y):
+        return torch.vdot(x, w.to(x.dtype) * y)
+
+    if (nx + 1) & nx == 0:
+        mg = ops.multigrid_poisson_preconditioner(
+            nx, coarsest=min(31, nx), coarse_sweeps=60, impl=impl,
+            device=device)
+
+        def M(r):
+            return mg(w.to(r.dtype) * r)
+    else:
+        M = ops.jacobi_preconditioner(lap.diag.to(torch.float32) / w)
+
+    solves = {}
+    for name, solver in (("cg", F.cg), ("minres", F.minres)):
+        def inner(rr, solver=solver):
+            return solver(A, rr, M=M, ip=ip, tol=C23_INNER_TOL,
+                          maxiter=C2_MAXITER,
+                          stagnation_window=C2_STAGNATION)
+
+        def solve(bb, inner=inner):
+            return F.refine_to(A64, bb, inner, tol=TOL, compiled=True,
+                               inner_dtype=dtype)
+
+        solve.inner = inner
+        solves[name] = solve
+    return A, A64, M, ip, b, solves
+
+
+def make_config3(nx, impl, ortho, device="cuda", dtype=torch.float32):
+    """Config 3 on an ``nx``-grid: ``-Lap u + (1, 0.5) . grad u = 1``
+    (upwind, Dirichlet) by restarted GMRES(30) with ``max_restarts=10``
+    and ``compiled=True``, ``Ml`` the unpadded V-cycle of the Laplacian
+    (coarsest 31, 60 coarse sweeps), ``M = (1 + h^2 / 2) I`` (so the
+    basis is ``V = M P``) and ``Mr`` Jacobi with ``4 / h^2``, inner
+    tolerance 1e-4, in float64 refinement to ``TOL``.  ``impl="cuda"``
+    runs K1 in the float32 matvec and the V-cycle, ``ortho`` is GMRES's
+    scheme (``"cgs2_pallas"`` runs K7 along the dual basis ``P``);
+    ``dtype`` the inner arithmetic.  Returns ``(solve, A64)``:
+    ``solve(b) -> (result, info)`` with ``solve.inner`` the restarted
+    solve, ``A64`` the operator (float64 in, float64 out)."""
+    device = ops._device(device)
+    cd = ops.convection_diffusion_2d(nx, impl=impl, device=device)
+    Ml = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=min(31, nx), coarse_sweeps=60, impl=impl,
+        device=device)
+    N = nx * nx
+    h2 = (1.0 / (nx + 1)) ** 2
+    M = ops.diagonal(torch.full((N,), 1.0 + 0.5 * h2, dtype=torch.float32,
+                                device=device))
+    Mr = ops.jacobi_preconditioner(torch.full((N,), 4.0 / h2,
+                                              dtype=torch.float32,
+                                              device=device))
+
+    def inner(rr):
+        return F.restarted_gmres(
+            cd, rr, Ml=Ml, M=M, Mr=Mr, tol=C23_INNER_TOL,
+            maxiter=C3_RESTART, max_restarts=C3_MAX_RESTARTS, compiled=True,
+            ortho=ortho)
+
+    def solve(b):
+        return F.refine_to(cd, b, inner, tol=TOL, compiled=True,
+                           inner_dtype=dtype)
+
+    solve.inner = inner
+    return solve, cd

@@ -209,6 +209,24 @@ def test_cg_scalar_callable_ip_matches_jax():
     _compare(rj, rt, rtol=1e-9)
 
 
+def test_cg_progress_prints_what_jax_prints(capsys):
+    """``progress=True`` prints each iteration's relative residual, the
+    JAX package's lines (``cg iter k: rel=...``) to the digits printed
+    (float64: float32 sums in another order move the third digit, ROADMAP.md
+    queue C)."""
+    import jax
+
+    nx = 15
+    b = _rhs(nx * nx, 2)
+    JF.cg(jops.poisson_2d(nx), jnp.asarray(b), tol=1e-8, progress=True)
+    jax.effects_barrier()
+    want = capsys.readouterr().out.splitlines()
+    F.cg(ops.poisson_2d(nx, device="cpu"), _t(b), tol=1e-8, progress=True)
+    got = capsys.readouterr().out.splitlines()
+    assert len(want) > 10 and got == want
+    assert got[0].startswith("cg iter 1: rel=")
+
+
 def test_cg_unported_options_raise():
     A, b = ops.poisson_2d(7, device="cpu"), torch.ones(49, dtype=torch.float64)
     with pytest.raises(NotImplementedError):

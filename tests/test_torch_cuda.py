@@ -738,3 +738,130 @@ def test_sharded_kernels_on_cuda_raise_without_the_library(
                                      n=64)
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the unpadded V-cycle, MINRES, configs 2 and 3, K7 on a mesh
+# ---------------------------------------------------------------------------
+
+
+def test_unpadded_vcycle_kernel_lane_matches_plain(cuda_device):
+    """The unpadded V-cycle at 1023^2 (coarsest 31, 60 coarse sweeps)
+    through K1 at every level against its plain lane on the card, float32,
+    within the bound of the padded V-cycle's lanes (``5e-6 * max|want|``);
+    K1 once per level Laplacian: 4 per level above the coarse one (the
+    collapsed presmooth, the residual, two post-sweeps) and 60 there."""
+    nx = 1023
+    kw = dict(coarsest=31, coarse_sweeps=60, device=cuda_device)
+    r = torch.randn(nx * nx, generator=torch.Generator(
+        device=cuda_device).manual_seed(5), device=cuda_device)
+    plain = ops.multigrid_poisson_preconditioner(nx, impl="torch", **kw)(r)
+    kernels.reset_launch_counts()
+    got = ops.multigrid_poisson_preconditioner(nx, impl="cuda", **kw)(r)
+    counts = kernels.launch_counts()
+    assert counts["stencil5_affine"] == 4 * 5 + 60
+    assert sum(counts.values()) == counts["stencil5_affine"]
+    scale = max(1.0, float(plain.abs().max()))
+    assert float((got - plain).abs().max()) <= 5e-6 * scale
+    # float64 never reaches K1
+    kernels.reset_launch_counts()
+    ops.multigrid_poisson_preconditioner(nx, impl="cuda", **kw)(r.double())
+    assert kernels.launch_counts()["stencil5_affine"] == 0
+
+
+def test_minres_on_the_card(cuda_device):
+    """MINRES on the card: float64 with Jacobi against the same solve on
+    the CPU (equal counts, histories to the CPU tests' 1e-9), and config
+    2's float32 solve at 255^2 through K1 against its plain lane."""
+    nx = 31
+    b = np.random.default_rng(0).standard_normal(nx * nx)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        A = ops.poisson_2d(nx, device=dev)
+        runs.append(F.minres(A, interop.from_numpy(b, dev),
+                             M=ops.jacobi_preconditioner(A), tol=1e-10,
+                             maxiter=300))
+    (rc, rh) = runs
+    assert int(rc.niter) == int(rh.niter) and int(rc.status) == F.CONVERGED
+    np.testing.assert_allclose(interop.to_numpy(rc.resnorms),
+                               interop.to_numpy(rh.resnorms), rtol=1e-9,
+                               atol=1e-13)
+    out = {}
+    for impl in ("cuda", "torch"):
+        _, A64, _, _, b2, solves = suite.make_config2(255, impl,
+                                                      cuda_device)
+        kernels.reset_launch_counts()
+        res, info = solves["minres"](b2)
+        out[impl] = (info, kernels.launch_counts())
+        assert float(res.resnorms.min()) <= 1e-8
+    (ic, cc), (it, ct) = out["cuda"], out["torch"]
+    assert ic["cycles"] == it["cycles"]
+    assert abs(ic["inner_iters"] - it["inner_iters"]) <= 3
+    assert cc["stencil5_affine"] > 0 and not any(ct.values())
+
+
+def test_config3_k7_along_p_matches_cgs2(cuda_device):
+    """Config 3's restarted GMRES(30) with ``Ml``, ``M`` and ``Mr`` at
+    127^2 in float64 on the card: ``cgs2_pallas`` (K7 twice per iteration
+    along the dual basis P) against ``cgs2`` (plain products), the same
+    iterations and the correction to 1e-9."""
+    nx = 127
+    b = torch.ones(nx * nx, dtype=torch.float64, device=cuda_device)
+    out = {}
+    for ortho in ("cgs2_pallas", "cgs2"):
+        solve, _ = suite.make_config3(nx, "torch", ortho, cuda_device,
+                                      dtype=torch.float64)
+        kernels.reset_launch_counts()
+        out[ortho] = (solve.inner(b), kernels.launch_counts())
+    (rk, ck), (rp, cp) = out["cgs2_pallas"], out["cgs2"]
+    assert int(rk.niter) == int(rp.niter) > 0
+    assert int(rk.status) == int(rp.status) == F.CONVERGED
+    assert ck["cgs_project"] == 2 * int(rk.niter) and not any(cp.values())
+    dx = torch.linalg.vector_norm(rk.x - rp.x) / torch.linalg.vector_norm(
+        rp.x)
+    assert float(dx) <= 1e-9
+
+
+def k7_mesh_cases(mesh):
+    """Rank side of :func:`test_gmres_cgs2_pallas_on_mesh`: GMRES with
+    ``ortho="cgs2_pallas"`` on the mesh (K7's sharded form: K4, an
+    all-reduce, K6 per pass), float64, against the single-device solve
+    with the same scheme (K7) on the whole vector."""
+    nx = 32
+    A = ops.convection_diffusion_2d(nx, mesh=mesh, device=mesh.device)
+    b_all = np.random.RandomState(5).randn(nx * nx)
+    kw = dict(tol=1e-10, maxiter=200, ortho="cgs2_pallas")
+    with mesh:
+        kernels.reset_launch_counts()
+        res = F.gmres(A, parallel.shard_vector(b_all, mesh),
+                      Ml=ops.jacobi_preconditioner(A), **kw)
+        counts = kernels.launch_counts()
+    A1 = ops.convection_diffusion_2d(nx, device=mesh.device)
+    one = F.gmres(A1, interop.from_numpy(b_all, mesh.device),
+                  Ml=ops.jacobi_preconditioner(A1), **kw)
+    x = parallel.gather_vector(res.x, mesh)
+    return {"niter": np.array([int(res.niter), int(one.niter)]),
+            "status": np.int64(int(res.status)),
+            "dx": np.float64(float(torch.linalg.vector_norm(x - one.x)
+                                   / torch.linalg.vector_norm(one.x))),
+            "launches": np.array([counts["project_prefix"],
+                                  counts["update_prefix"],
+                                  counts["cgs_project"]]),
+            "resnorms": interop.to_numpy(res.resnorms)}
+
+
+def test_gmres_cgs2_pallas_on_mesh(cuda_device, tmp_path):
+    """``gmres(ortho="cgs2_pallas")`` on 2 gloo ranks that share the card:
+    the single-device iterations, the iterate to 1e-9, K4 and K6 twice per
+    iteration on every rank and K7 itself never; the residual history the
+    same bits on every rank."""
+    from test_torch_parallel import run_ranks
+
+    ranks = run_ranks(__file__, "k7_mesh_cases", 2, tmp_path,
+                      device=str(cuda_device), backend="gloo")
+    for r in ranks:
+        n, n_one = r["niter"]
+        assert n == n_one > 0 and int(r["status"]) == F.CONVERGED
+        assert float(r["dx"]) <= 1e-9
+        assert list(r["launches"]) == [2 * n, 2 * n, 0]
+        assert r["resnorms"].tobytes() == ranks[0]["resnorms"].tobytes()

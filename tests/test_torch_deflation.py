@@ -453,11 +453,14 @@ def test_recycling_gmres_nonsymmetric_with_preconditioner():
 
 @pytest.mark.parametrize("name", ["deflated_minres", "AutoRecyclingGmres"])
 def test_unported_names_raise(name):
+    """What of these names is not ported raises: ``AutoRecyclingGmres``,
+    and ``deflated_minres``'s one-reduce variant (the classic solver runs:
+    tests/test_torch_minres.py)."""
     fn = getattr(F, name)
-    args = (torch.eye(2), torch.ones(2), torch.ones(2, 1)) \
-        if name == "deflated_minres" else ()
+    args, kw = ((torch.eye(2), torch.ones(2), torch.ones(2, 1)),
+                dict(variant="1r")) if name == "deflated_minres" else ((), {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(*args)
+        fn(*args, **kw)
 
 
 def test_functional_exports_the_jax_names():

@@ -167,20 +167,22 @@ def test_cast_matvec_keeps_system_dtype():
 
 
 def test_multigrid_rejects_unported_and_faulty_options():
-    with pytest.raises(NotImplementedError):
-        ops.multigrid_poisson_preconditioner(15)
-    with pytest.raises(NotImplementedError):
-        ops.multigrid_poisson_preconditioner(15, smoother="rbgs",
-                                             pad_cols=True)
-    with pytest.raises(ValueError):
-        ops.multigrid_poisson_preconditioner(15, coarse_solver="dst",
-                                             pad_cols=True)
-    with pytest.raises(ValueError):
-        ops.multigrid_poisson_preconditioner(16, pad_cols=True)
-    # the JAX padded lane runs one sweep too many for these
-    for kw in (dict(nu_pre=1), dict(nu_pre=0), dict(coarse_sweeps=0)):
+    """The options the JAX package refuses, refused alike.  (The unpadded
+    lane, the ``rbgs`` smoother and the padded lane's ``nu_pre < 2`` and
+    ``coarse_sweeps=0`` run now: tests/test_torch_multigrid.py.)"""
+    for kw in (dict(smoother="rbgs"), dict(coarse_solver="dst")):
+        with pytest.raises(ValueError, match="jacobi smoother"):
+            ops.multigrid_poisson_preconditioner(15, pad_cols=True,
+                                                 device="cpu", **kw)
+        with pytest.raises(ValueError, match="jacobi smoother"):
+            jops.multigrid_poisson_preconditioner(15, pad_cols=True, **kw)
+    for pad in (True, False):
         with pytest.raises(ValueError):
-            ops.multigrid_poisson_preconditioner(15, pad_cols=True, **kw)
+            ops.multigrid_poisson_preconditioner(16, pad_cols=pad,
+                                                 device="cpu")
+    with pytest.raises(ValueError):
+        ops.multigrid_poisson_preconditioner(15, smoother="sor",
+                                             device="cpu")
     with pytest.raises(ValueError):
         ops.poisson_2d(15, impl="pallas")
     with pytest.raises(ValueError):
@@ -195,6 +197,12 @@ _CONSTRUCTORS = {
         15, pad_cols=True, **kw),
     "multigrid": lambda **kw: ops.multigrid_poisson_preconditioner(
         15, coarsest=7, pad_cols=True, **kw),
+    "multigrid_unpadded": lambda **kw: ops.multigrid_poisson_preconditioner(
+        15, coarsest=7, smoother="rbgs", **kw),
+    "dst": lambda **kw: ops.poisson_dst_solver(15, **kw),
+    "ssor": lambda **kw: ops.ssor_poisson_preconditioner(15, **kw),
+    "poisson_1d": lambda **kw: ops.poisson_1d(15, **kw),
+    "readme_diag": lambda **kw: ops.readme_diag(15, **kw),
 }
 
 
@@ -213,6 +221,44 @@ def test_constructors_default_to_cuda(name):
     op = make()
     x = torch.ones(op.shape[0], dtype=torch.float64, device="cuda")
     assert op(x).device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", ["poisson_2d", "convection_diffusion_2d",
+                                  "shifted_laplacian_2d"])
+def test_constructors_take_the_jax_positional_order(name):
+    """``(nx, ny, [wind, eps | sigma,] impl, mesh, pad_cols)`` as in the
+    JAX package, ``device`` keyword-only: a positional ``mesh`` (None
+    here) lands in ``mesh``, and the positional call builds the keyword
+    call's operator."""
+    extra = {"poisson_2d": (), "convection_diffusion_2d": ((1.0, 0.5), 1.0),
+             "shifted_laplacian_2d": (5.0,)}[name]
+    make = getattr(ops, name)
+    jmake = getattr(jops, name)
+    x = np.random.default_rng(13).standard_normal(15 * 9)
+    keys = ["impl", "mesh", "pad_cols"][:3 if name != "shifted_laplacian_2d"
+                                        else 2]
+    vals = ["torch", None, False][:len(keys)]
+    pos = make(15, 9, *extra, *vals, device="cpu")
+    kw = make(15, 9, *extra, device="cpu", **dict(zip(keys, vals)))
+    want = np.asarray(jmake(15, 9, *extra, "jnp", None, *vals[2:])(
+        jnp.asarray(x)))
+    for op in (pos, kw):
+        _close64(interop.to_numpy(op(interop.from_numpy(x, "cpu"))), want)
+    with pytest.raises(TypeError):
+        make(15, 9, *extra, *vals, "cpu")
+
+
+def test_jacobi_preconditioner_takes_a_diagonal_tensor():
+    """From a diagonal tensor (a tensor's own ``.diag`` is a method), as
+    the JAX package takes an array."""
+    d = np.linspace(1.0, 3.0, 12)
+    x = np.random.default_rng(14).standard_normal(12)
+    got = ops.jacobi_preconditioner(interop.from_numpy(d, "cpu"))(
+        interop.from_numpy(x, "cpu"))
+    np.testing.assert_array_equal(
+        interop.to_numpy(got),
+        np.asarray(jops.jacobi_preconditioner(jnp.asarray(d))(
+            jnp.asarray(x))))
 
 
 @pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])

@@ -52,6 +52,9 @@ K9_CASE = (9, 1024, 8)
 GM_NX, GM_MAXITER, GM_TOL = 16, 100, 1e-10
 #: GMRES iterations of the two runs whose difference counts collectives
 COUNT_ITERS = (5, 9)
+#: the GMRES schemes on the mesh: K9, the plain two passes, and K7's
+#: sharded form (K4, an all-reduce, K6 per pass)
+GM_ORTHOS = ("cgs2_fused", "cgs2", "cgs2_pallas")
 #: a length that divides over neither world: K9 runs on blocks of
 #: unequal length there, the JAX package its two-pass ``fused_force_jnp``
 UNEVEN_N = 61
@@ -214,10 +217,10 @@ def rank_cases(mesh):
         mask, mesh=mesh, rows=rows)
     out["k9_w2"], out["k9_c"] = gather(w2, mesh), interop.to_numpy(c)
 
-    # GMRES on the mesh, both schemes, and the collectives they make
+    # GMRES on the mesh, every scheme, and the collectives they make
     A, Ml, b = _gmres_problem(mesh)
     with mesh:
-        for ortho in ("cgs2_fused", "cgs2"):
+        for ortho in GM_ORTHOS:
             parallel.reset_collective_counts()
             res = F.gmres(A, b, Ml=Ml, tol=GM_TOL, maxiter=GM_MAXITER,
                           ortho=ortho)
@@ -252,8 +255,6 @@ def rank_cases(mesh):
             gmres_module.cgs2_fused_blocks = k9
         _result(out, "gmres_uneven", res, mesh)
         out["gmres_uneven_k9_calls"] = np.int64(len(calls))
-        out["err_cgs2_pallas"] = np.array(_error(lambda: F.gmres(
-            A, b, tol=GM_TOL, maxiter=4, ortho="cgs2_pallas")))
         out["err_refine_to"] = np.array(_error(lambda: F.refine_to(
             A, b, lambda r: None)))
 
@@ -263,6 +264,8 @@ def rank_cases(mesh):
     b = parallel.shard_vector(np.random.RandomState(8).randn(nx * nx), mesh)
     with mesh:
         _result(out, "cg", F.cg(A, b, tol=1e-10, maxiter=200), mesh)
+        _result(out, "minres", F.minres(A, b, tol=1e-10, maxiter=200),
+                mesh)
         # an inner-product matrix: rank-local (the operator on the mesh,
         # a block of the identity), or not
         eye = torch.eye(b.shape[0], dtype=torch.float64)
@@ -439,11 +442,12 @@ def _compare(r, key, res, x_atol=1e-10):
 
 
 @pytest.mark.parametrize("P", WORLDS)
-@pytest.mark.parametrize("ortho", ["cgs2_fused", "cgs2"])
+@pytest.mark.parametrize("ortho", GM_ORTHOS)
 def test_gmres_on_mesh_matches_jax(worlds, ortho, P):
-    """GMRES through K8 (and K9 for ``cgs2_fused``) against the JAX solve
-    under ``with mesh:``; every rank's residual history is the same
-    bits."""
+    """GMRES through K8 (and K9 for ``cgs2_fused``, K7's sharded form for
+    ``cgs2_pallas``, where the JAX package runs its single-device Pallas
+    kernel on the sharded basis) against the JAX solve under ``with
+    mesh:``; every rank's residual history is the same bits."""
     import jax
     import jax.numpy as jnp
     from krypy_tpu import functional as JF, ops as jops, parallel as jp
@@ -494,11 +498,12 @@ def test_gmres_cgs2_fused_on_indivisible_mesh_matches_jax(worlds, P):
 
 
 @pytest.mark.parametrize("P", WORLDS)
-@pytest.mark.parametrize("ortho", ["cgs2_fused", "cgs2"])
+@pytest.mark.parametrize("ortho", GM_ORTHOS)
 def test_gmres_collectives_per_iteration(worlds, ortho, P):
     """Three all-reduces per GMRES iteration (K9's two plus the norm, as
-    tests/test_collectives.py pins for the JAX loop body; ``cgs2``'s two
-    passes plus the norm) and one halo exchange per matvec.  A solve of k
+    tests/test_collectives.py pins for the JAX loop body; ``cgs2``'s and
+    ``cgs2_pallas``'s two passes plus the norm) and one halo exchange per
+    matvec.  A solve of k
     iterations that stops at ``maxiter``: 3 k + 4 all-reduces (the global
     N, the two initial norms, the final explicit residual) and k + 2
     exchanges (the initial and final residuals)."""
@@ -568,6 +573,30 @@ def test_cg_through_k8_matches_jax(worlds, P):
         res = jax.jit(lambda v: JF.cg(A, v, tol=1e-10, maxiter=200))(b)
     for key in ("cg", "cg_ip", "sharded_solve"):
         _compare(worlds[P][0], key, res)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_minres_through_k8_matches_jax(worlds, P):
+    """MINRES through the K8 operator (the inner products a local
+    partial and one all-reduce each) against the JAX MINRES through its
+    sharded Pallas stencil under ``with mesh:``; every rank's residual
+    history is the same bits."""
+    import jax
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, parallel as jp
+
+    nx = 32
+    mesh = _jmesh(P)
+    b = jp.shard_vector(
+        jnp.asarray(np.random.RandomState(8).randn(nx * nx)), mesh)
+    A = _jax_operator("poisson", nx, nx, mesh)
+    with mesh:
+        res = jax.jit(lambda v: JF.minres(A, v, tol=1e-10, maxiter=200))(b)
+    ranks = worlds[P]
+    _compare(ranks[0], "minres", res)
+    assert int(res.status) == F.CONVERGED
+    assert all(r["minres_resnorms"].tobytes()
+               == ranks[0]["minres_resnorms"].tobytes() for r in ranks)
 
 
 @pytest.mark.parametrize("P", WORLDS)
@@ -655,13 +684,12 @@ def test_recycling_handoff_on_mesh_matches_jax(worlds, P):
 
 @pytest.mark.parametrize("P", WORLDS)
 def test_mesh_rejects_what_is_not_ported(worlds, P):
-    """``cgs2_pallas`` (K7 has no sharded form), ``refine_to``, an
-    inner-product matrix that is not rank-local and a scalar-callable
-    inner product raise ``NotImplementedError`` on a mesh; ``make_mesh``
-    of another size than the world ``ValueError``."""
+    """``refine_to``, an inner-product matrix that is not rank-local and a
+    scalar-callable inner product raise ``NotImplementedError`` on a mesh;
+    ``make_mesh`` of another size than the world ``ValueError``.
+    (``cgs2_pallas`` runs on a mesh now: test_gmres_on_mesh_matches_jax.)"""
     for r in worlds[P]:
-        for key in ("cgs2_pallas", "refine_to", "ip_global",
-                    "ip_callable"):
+        for key in ("refine_to", "ip_global", "ip_callable"):
             assert str(r[f"err_{key}"]).startswith("NotImplementedError"), \
                 (key, str(r[f"err_{key}"]))
         assert "one rank per shard" in str(r["err_make_mesh"])
@@ -714,6 +742,36 @@ def test_launch_ranks_stops_the_world(tmp_path, failure):
         assert f"rank {r}" in str(err.value)
     if failure == "exit":
         assert "3" in str(err.value).splitlines()[0]
+
+
+def test_axis_name_is_the_one_axis():
+    """``make_mesh``, ``shard_vector`` and ``make_global_vector`` take the
+    JAX package's ``axis_name=``: ``"n"`` (or None) is the one axis of a
+    mesh of the port, any other name raises ``ValueError`` before a
+    process group is needed.  No rank world: a stand-in mesh of rank 1 of
+    2."""
+    from krypy_tpu import parallel as jp
+
+    mesh = SimpleNamespace(size=2, rank=1, device=torch.device("cpu"))
+    x = np.arange(10.0)
+    want = jp.shard_vector(x, _jmesh(2), axis_name="n")
+    assert want.sharding.spec == ("n",)
+    for name in (None, "n"):
+        np.testing.assert_array_equal(
+            interop.to_numpy(parallel.shard_vector(x, mesh,
+                                                   axis_name=name)), x[5:])
+        np.testing.assert_array_equal(interop.to_numpy(
+            parallel.make_global_vector(mesh, lambda i: x[i], (10,),
+                                        axis_name=name)), x[5:])
+    for call in (lambda: parallel.shard_vector(x, mesh, axis_name="x"),
+                 lambda: parallel.make_global_vector(
+                     mesh, lambda i: x[i], (10,), axis_name="x"),
+                 lambda: parallel.make_mesh(2, axis_name="x")):
+        with pytest.raises(ValueError, match="axis"):
+            call()
+    # "n" passes the check and reaches the process group, which is absent
+    with pytest.raises(RuntimeError, match="not initialized"):
+        parallel.make_mesh(2, axis_name="n")
 
 
 def test_init_distributed_rejects_local_device_count():

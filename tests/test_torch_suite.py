@@ -207,6 +207,158 @@ def test_config4_float64_first_cycle_matches_jax():
                                    rtol=1e-8)
 
 
+# ---------------------------------------------------------------------------
+# BASELINE configs 1-3 (benchmarks/suite.py:47-151)
+# ---------------------------------------------------------------------------
+
+#: the grids of configs 2 and 3
+C23_SIZES = (63, 127)
+_DTYPES = {"float64": (jnp.float64, torch.float64),
+           "float32": (jnp.float32, torch.float32)}
+
+
+def _jax_config2(nx, dtype):
+    """benchmarks/suite.py's config 2 with the port's numpy weights and
+    ``dtype`` inner arithmetic: ``{solver: (cycles, inner_iters, outer
+    residuals)}``."""
+    import jax
+
+    lap = jops.poisson_2d(nx)
+    b = jnp.ones(nx * nx, dtype)
+    w = jnp.asarray(suite.config2_weights(nx))
+    w64 = jnp.asarray(w, jnp.float64)
+    mg = jops.multigrid_poisson_preconditioner(nx, coarsest=min(31, nx),
+                                               coarse_sweeps=60)
+
+    def A(x):
+        return lap(x) / w.astype(x.dtype)
+
+    def ip(x, y):
+        return jnp.vdot(x, w.astype(x.dtype) * y)
+
+    out = {}
+    for name, solver in (("cg", JF.cg), ("minres", JF.minres)):
+        inner = jax.jit(lambda rr, s=solver: s(
+            A, rr, M=lambda r: mg(w * r), ip=ip, tol=1e-4, maxiter=200,
+            stagnation_window=20))
+        res, info = JF.refine_to(lambda x: lap(x) / w64, b, inner, tol=1e-8,
+                                 compiled=True, inner_dtype=dtype)
+        out[name] = (info["cycles"], int(info["inner_iters"]),
+                     np.asarray(res.resnorms)[: info["cycles"] + 1])
+    return out
+
+
+def _jax_config3(nx, dtype, impl, ortho):
+    """benchmarks/suite.py's config 3 with ``dtype`` inner arithmetic:
+    ``(cycles, inner_iters, outer residuals)``."""
+    from krypy_tpu.functional.gmres import restarted_gmres
+
+    cd = jops.convection_diffusion_2d(nx, impl=impl)
+    Ml = jops.multigrid_poisson_preconditioner(nx, coarsest=min(31, nx),
+                                               coarse_sweeps=60, impl=impl)
+    N = nx * nx
+    h2 = (1.0 / (nx + 1)) ** 2
+    M = jops.diagonal(jnp.full(N, 1.0 + 0.5 * h2, jnp.float32))
+    Mr = jops.jacobi_preconditioner(jnp.full(N, 4.0 / h2, jnp.float32))
+    res, info = JF.refine_to(
+        cd, jnp.ones(N, dtype),
+        lambda rr: restarted_gmres(cd, rr, Ml=Ml, M=M, Mr=Mr, tol=1e-4,
+                                   maxiter=30, max_restarts=10,
+                                   compiled=True, ortho=ortho),
+        tol=1e-8, compiled=True, inner_dtype=dtype)
+    return (info["cycles"], int(info["inner_iters"]),
+            np.asarray(res.resnorms)[: info["cycles"] + 1])
+
+
+def _port_run(solve, res_info):
+    res, info = res_info
+    return (info["cycles"], info["inner_iters"],
+            res.resnorms[: info["cycles"] + 1].numpy())
+
+
+def _check_run(got, want, float64):
+    """Equal refinement cycles; in float64 equal inner iterations and the
+    outer residuals to rtol 1e-6 (atol 1e-15: config 3's last cycle lands
+    near 1e-12, where the two packages' float64 iterates leave residuals
+    that differ in their last bits, 2e-16 at 63^2); in float32 inner
+    iterations within 1 (ROADMAP.md queue C, "Float32 reductions"); both
+    at the target."""
+    (c, it, hist), (cj, itj, histj) = got, want
+    assert c == cj
+    assert hist[-1] <= suite.TOL and histj[-1] <= suite.TOL
+    if float64:
+        assert it == itj
+        np.testing.assert_allclose(hist, histj, rtol=1e-6, atol=1e-15)
+    else:
+        assert abs(it - itj) <= 1
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("nx", C23_SIZES)
+def test_config2_matches_jax(nx, dtype):
+    """Config 2 (CG and MINRES, weighted inner product, the unpadded
+    V-cycle of ``w r``) through ``suite.make_config2`` against the same
+    pipeline in JAX."""
+    jdt, tdt = _DTYPES[dtype]
+    want = _jax_config2(nx, jdt)
+    _, A64, _, _, b, solves = suite.make_config2(nx, "torch", "cpu", tdt)
+    assert b.dtype == torch.float64
+    for name, solve in solves.items():
+        _check_run(_port_run(solve, solve(b)), want[name],
+                   dtype == "float64")
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("nx", C23_SIZES)
+def test_config3_matches_jax(nx, dtype):
+    """Config 3 (restarted GMRES(30) with ``Ml``, ``M`` and ``Mr``,
+    ``compiled=True``) on the plain lane through ``suite.make_config3``
+    against the same pipeline in JAX."""
+    jdt, tdt = _DTYPES[dtype]
+    want = _jax_config3(nx, jdt, "jnp", "cgs2")
+    solve, A64 = suite.make_config3(nx, "torch", "cgs2", "cpu", tdt)
+    b = torch.ones(nx * nx, dtype=torch.float64)
+    _check_run(_port_run(solve, solve(b)), want, dtype == "float64")
+
+
+def test_config3_kernel_lane_matches_jax():
+    """Config 3's kernel lane at 63^2, float32: K1 in the matvec (its
+    plain version on the CPU) and K7 along the dual basis P
+    (``cgs2_pallas``), against the JAX Pallas lane interpreted."""
+    nx = 63
+    want = _jax_config3(nx, jnp.float32, "pallas", "cgs2_pallas")
+    solve, _ = suite.make_config3(nx, "cuda", "cgs2_pallas", "cpu")
+    _check_run(_port_run(solve, solve(torch.ones(nx * nx,
+                                                 dtype=torch.float64))),
+               want, False)
+
+
+def test_config1_matches_jax():
+    """Config 1: GMRES on the README diagonal, the JAX package's count
+    and status (65, converged: also ``chip_smoke.py``'s ``C1_JAX``)."""
+    from krypy_tpu_torch import interop
+
+    got = suite.config1_readme_gmres("cpu")
+    res = JF.gmres(jops.readme_diag(100), jnp.ones(100), tol=1e-8,
+                   maxiter=100)
+    assert (got["niter"], got["converged"]) == (int(res.niter),
+                                                int(res.status) == 0)
+    assert got["niter"] == 65 and got["converged"]
+    A = suite.ops.readme_diag(100, device="cpu")
+    np.testing.assert_array_equal(interop.to_numpy(A.diag),
+                                  np.asarray(jops.readme_diag(100).diag))
+
+
+def test_config23_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    for make in (lambda: suite.make_config2(31, "torch"),
+                 lambda: suite.make_config3(31, "torch", "cgs2"),
+                 lambda: suite.config1_readme_gmres()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
 if __name__ == "__main__":
     # PYTHONPATH=. python tests/test_torch_suite.py NX [float64]: both
     # packages' config-4 solves on the plain lane of this host's CPU at

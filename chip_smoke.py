@@ -28,7 +28,11 @@ before printing its last line):
    with the north star's nonsymmetric convection-diffusion constants at
    4096^2 and 9x120; at the four kernel levels each kernel's device time
    (torch.profiler, mean of 10 calls), its plain version's, and, for the
-   K1 matvec, ``F.conv2d``'s (TF32 off), beside the bound; then K10, the
+   K1 matvec and collapsed presmooth, ``F.conv2d``'s (TF32 off), beside
+   the bound; then K1's coarse form (``stencil5_coarse``: the coarsest
+   level's 60 damped-Jacobi sweeps in one launch) at 31^2 unpadded, 31^2
+   in 32x128 and 127^2, 1, 2 and 60 sweeps, against its plain version,
+   timed beside the 60 per-sweep K1 launches it replaces; then K10, the
    ``laplacian_2d_kernel`` entry over K1, against
    ``ops.poisson_2d(impl="torch")`` at 1024^2 and at 1021x1000;
 4. prefix-sweep parity: K4-K6 (float32 and float64) on the north star's
@@ -40,7 +44,8 @@ before printing its last line):
    (K4), ``torch.addmv`` (K6) and the pair of them (K5);
 5. projection parity: K7 (``cgs_project``), float32 and float64, rows 13
    and 26 of 26 x 4096^2, subtracting along ``V`` itself and along a
-   second basis, and at ragged N (4097, 600001): held to float64 by
+   second basis, and at ragged N (4097, 600001, 600002, 600003: every
+   residue mod 4, rows off 16-byte alignment): held to float64 by
    ``parity.ProjectCheck`` (coefficients as K4's; ``w'`` elementwise
    against the coefficients that came with it), planted faults rejected
    (coefficients zeroed, a row dropped, ``V`` in place of the second
@@ -63,7 +68,9 @@ before printing its last line):
    cycles, matvecs and the iterate; then both lanes timed alike,
    ``NS_ROUNDS`` solves each; then the stencil and prefix-sweep kernels
    ranked by launches x (time - bound) per V-cycle level of that solve
-   (one JSON line);
+   (one JSON line); then the host ms of one V-cycle application (padded
+   4095^2 and 1023^2, unpadded 4095^2) with the coarse form and with it
+   switched off, and the launches of each (one JSON line);
 8. config 4 (``krypy_tpu_torch.suite.make_config4``) on the kernel lane
    (``impl="cuda"``, ``ortho="cgs2_pallas"``: K1-K3 and K7) and on the
    plain lane (``impl="torch"``, ``ortho="cgs2"``): one GMRES cycle with
@@ -90,12 +97,14 @@ before printing its last line):
    entry on every odd-width level of configs 2 and 3's unpadded V-cycle
    (4095^2 down to the coarsest, 31^2), on a ragged 1021x1000 grid and
    on small ones, with the Laplacian and config 3's convection-diffusion
-   constants, against its plain version (the stencil phase's tolerance),
-   timed on the four finest levels beside the bound and ``F.conv2d``;
+   constants (and the ragged grid with its operand 1, 2, 3 floats off
+   16-byte alignment), against its plain version (the stencil phase's
+   tolerance), timed at every level beside the bound and ``F.conv2d``;
    the unpadded level Laplacian as K1 and as the plain stencil, per call,
    at every level size (the crossover behind K1 at every level); K7 at
    config 3's shape (along a second basis, 31 x 4095^2, rows 16, 30 and
-   31), held as in phase 5 and timed; config 1
+   31, and with N one and two columns larger), held as in phase 5 and
+   timed; config 1
    against the JAX package's recorded count (``C1_JAX``); config 2 (CG
    and MINRES, float32 inside float64 refinement to 1e-8) at 4095^2 on
    the kernel lane (``impl="cuda"``: K1 in the matvec and at every
@@ -154,11 +163,15 @@ between the sound readings and the faults'; it prints no result line.
 ``--only stencil`` (``ortho``, ``baseline``) runs only the stencil phase
 (the prefix-sweep phase, the baseline phase) and prints no result line;
 a copy of the script in a checkout of an earlier commit times that
-commit's K1-K3 (K4-K6) at the same shapes, in the same way.
+commit's K1-K3 (K4-K6) at the same shapes, in the same way.  ``--only
+kernels`` times K1's matvec at every V-cycle buffer, K4, and K7 split by
+phase on aligned, offset and config-3 bases (one JSON line), for such
+comparisons.
 ``--profile DIR`` also profiles one solve of each slice: device busy
-share, device time by kernel (written to DIR), the host time of the
-V-cycle's parts and of the deflated solve's parts (the oblique
-projection, the deflation's set-up, the Ritz hand-off).
+share, device time by kernel (written to DIR), and the host time of the
+deflated solve's parts (the oblique projection, the deflation's set-up,
+the Ritz hand-off); the V-cycle's host time is the default run's
+``vcycle_host_ms``.
 """
 
 import argparse
@@ -369,10 +382,11 @@ def _stencil_cases(nrows, ncols, kind):
 
 
 def _conv2d_matvec(u, R, P, A):
-    """The library yardstick of K1's matvec use: one cuDNN convolution
-    (TF32 off) with the 5-point weights on the zero-padded buffer.  On
-    the logical region it computes the matvec (the main path's pads are
-    zero); it writes garbage into the first pad row and column."""
+    """The library yardstick of K1's matvec and collapsed-presmooth uses:
+    one cuDNN convolution (TF32 off) with the 5-point weights ``A`` on the
+    zero-padded buffer.  On the logical region it computes the use (the
+    main path's pads are zero); it writes garbage into the first pad row
+    and column."""
     import torch
 
     cc, cu, cd, cl, cr = A
@@ -426,12 +440,17 @@ def stencil_phase(device):
                 call = _time_ms(lambda: kern(u, g))
                 plain_call = _time_ms(lambda: plain(u, g))
                 lib_ms = lib_src = None
-                if use.endswith("matvec"):
+                if use.endswith(("matvec", "presmooth")):
                     # the library call on the zero-padded input of the
-                    # main path
+                    # main path; the collapsed presmooth alpha*u + S(u)
+                    # is one convolution too, alpha on the centre weight
                     uz = ops.pad_grid_vec(
                         ops.unpad_grid_vec(u, nrows, ncols), nrows, ncols)
                     co = _operator(nrows, kind)
+                    if use.endswith("presmooth"):
+                        w = 0.8 / co[0]
+                        co = (-w * w * co[0] + 2.0 * w,
+                              *(-w * w * c for c in co[1:]))
                     lib = _conv2d_matvec(uz, R, P, co)
                     ref = kern(uz, None)
                     lib_err = float((lib.view(R, P)[:nrows, :ncols]
@@ -671,7 +690,9 @@ def project_phase(device):
     gen = torch.Generator(device=device).manual_seed(7)
     report = {"max_abs_err": 0.0, "times": {}}
     for dtype in (torch.float32, torch.float64):
-        for N in (4097, 600001, (NS_NX + 1) ** 2):
+        # N of every residue mod 4 (rows off 16-byte alignment) and the
+        # config-4 basis
+        for N in (4097, 600001, 600002, 600003, (NS_NX + 1) ** 2):
             V, B = (torch.randn(m, N, generator=gen, device=device,
                                 dtype=dtype) / math.sqrt(N)
                     for _ in range(2))
@@ -1264,42 +1285,6 @@ def _profile_solve(label, solve, b, out_dir):
     with open(os.path.join(out_dir, f"{label}_ops.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="cpu_time_total",
                                            row_limit=60))
-
-
-def _profile_vcycle(device):
-    """Host time of the V-cycle's parts, synchronised: 20 samples of
-    each, taken round-robin so that drift of the host's speed falls on
-    all."""
-    import torch
-    from krypy_tpu_torch import ops
-
-    kw = dict(coarse_sweeps=60, pad_cols=True, device=device)
-    parts = {}
-    for label, n in (("V-cycle from n=4095", NS_NX),
-                     ("V-cycle from n=1023", NX),
-                     ("levels 255..31", 255),
-                     ("n=31 coarse solve (59 sweeps)", 31)):
-        M = ops.multigrid_poisson_preconditioner(n, coarsest=31,
-                                                 impl="cuda", **kw)
-        r = torch.ones(M.shape[0], dtype=torch.float32, device=device)
-        parts[label] = lambda M=M, r=r: M(r)
-    A = ops.convection_diffusion_2d(NS_NX, pad_cols=True, impl="cuda",
-                                    device=device)
-    x = torch.ones(A.shape[0], dtype=torch.float32, device=device)
-    parts["padded K1 matvec at 4096^2"] = lambda: A(x)
-    samples = {label: [] for label in parts}
-    for k in range(21):
-        for label, fn in parts.items():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if k:  # the first round warms up
-                samples[label].append((time.perf_counter() - t) * 1e3)
-    for label, ts in samples.items():
-        print(f"profile host ms: {label}: median "
-              f"{statistics.median(ts):.3f} min {min(ts):.3f} "
-              f"max {max(ts):.3f} (20 samples)", flush=True)
 
 
 def _profile_deflation(device, nx):
@@ -1957,11 +1942,11 @@ BL_ROUNDS = 3
 #: benchmarks/suite.py --configs 1`` on the CPU (float64)
 C1_JAX = {"niter": 65, "converged": True}
 #: the unpadded V-cycle's levels of configs 2 and 3, finest first: K1
-#: runs at every one of them (31 the coarsest, its 60 sweeps); the first
-#: four are also timed; and a ragged grid (rows and columns of no common
-#: width)
+#: runs at every one of them (31 the coarsest, whose 60 sweeps are one
+#: launch of K1's coarse form); each is timed; and a ragged grid (rows and
+#: columns of no common width)
 UNPADDED_LEVELS = (BL_NX, 2047, NX, 511, 255, 127, 63, 31)
-UNPADDED_TIMED = UNPADDED_LEVELS[:4]
+UNPADDED_TIMED = UNPADDED_LEVELS
 UNPADDED_RAGGED = (1021, 1000)
 #: config 2's lane gate on inner iterations (within 3) holds at this size,
 #: benchmarks/suite.py's own full size for config 2: from 2047^2 up the
@@ -1973,11 +1958,23 @@ C2_GATE_NX = 1023
 #: small unpadded grids of K1's parity (no timing): levels below the
 #: V-cycle's coarsest and a ragged one
 UNPADDED_SMALL = ((1, 1), (3, 3), (7, 7), (33, 17))
+#: operands that start 1, 2 and 3 floats past a 16-byte boundary (a view
+#: into a larger buffer): K1's row-ring tiles stage every row as its
+#: aligned superset and store aligned groups across lanes
+UNPADDED_OFFSETS = (1, 2, 3)
+#: K1's coarse form: (nrows, ncols, R, P) of the unpadded and the padded
+#: coarsest level of the V-cycles (31^2 with 60 sweeps), and the largest
+#: V-cycle level that fits it
+COARSE_SHAPES = ((31, 31, 31, 31), (31, 31, 32, 128), (127, 127, 127, 127))
+COARSE_SWEEPS = 60
 #: K7 as config 3 runs it: restarted GMRES(30) builds a 31-row basis of
 #: 4095^2 and projects along the dual basis P at rows 1..30 (16 the
-#: middle launch, 30 the largest); 31 the basis's full height
+#: middle launch, 30 the largest); 31 the basis's full height; and the
+#: same basis one and two columns wider, so that N takes every residue
+#: mod 4 but 0 (4095^2 is 1 mod 4)
 C3_PROJECT_M = 31
 C3_PROJECT_ROWS = (16, 30, 31)
+C3_PROJECT_EXTRA = (0, 1, 2)
 #: the grids at which the unpadded Laplacian is timed as K1 and as the
 #: plain stencil: the crossover behind K1 at every level of the unpadded
 #: V-cycle (``ops._multigrid_unpadded``)
@@ -2004,7 +2001,8 @@ def _cd3_coeffs(n, m):
 
 def unpadded_stencil_phase(device):
     """K1 on the unpadded odd-width grids of the unpadded V-cycle and on a
-    ragged grid, through the ``stencil5_pipelined`` entry, against its
+    ragged grid (also with the operand 1, 2, 3 floats off 16-byte
+    alignment), through the ``stencil5_pipelined`` entry, against its
     plain version: float32 ``rtol=2e-6`` and the FMA-aware ``atol``, with
     the Laplacian constants and config 3's convection-diffusion
     constants; on ``UNPADDED_TIMED`` its device time, its plain
@@ -2017,9 +2015,11 @@ def unpadded_stencil_phase(device):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(11)
     out = {"max_abs_err": 0.0, "times": {}}
-    for n, m in (*((n, n) for n in UNPADDED_LEVELS), UNPADDED_RAGGED,
-                 *UNPADDED_SMALL):
-        x = torch.randn(n * m, generator=gen, device=device)
+    cases = [(n, n, 0) for n in UNPADDED_LEVELS]
+    cases += [(*UNPADDED_RAGGED, 0), *((n, m, 0) for n, m in UNPADDED_SMALL),
+              *((*UNPADDED_RAGGED, off) for off in UNPADDED_OFFSETS)]
+    for n, m, off in cases:
+        x = torch.randn(n * m + off, generator=gen, device=device)[off:]
         for kind, co in (("lap", _lap_coeffs(n, m)),
                          ("cd3", _cd3_coeffs(n, m))):
             def kern(co=co):
@@ -2041,7 +2041,8 @@ def unpadded_stencil_phase(device):
                     f"err {max_err:.3e} exceeds rtol=2e-6, atol={atol:.3e}")
             out["max_abs_err"] = max(out["max_abs_err"], max_err)
             line = (f"parity stencil5_affine unpadded {kind} matvec {n}x{m} "
-                    f"max_abs_err={max_err:.3e} atol={atol:.3e}")
+                    f"offset={off} max_abs_err={max_err:.3e} "
+                    f"atol={atol:.3e}")
             if n == m and n in UNPADDED_TIMED:
                 # x read, out written; ~13 operations per element
                 b_ms, b_by = bound(8 * n * m, 15 * n * m)
@@ -2090,6 +2091,84 @@ def k1_crossover(device):
                                        if r["k1_ms"] < r["plain_ms"]]}),
           flush=True)
     return rows
+
+
+def _device_split(fn, reps=10):
+    """Device ms of one call of ``fn`` by kernel, summed per name class
+    (torch.profiler, mean of ``reps`` calls): a K7 call's phase 0
+    (``project_partial*``), its second pass (``reduce*``) and phase 1
+    (``update*``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in _device_events(prof):
+        key = ("phase0" if "project_partial" in e.name else
+               "reduce" if "reduce" in e.name else
+               "phase1" if "update" in e.name else e.name[:40])
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
+def kernels_phase(device):
+    """The slice-7 kernels' device times in one place, for comparing
+    commits (``--only kernels``; a copy of this script in a checkout of an
+    earlier commit times that commit's kernels the same way): K1's matvec
+    on the V-cycles' padded and unpadded buffers; K4 at ``NS_ROWS`` of
+    4096^2; K7 along ``V`` and along a second basis there, on the same
+    basis shifted by one element (every row and ``w`` off 16-byte
+    alignment), and at config 3's shape (``C3_PROJECT_M`` x ``BL_NX``^2
+    along a second basis, rows 16 and 30), each K7 time split by phase.
+    Prints one JSON line and returns it."""
+    import torch
+    from krypy_tpu_torch import ops
+    from krypy_tpu_torch.kernels import orthogonalize as korth
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    rec = {"k1_matvec_ms": {}, "k4_ms": {}, "k7": {}}
+    for n in (*KERNEL_LEVELS, 255):
+        for R in (n + 1, n):
+            u = torch.randn(R * R, generator=gen, device=device)
+            co = ops._lap_coeffs((1.0 / (n + 1)) ** 2)
+            b_ms, _ = bound(8 * R * R, 15 * R * R)
+            ms, src = _device_ms(lambda: kst.stencil5_affine(
+                u, nx=R, ny=R, coeffs=co, ncols=n, nrows=n), b_ms)
+            rec["k1_matvec_ms"][f"{n}^2 in {R}^2"] = dict(
+                ms=ms, bound_ms=b_ms, timed_by=src)
+    cases = [(NS_ROWS[1], (NS_NX + 1) ** 2, NS_ROWS, off)
+             for off in (0, 1)]
+    cases.append((C3_PROJECT_M, BL_NX * BL_NX, (16, 30), 0))
+    for m, N, rows_list, off in cases:
+        flat = torch.randn(2 * m * N + off, generator=gen, device=device)
+        V = flat[off:off + m * N].view(m, N) / math.sqrt(N)
+        B = flat[off + m * N:].view(m, N) / math.sqrt(N)
+        w = torch.randn(N + off, generator=gen, device=device)[off:]
+        for rows in rows_list:
+            mask = (torch.arange(m, device=device) < rows).float()
+            floor = 1e3 * (2 * rows + 3) * N * 4 / PEAK_BYTES
+            for basis in ((None, B) if m == NS_ROWS[1] else (B,)):
+                split = _device_split(
+                    lambda: korth.cgs_project(V, w, mask, basis, rows=rows))
+                key = (f"{m}x{N} offset {off} rows {rows} along "
+                       f"{'V' if basis is None else 'B'}")
+                rec["k7"][key] = dict(ms=sum(split.values()), split=split,
+                                      two_sweep_floor_ms=floor)
+            if m == NS_ROWS[1] and off == 0:
+                b4 = 1e3 * (rows + 1) * N * 4 / PEAK_BYTES
+                rec["k4_ms"][f"{rows} rows of {N}"] = _device_ms(
+                    lambda: korth.project_prefix(V, w, mask, rows=rows),
+                    b4)[0]
+        del flat, V, B, w
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernels_phase": rec}), flush=True)
+    return rec
 
 
 def config1_phase(device):
@@ -2153,8 +2232,9 @@ def _bl_lanes_agree(what, runs, want_kernels, inner=True):
     best, and rounding moves a late cycle between ~5 and the first
     cycle's ~26 (``--witness``), but not past it; a weaker V-cycle delays
     every cycle's best).  On the kernel lane each kernel of
-    ``want_kernels`` launched (``cgs_project`` twice per GMRES iteration)
-    and no other, on the plain lane none."""
+    ``want_kernels`` launched (``cgs_project`` twice per GMRES iteration,
+    the coarse form once per V-cycle: as often as the V-cycle's finest
+    level residual) and no other, on the plain lane none."""
     (_, ic, _, cc), (_, it, _, ct) = runs["cuda"], runs["torch"]
     if ic["cycles"] != it["cycles"] or inner and abs(
             ic["inner_iters"] - it["inner_iters"]) > 3:
@@ -2241,7 +2321,8 @@ def config2_phase(device, nx=BL_NX, timed=True):
     for name in solves:
         _bl_lanes_agree(f"config2 {name} nx={nx}",
                         {lane: runs[name, lane] for lane in ("cuda", "torch")},
-                        ("stencil5_affine",), inner=gate_inner)
+                        ("stencil5_affine", "stencil5_coarse"),
+                        inner=gate_inner)
         for k, c in runs[name, "cuda"][3].items():
             total[k] = total.get(k, 0) + c
     if timed:
@@ -2265,7 +2346,8 @@ def config3_phase(device, nx=BL_NX):
         solve, A64 = suite.make_config3(nx, impl, ortho, device)
         runs[lane] = _bl_solve("config3", lane, solve, A64, b, nx, record)
         solves[lane] = solve
-    _bl_lanes_agree("config3", runs, ("stencil5_affine", "cgs_project"))
+    _bl_lanes_agree("config3", runs,
+                    ("stencil5_affine", "stencil5_coarse", "cgs_project"))
     _bl_timing("config3", solves, b, record)
     return runs["cuda"][3], record
 
@@ -2274,24 +2356,184 @@ def config3_project_phase(device, nx=BL_NX):
     """K7 at the shape config 3 gives it: a float32 ``C3_PROJECT_M``-row
     basis of ``nx^2`` (odd) columns projected along a second basis (the
     dual basis P), with GMRES's mask (every row below ``rows``), at
-    ``C3_PROJECT_ROWS``: held to float64 with the planted faults
+    ``C3_PROJECT_ROWS``, and the same with N one and two columns larger
+    (``C3_PROJECT_EXTRA``: every residue of N mod 4 but 0, which the
+    project phase's 4096^2 has): held to float64 with the planted faults
     (:func:`_project_parity`) and timed (:func:`_project_timing`).
-    Returns ``{"max_abs_err", "times"}``."""
+    Returns ``{"max_abs_err", "times"}``, times keyed by ``(extra,
+    rows)``."""
     import torch
 
-    N, m = nx * nx, C3_PROJECT_M
+    m = C3_PROJECT_M
     gen = torch.Generator(device=device).manual_seed(13)
-    V, P = (torch.randn(m, N, generator=gen, device=device) / math.sqrt(N)
-            for _ in range(2))
-    w = torch.randn(N, generator=gen, device=device)
     report = {"max_abs_err": 0.0, "times": {}}
-    for rows in C3_PROJECT_ROWS:
-        mask = (torch.arange(m, device=device) < rows).float()
-        _project_parity(V, w, mask, rows, (P,), report)
-        report["times"][rows] = _project_timing(V, w, mask, rows, P)
-    del V, P, w
-    torch.cuda.empty_cache()
+    for extra in C3_PROJECT_EXTRA:
+        N = nx * nx + extra
+        V, P = (torch.randn(m, N, generator=gen, device=device)
+                / math.sqrt(N) for _ in range(2))
+        w = torch.randn(N, generator=gen, device=device)
+        for rows in C3_PROJECT_ROWS:
+            mask = (torch.arange(m, device=device) < rows).float()
+            _project_parity(V, w, mask, rows, (P,), report)
+            report["times"][extra, rows] = _project_timing(V, w, mask, rows,
+                                                           P)
+        del V, P, w
+        torch.cuda.empty_cache()
     return report
+
+
+def coarse_phase(device):
+    """K1's coarse form (``kernels.stencil.stencil5_coarse``) on
+    ``COARSE_SHAPES`` at 1, 2 and ``COARSE_SWEEPS`` sweeps against its
+    plain version (the stencil phase's tolerance; noise in the pads of
+    ``r``, exact zeros off the region); at ``COARSE_SWEEPS`` its device
+    time and per-call host time beside the bound, its plain version's
+    and the ``COARSE_SWEEPS`` per-sweep K1 launches it replaces (K1's
+    damped-Jacobi step from zero, as the unpadded V-cycle launched it
+    before, without its elementwise legs).  Returns ``{"max_abs_err",
+    "times"}``, times keyed by ``(R, P)``."""
+    import torch
+    from krypy_tpu_torch import kernels
+    from krypy_tpu_torch.kernels import stencil as kst
+    from krypy_tpu_torch.kernels.parity import fma_atol
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    out = {"max_abs_err": 0.0, "times": {}}
+    for nrows, ncols, R, P in COARSE_SHAPES:
+        r = torch.randn(R * P, generator=gen, device=device)
+        A = _lap_coeffs(nrows, ncols)
+        w = 0.8 / A[0]
+        for sweeps in (1, 2, COARSE_SWEEPS):
+            kw = dict(nx=R, ny=P, coeffs=A, w=w, sweeps=sweeps, ncols=ncols,
+                      nrows=nrows)
+
+            def kern(kw=kw):
+                return kst.stencil5_coarse(r, **kw)
+
+            def plain(v, sweeps=sweeps):
+                return kst.stencil5_coarse_torch(v.view(R, P), A, w, sweeps,
+                                                 nrows, ncols).view(-1)
+
+            got, want, want64 = kern(), plain(r), plain(r.double())
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            atol = fma_atol(want, want64)
+            o = got.view(R, P)
+            if not bool(torch.all(err <= atol + 2e-6 * want.abs())) or \
+                    not bool(torch.all(o[nrows:] == 0)) or \
+                    not bool(torch.all(o[:, ncols:] == 0)):
+                raise AssertionError(
+                    f"stencil5_coarse {nrows}x{ncols} in {R}x{P}, {sweeps} "
+                    f"sweeps: max abs err {float(err.max()):.3e} exceeds "
+                    f"rtol=2e-6, atol={atol:.3e}, or pads not zero")
+            out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+            line = (f"parity stencil5_coarse {nrows}x{ncols} ({R}x{P}) "
+                    f"sweeps={sweeps} max_abs_err={float(err.max()):.3e} "
+                    f"atol={atol:.3e}")
+            if sweeps == COARSE_SWEEPS:
+                sc = tuple(-w * c for c in A)
+
+                def per_sweep():
+                    u = torch.zeros_like(r)
+                    for _ in range(sweeps):
+                        u = kst.stencil5_affine(u, r, nx=R, ny=P, coeffs=sc,
+                                                ncols=ncols, nrows=nrows,
+                                                alpha=1.0, beta=w)
+                    return u
+
+                # r read and the buffer written once; ~15 operations per
+                # point and sweep
+                b_ms, b_by = bound(4 * (nrows * ncols + R * P),
+                                   15 * sweeps * nrows * ncols)
+                ms, ms_src = _device_ms(kern, b_ms)
+                plain_ms, plain_src = _device_ms(lambda: plain(r), b_ms)
+                per_ms, per_src = _device_ms(per_sweep, b_ms)
+                before = kernels.launch_counts()["stencil5_affine"]
+                kern()
+                launches = kernels.launch_counts()["stencil5_affine"] - before
+                call = _time_ms(kern)
+                per_call = _time_ms(per_sweep, samples=5)
+                out["times"][R, P] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    per_sweep_k1_ms=per_ms, call_ms=call,
+                    per_sweep_k1_call_ms=per_call, sweeps=sweeps,
+                    timed_by=dict(ms=ms_src, plain_ms=plain_src,
+                                  per_sweep_k1_ms=per_src))
+                line += (f" device_ms coarse={ms:.5f} ({ms_src}) "
+                         f"plain={plain_ms:.5f} ({plain_src}) "
+                         f"{sweeps}_K1_launches={per_ms:.5f} ({per_src}) "
+                         f"bound={b_ms:.6f} ({b_by}) | per_call_ms "
+                         f"coarse={call:.5f} ({launches} launch per call) "
+                         f"{sweeps}_K1_launches={per_call:.5f}")
+                if launches != 1:
+                    raise AssertionError(f"stencil5_coarse made {launches} "
+                                         "launches in one call")
+            print(line, flush=True)
+        del r
+    return out
+
+
+#: the V-cycles whose host time per application the default run takes:
+#: (label, nx, pad_cols) with coarsest 31 and 60 coarse sweeps, as the
+#: north star (padded 4095), bench.py's Poisson (padded 1023) and configs
+#: 2 and 3 (unpadded 4095) build them
+VCYCLES = (("padded 4095", NS_NX, True), ("padded 1023", NX, True),
+           ("unpadded 4095", NS_NX, False))
+
+
+def vcycle_host_phase(device):
+    """Host ms per V-cycle application on the kernel lane, synchronised
+    (20 samples each after a warm-up round, taken round-robin so that
+    drift of the host's speed falls on all), with K1's coarse form and
+    with it switched off (``coarse_fits`` forced false: the coarsest
+    level's 60 sweeps as before it, plain torch on the padded lane and a
+    K1 launch per sweep on the unpadded one), and each application's
+    kernel launches.  Prints one JSON line and returns it."""
+    import torch
+    from krypy_tpu_torch import kernels, ops
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    parts = {}
+    for label, nx, pad in VCYCLES:
+        M = ops.multigrid_poisson_preconditioner(
+            nx, coarsest=31, coarse_sweeps=60, pad_cols=pad, impl="cuda",
+            device=device)
+        r = torch.ones(M.shape[0], dtype=torch.float32, device=device)
+        for coarse in (True, False):
+            parts[label, coarse] = (M, r)
+    fits = kst.coarse_fits
+    samples = {key: [] for key in parts}
+    launches = {}
+    try:
+        for k in range(21):
+            for (label, coarse), (M, r) in parts.items():
+                kst.coarse_fits = fits if coarse else (lambda *a: False)
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t = time.perf_counter()
+                M(r)
+                torch.cuda.synchronize()
+                if k:  # the first round warms up
+                    samples[label, coarse].append(
+                        (time.perf_counter() - t) * 1e3)
+                launches[label, coarse] = {
+                    n: c for n, c in kernels.launch_counts().items() if c}
+    finally:
+        kst.coarse_fits = fits
+    rec = {}
+    for (label, coarse), ts in samples.items():
+        key = f"{label} {'coarse form' if coarse else 'per-sweep coarse'}"
+        rec[key] = dict(median_ms=statistics.median(ts), min_ms=min(ts),
+                        max_ms=max(ts), launches=launches[label, coarse])
+        print(f"vcycle host ms: {key}: median "
+              f"{statistics.median(ts):.3f} min {min(ts):.3f} max "
+              f"{max(ts):.3f} (20 samples) launches "
+              f"{launches[label, coarse]}", flush=True)
+        if coarse and launches[label, coarse].get("stencil5_coarse") != 1:
+            raise AssertionError(f"V-cycle {label}: coarse form launched "
+                                 f"{launches[label, coarse]}, not once")
+    print(json.dumps({"vcycle_host_ms": rec}), flush=True)
+    return rec
 
 
 def baseline_witness(device, nx=BL_NX):
@@ -2347,17 +2589,22 @@ def level_ranking(report, ns_counts):
     """The stencil and prefix-sweep kernels of one north-star solve
     ranked by launches x (device time - bound), each stencil kernel at
     each V-cycle level with its own time: every kernel level runs the
-    collapsed presmooth (K1), K2 and K3 once per V-cycle, and K1's other
-    launches are the operator's matvec at the finest level; K4-K6 at 13
-    rows.  Prints one JSON line and returns the entries."""
+    collapsed presmooth (K1), K2 and K3 once per V-cycle, the coarsest
+    level K1's coarse form once, and K1's other launches are the
+    operator's matvec at the finest level; K4-K6 at 13 rows.  Prints one
+    JSON line and returns the entries."""
     nlev = len(KERNEL_LEVELS)
     vcycles = ns_counts["stencil5_jacobi2"] // nlev
-    matvecs = ns_counts["stencil5_affine"] - nlev * vcycles
+    coarse = ns_counts["stencil5_coarse"]
+    matvecs = ns_counts["stencil5_affine"] - nlev * vcycles - coarse
     if ns_counts["stencil5_resrestrict_rows"] != nlev * vcycles or \
-            ns_counts["stencil5_jacobi2"] % nlev or matvecs < 0:
+            ns_counts["stencil5_jacobi2"] % nlev or matvecs < 0 or \
+            coarse != vcycles:
         raise AssertionError(f"north-star launches {ns_counts} do not "
-                             f"split over the {nlev} kernel levels")
-    uses = [("stencil5_affine", (NS_NX + 1, "cd matvec"), matvecs)]
+                             f"split over the {nlev} kernel levels and "
+                             "one coarse form per V-cycle")
+    uses = [("stencil5_affine", (NS_NX + 1, "cd matvec"), matvecs),
+            ("stencil5_affine", "coarse", coarse)]
     for n in KERNEL_LEVELS:
         uses += [("stencil5_affine", (n + 1, "lap presmooth"), vcycles),
                  ("stencil5_jacobi2", (n + 1, "lap s=1.0"), vcycles),
@@ -2366,9 +2613,12 @@ def level_ranking(report, ns_counts):
     uses += [(k, NS_ROWS[0], ns_counts[k]) for k in _PREFIX_SWEEPS]
     out = []
     for name, key, launches in uses:
-        t = report[name]["times"][key]
-        out.append({"name": name, "at": key if isinstance(key, int)
-                    else f"{key[0]}^2 {key[1]}", "launches": launches,
+        if key == "coarse":
+            t, at = report["coarse"]["times"][32, 128], "31^2 in 32x128 coarse"
+        else:
+            t = report[name]["times"][key]
+            at = key if isinstance(key, int) else f"{key[0]}^2 {key[1]}"
+        out.append({"name": name, "at": at, "launches": launches,
                     "ms": t["ms"], "bound_ms": t["bound_ms"],
                     "gap_ms": launches * (t["ms"] - t["bound_ms"])})
     out.sort(key=lambda e: -e["gap_ms"])
@@ -2468,10 +2718,13 @@ def main(argv=None):
                     help="run ONLY the mesh phase's solves with planted "
                          "faults, against its residual-history limits; "
                          "prints no result line")
-    ap.add_argument("--only", choices=("stencil", "ortho", "baseline"),
+    ap.add_argument("--only",
+                    choices=("stencil", "ortho", "baseline", "kernels"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
-                         "their plain versions, and their times; or the "
-                         "baseline phase, unpadded K1 and configs 1-3); "
+                         "their plain versions, and their times; the "
+                         "baseline phase, unpadded K1 and configs 1-3; or "
+                         "the device times of K1's matvec, K4 and K7 by "
+                         "phase); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -2515,9 +2768,11 @@ def main(argv=None):
         return
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
-         "baseline": baseline_phase}[args.only](device)
+         "baseline": baseline_phase,
+         "kernels": kernels_phase}[args.only](device)
         return
     report = stencil_phase(device)
+    report["coarse"] = coarse_phase(device)
     laplacian_entry_phase(device)
     report.update(ortho_phase(device))
     report.update(project_phase(device))
@@ -2526,6 +2781,7 @@ def main(argv=None):
     ns_counts, ns_solves, ns_b = northstar_phase(device)
     timing_phase("northstar", ns_solves, ns_b, NS_ROUNDS)
     level_ranking(report, ns_counts)
+    vcycle_host_phase(device)
     full_counts = config4_full_phase(device)
     c4_counts, c4_solves, c4_b, c4_record = config4_phase(device)
     walls = timing_phase("config4 deflated", c4_solves, c4_b, C4_ROUNDS)
@@ -2547,7 +2803,6 @@ def main(argv=None):
         _profile_solve("northstar", ns_solves["cuda"], ns_b, args.profile)
         _profile_solve("config4_deflated", c4_solves["cuda"], c4_b,
                        args.profile)
-        _profile_vcycle(device)
         _profile_deflation(device, C4_NX)
 
     rows = []
@@ -2596,6 +2851,20 @@ def main(argv=None):
             rows[-1]["ms_by_unpadded_grid"] = {
                 f"{n}^2 {kind}": {k: v[k] for k in keep}
                 for (n, kind), v in bl_report["times"].items()}
+            # the coarse form: the coarsest level's 60 sweeps in one
+            # launch, beside the per-sweep K1 launches it replaces
+            co = report["coarse"]
+            rows[-1]["max_abs_err_coarse"] = co["max_abs_err"]
+            rows[-1]["coarse_form"] = {
+                f"{R}x{P}": {k: v[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "per_sweep_k1_ms", "call_ms", "per_sweep_k1_call_ms",
+                    "sweeps", "timed_by")}
+                for (R, P), v in co["times"].items()}
+            rows[-1]["coarse_launches"] = {
+                f"northstar@{NS_NX}": ns_counts["stencil5_coarse"],
+                f"config2@{BL_NX}": c2_counts.get("stencil5_coarse", 0),
+                f"config3@{BL_NX}": c3_counts["stencil5_coarse"]}
         elif own:
             # config 3's use: along the dual basis P of a 31-row basis of
             # 4095^2
@@ -2603,9 +2872,9 @@ def main(argv=None):
             rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
                                           c3["max_abs_err"])
             rows[-1][f"ms_by_rows_config3@{BL_NX}"] = {
-                f"{r} of {C3_PROJECT_M} rows along P": {
-                    k: v[k] for k in keep + ("two_sweep_floor_ms",)}
-                for r, v in c3["times"].items()}
+                f"{r} of {C3_PROJECT_M} rows along P, N = {BL_NX}^2 + "
+                f"{extra}": {k: v[k] for k in keep + ("two_sweep_floor_ms",)}
+                for (extra, r), v in c3["times"].items()}
         if name in ("stencil5_affine", "cgs_project"):
             rows[-1][f"launches_config2@{BL_NX}"] = c2_counts.get(name, 0)
             rows[-1][f"launches_config3@{BL_NX}"] = c3_counts[name]

@@ -17,6 +17,7 @@ from .stencil import (
     laplacian_2d_kernel,
     laplacian_2d_pipelined,
     stencil5_affine,
+    stencil5_coarse,
     stencil5_jacobi2,
     stencil5_pipelined,
     stencil5_resrestrict_rows,
@@ -25,6 +26,7 @@ from .stencil import (
 
 __all__ = [
     "stencil5_affine",
+    "stencil5_coarse",
     "stencil5_jacobi2",
     "stencil5_resrestrict_rows",
     "stencil5_pipelined",

@@ -32,7 +32,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: argtypes of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
-    "krypy_stencil5_affine": [_P, _P, _P] + [_I] * 4 + [_F] * 7 + [_P],
+    # u, g, out, nx, ny, nrows, ncols, 7 constants, strip, step_rows,
+    # strips, steps, stream
+    "krypy_stencil5_affine": [_P, _P, _P] + [_I] * 4 + [_F] * 7 + [_I] * 4
+    + [_P],
+    # r, out, nx, ny, nrows, ncols, 6 constants, sweeps, max_smem, stream
+    "krypy_stencil5_coarse": [_P, _P] + [_I] * 4 + [_F] * 6 + [_I] * 2
+    + [_P],
     # u, g, out, nx, ny, nrows, ncols, 13 constants, strip, step_rows,
     # steps, stream
     "krypy_stencil5_jacobi2": [_P, _P, _P] + [_I] * 4 + [_F] * 13 + [_I] * 3

@@ -18,6 +18,9 @@ LAUNCHES = {
     "apply_project": 0,
     "update_prefix": 0,
     "cgs_project": 0,
+    # K1's coarse form: one per launch, which also counts as a
+    # stencil5_affine launch
+    "stencil5_coarse": 0,
     # the sharded entries: one per call that launched its kernels
     "stencil5_sharded": 0,
     "cgs2_fused_sharded": 0,

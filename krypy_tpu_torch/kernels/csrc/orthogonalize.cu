@@ -101,8 +101,84 @@ __device__ __forceinline__ void load_group(const T* __restrict__ p, bool vec,
   }
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K7's alignment-free 16-byte access.  Row p (a basis row, or w) starts o
+// elements past the 16-byte boundary at or below it; its group g (columns
+// g*VW .. g*VW + VW-1) then lies in the aligned groups A_g and A_{g+1} of
+// the row's aligned superset pa = p - o: elements o .. VW-1 of A_g and
+// 0 .. o-1 of A_{g+1}.  The 32 lanes of a warp load A_{g0} .. A_{g0+31},
+// one 16-byte load each; lane l < 31 produces group g0 + l, taking
+// A_{g+1} from lane l+1 by shuffle, and lane 31 only loads (its group is
+// the next step's), so a warp steps kStepGroups = 31 groups at a time.
+// A group is loaded only where it holds an element of the row, so an
+// aligned 16-byte load never leaves the tensor's pages.  o is the same
+// across the warp.
+constexpr int kStepGroups = 31;
+
+template <typename T>
+__device__ __forceinline__ int offset16(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+}
+
+template <typename T>
+__device__ __forceinline__ typename Group<T>::vec shfl_down1(
+    typename Group<T>::vec v);
+template <>
+__device__ __forceinline__ float4 shfl_down1<float>(float4 v) {
+  v.x = __shfl_down_sync(0xffffffffu, v.x, 1);
+  v.y = __shfl_down_sync(0xffffffffu, v.y, 1);
+  v.z = __shfl_down_sync(0xffffffffu, v.z, 1);
+  v.w = __shfl_down_sync(0xffffffffu, v.w, 1);
+  return v;
+}
+template <>
+__device__ __forceinline__ double2 shfl_down1<double>(double2 v) {
+  v.x = __shfl_down_sync(0xffffffffu, v.x, 1);
+  v.y = __shfl_down_sync(0xffffffffu, v.y, 1);
+  return v;
+}
+
+// Elements o .. o+VW-1 of the 2 VW values (a, b), by selects (no branch,
+// so that the compiler can overlap one batch's loads with the last's
+// arithmetic).
+__device__ __forceinline__ void take(const float4& a, const float4& b, int o,
+                                     float (&v)[4]) {
+  const bool o1 = o == 1, o2 = o == 2, o3 = o == 3;
+  v[0] = o3 ? a.w : o2 ? a.z : o1 ? a.y : a.x;
+  v[1] = o3 ? b.x : o2 ? a.w : o1 ? a.z : a.y;
+  v[2] = o3 ? b.y : o2 ? b.x : o1 ? a.w : a.z;
+  v[3] = o3 ? b.z : o2 ? b.y : o1 ? b.x : a.w;
+}
+__device__ __forceinline__ void take(const double2& a, const double2& b,
+                                     int o, double (&v)[2]) {
+  v[0] = o == 0 ? a.x : a.y;
+  v[1] = o == 0 ? a.y : b.x;
+}
+
+// A_g of row p (offset o), or zeros where it holds no element of the row.
+template <typename T, bool STREAM>
+__device__ __forceinline__ typename Group<T>::vec load_aligned(
+    const T* __restrict__ p, int o, int64_t g, int64_t N) {
+  using V = typename Group<T>::vec;
+  const V* pa = reinterpret_cast<const V*>(p - o) + g;
+  V v{};
+  if (g * Group<T>::n - o < N) v = STREAM ? __ldcs(pa) : __ldg(pa);
+  return v;
+}
+
+// The row's values at columns g*VW .. g*VW + VW-1 from this lane's A_g
+// and the next lane's, zero past the `valid` columns inside N (every lane
+// of the warp calls it: the shuffle).
+template <typename T>
+__device__ __forceinline__ void settle_group(typename Group<T>::vec own,
+                                             int o, int valid,
+                                             T (&v)[Group<T>::n]) {
+  take(own, shfl_down1<T>(own), o, v);
+#pragma unroll
+  for (int k = 0; k < Group<T>::n; ++k) v[k] = k < valid ? v[k] : T(0);
 }
 
 // K4, first pass, and phase 0 of K7.  Replaces
@@ -220,6 +296,10 @@ __global__ void __launch_bounds__(kProjectThreads, 2)
   project_partials<T, CHUNK>(V, w, partial, N, rows);
 }
 
+// Rows of K7's phase 1 loaded together (each batch's loads issued before
+// any is used).
+constexpr int kUpdateBatch = 16;
+
 // Launch K4's first pass with the row chunk the wrapper chose.
 template <typename T>
 cudaError_t launch_project_partials(const T* V, const T* w, T* partial,
@@ -327,8 +407,8 @@ __global__ void apply_project_partial_kernel(const T* __restrict__ V,
   write_block_partials(wacc, partial, rows, nwarps);
 }
 
-// K6, and phase 1 of K7.  Replaces
-// krypy_tpu/kernels/orthogonalize.py:update_prefix (_update_kernel):
+// K6.  Replaces krypy_tpu/kernels/orthogonalize.py:update_prefix
+// (_update_kernel):
 //   out = w - sum_r c[r] V[r, :].
 //
 // Bound: device memory, (rows + 2) * N elements (the V prefix and w
@@ -336,11 +416,10 @@ __global__ void apply_project_partial_kernel(const T* __restrict__ V,
 // column-parallel: one thread per column, c broadcast from shared
 // memory, no reduction.
 template <typename T>
-__device__ __forceinline__ void update_columns(const T* __restrict__ V,
-                                               const T* __restrict__ w,
-                                               const T* __restrict__ c,
-                                               T* __restrict__ out,
-                                               int64_t N, int rows) {
+__global__ void update_kernel(const T* __restrict__ V,
+                              const T* __restrict__ w,
+                              const T* __restrict__ c, T* __restrict__ out,
+                              int64_t N, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);  // [rows]
   for (int i = threadIdx.x; i < rows; i += blockDim.x) cs[i] = c[i];
@@ -355,12 +434,91 @@ __device__ __forceinline__ void update_columns(const T* __restrict__ V,
   }
 }
 
+// Phase 1 of K7 where N is not a multiple of the 16-byte group, so that
+// the rows start at different offsets from a 16-byte boundary (config 3's
+// N = 4095^2): K6's update out = w - sum_r c[r] B[r, :] on K4's grid
+// (block b owns a contiguous range of column groups, each warp walking it
+// kStepGroups at a time), each row of B and w read by 16-byte loads
+// whatever its alignment and out written by 16-byte stores (the wrapper
+// allocates it, aligned).  On the H100 it took 0.4193 / 0.7631 ms where
+// K6's one-thread-a-column update took 0.5146 / 1.0156 (rows 16 / 30 of a
+// 31 x 4095^2 basis); where all rows share one offset K6's update is as
+// fast or faster (0.6250 against 0.6621 ms at 26 rows of 4096^2, the
+// basis one element off alignment), so those bases keep it
+// (chip_smoke.py --only kernels, parent against this kernel in one
+// call).  Per column the same sum in the same order as K6 (rows in order,
+// then w minus it).  c sits in shared memory.
 template <typename T>
-__global__ void update_kernel(const T* __restrict__ V,
-                              const T* __restrict__ w,
-                              const T* __restrict__ c, T* __restrict__ out,
-                              int64_t N, int rows) {
-  update_columns(V, w, c, out, N, rows);
+__global__ void __launch_bounds__(kProjectThreads)
+    update_shifted_kernel(const T* __restrict__ B, const T* __restrict__ w,
+                          const T* __restrict__ c, T* __restrict__ out,
+                          int64_t N, int rows) {
+  using G = Group<T>;
+  using Vec = typename G::vec;
+  constexpr int VW = G::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // [rows]
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) cs[i] = c[i];
+  __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t ngroups = (N + VW - 1) / VW;
+  const int64_t span = (ngroups + gridDim.x - 1) / gridDim.x;
+  const int64_t g_lo = (int64_t)blockIdx.x * span;
+  const int64_t g_hi = min(ngroups, g_lo + span);
+  const int ow = offset16(w);
+
+  for (int64_t g0 = g_lo + (int64_t)warp * kStepGroups; g0 < g_hi;
+       g0 += (int64_t)nwarps * kStepGroups) {
+    const int64_t g = g0 + lane;
+    const int valid = (lane < kStepGroups && g < g_hi)
+                          ? (int)min((int64_t)VW, N - g * VW)
+                          : 0;
+    const Vec w_own = load_aligned<T, false>(w, ow, g, N);
+    T upd[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) upd[k] = T(0);
+    for (int r0 = 0; r0 < rows; r0 += kUpdateBatch) {
+      Vec own[kUpdateBatch];
+      int o[kUpdateBatch];
+#pragma unroll
+      for (int j = 0; j < kUpdateBatch; ++j) {
+        o[j] = 0;
+        if (r0 + j < rows) {
+          const T* row = B + (int64_t)(r0 + j) * N;
+          o[j] = offset16(row);
+          own[j] = load_aligned<T, true>(row, o[j], g, N);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kUpdateBatch; ++j) {
+        if (r0 + j < rows) {
+          T v[VW];
+          settle_group<T>(own[j], o[j], valid, v);
+#pragma unroll
+          for (int k = 0; k < VW; ++k) upd[k] += cs[r0 + j] * v[k];
+        }
+      }
+    }
+    T wv[VW];
+    settle_group<T>(w_own, ow, valid, wv);
+    T res[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) res[k] = wv[k] - upd[k];
+    T* dst = out + g * VW;
+    if (valid == VW) {
+      Vec vv;
+      T* e = reinterpret_cast<T*>(&vv);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) e[k] = res[k];
+      *reinterpret_cast<Vec*>(dst) = vv;
+    } else {
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        if (k < valid) dst[k] = res[k];
+      }
+    }
+  }
 }
 
 // K7.  Replaces krypy_tpu/kernels/orthogonalize.py:cgs_project (_kernel):
@@ -375,20 +533,28 @@ __global__ void update_kernel(const T* __restrict__ V,
 // sum over column tiles is a step of its own: phase 0 writes per-block
 // partials (K4's sweep of V, on K4's grid), a fixed-order second pass
 // sums them into the coefficient output (masked, zero past `rows`, so the
-// caller can add it to a full-height Hessenberg column), and phase 1 is
-// column-parallel over B with c in shared memory (K6's sweep, on K6's
-// grid).  Three launches on one stream; no float atomics, so a repeated
-// call gives the same bits.
+// caller can add it to a full-height Hessenberg column), and phase 1 (K6's
+// update) is column-parallel over B with c in shared memory: K6's own
+// kernel, or update_shifted_kernel where N is not a multiple of the
+// 16-byte group.  Three launches on one stream; no float atomics, so a
+// repeated call gives the same bits.
 //
 // Bound: device memory, 4 flops per basis element.  The function must
 // move (2 rows + 2) * N elements with a dual basis (the V and B prefixes
 // and w read once, w' written once) and (rows + 2) * N with B = V; this
 // design sweeps twice, so it moves (2 rows + 3) * N either way (w is read
 // in both phases, and with B = V the prefix too: at 26 x 4096^2 it is far
-// larger than the L2).  Left for later: one cooperative launch with a
-// grid-wide barrier between the phases; phase 1's 16-byte loads.
-// The host function cgs_project below launches K4's project_partial_kernel,
-// reduce_partials_kernel and K6's update_kernel.
+// larger than the L2).  What held it below that floor at config 3's shape
+// was alignment: with N % 4 != 0 (float32; odd N for float64) the rows
+// start at differing offsets from a 16-byte boundary, and K6's update,
+// one thread a column, ran at 70% of its bound there; phase 1 now reads
+// every row as aligned 16-byte groups shifted across lanes
+// (load_aligned / settle_group) and stores 16-byte groups.  K4's sweep,
+// which takes 16-byte loads on the aligned rows and scalar loads on the
+// others, measured faster as phase 0 there than shifted loads (0.3830
+// against 0.4042 ms at 16 rows; chip_smoke.py --only kernels), so phase 0
+// stays K4's.  Left for later: one cooperative launch with a grid-wide
+// barrier between the phases.
 template <typename T>
 size_t apply_project_smem(int rows, int threads) {
   return sizeof(T) * (size_t)rows * (1 + threads / 32 + threads);
@@ -447,16 +613,21 @@ int update_prefix(const T* V, const T* w, const T* c, T* out, long long N,
   return (int)cudaGetLastError();
 }
 
-// K7: phase 0 on K4's grid (`blocks`, `threads`, `chunk`), phase 1 on
-// K6's (`update_blocks`, `threads`).
+// K7: phase 0 on K4's grid (`blocks`, `threads`, `chunk`); phase 1 K6's
+// update on its grid (`update_blocks`) or, where N is not a multiple of
+// the 16-byte group, the shifted update on K4's grid.  w_out must be
+// 16-byte aligned (the wrapper allocates it).
 template <typename T>
 int cgs_project(const T* V, const T* B, const T* w, const T* mask,
                 T* partial, T* w_out, T* coeffs, long long N, int rows,
                 int m, int blocks, int threads, int chunk, int update_blocks,
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!aligned16(w_out)) return (int)cudaErrorInvalidValue;
+  const bool shifted = (N * sizeof(T)) % 16 != 0;
   const size_t smem1 = sizeof(T) * (size_t)rows;
-  cudaError_t err = allow_smem(update_kernel<T>, smem1);
+  cudaError_t err = shifted ? allow_smem(update_shifted_kernel<T>, smem1)
+                            : allow_smem(update_kernel<T>, smem1);
   if (err != cudaSuccess) return (int)err;
   err = launch_project_partials<T>(V, w, partial, (int64_t)N, rows, blocks,
                                    threads, chunk, s);
@@ -465,8 +636,13 @@ int cgs_project(const T* V, const T* B, const T* w, const T* mask,
       partial, blocks, 1, blocks, rows, mask, coeffs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  update_kernel<T><<<update_blocks, threads, smem1, s>>>(
-      B, w, coeffs, w_out, (int64_t)N, rows);
+  if (shifted) {
+    update_shifted_kernel<T><<<blocks, threads, smem1, s>>>(
+        B, w, coeffs, w_out, (int64_t)N, rows);
+  } else {
+    update_kernel<T><<<update_blocks, threads, smem1, s>>>(
+        B, w, coeffs, w_out, (int64_t)N, rows);
+  }
   return (int)cudaGetLastError();
 }
 

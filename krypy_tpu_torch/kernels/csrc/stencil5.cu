@@ -54,41 +54,15 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ u,
   return o;
 }
 
-// K1.  Replaces krypy_tpu/kernels/stencil.py:stencil5_affine
-// (_make_stencil5_kernel):
-//   out = alpha*u + beta*g + a(u-up) + b(u-dn) + c(u-lf) + d(u-rt) + e*u
-// on the logical region, zero elsewhere.  g may be null (beta unused).
-//
-// Bound: device memory.  It moves 3 streams (u, g, out; 2 without g)
-// and does ~15 flops per 12 bytes.  This simple design runs one thread
-// per output element in a 2-D grid whose x dimension walks along a row,
-// so each warp reads and writes 128 contiguous bytes; the four
-// neighbour reads hit L1/L2.  Left for later: shared-memory or TMA
-// tiles with cp.async double-buffering, and vectorised 16-byte access.
-__global__ void stencil5_affine_kernel(const float* __restrict__ u,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ out, int nx,
-                                       int ny, int nrows, int ncols,
-                                       Coeffs k, float alpha, float beta) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  float o = 0.0f;
-  if (i < nrows && j < ncols) {
-    float c0;
-    o = stencil_at(u, i, j, ny, nrows, ncols, k, &c0);
-    o = o + alpha * c0;
-    if (g != nullptr) o = o + beta * g[(size_t)i * ny + j];
-  }
-  out[(size_t)i * ny + j] = o;
-}
-
-// K2 geometry.  A block of kStepRows warps owns a strip of kStrip
+// K1 and K2 geometry.  A block of kStepRows warps owns a strip of kStrip
 // columns (4 per lane) and a run of `steps` * kStepRows rows; each step
 // computes kStepRows rows, one per warp.  Shared memory holds rings of
 // rows, each row the strip's columns j0-4 .. j0+131 (column j0 + c at
-// index c + kHalo; the 2-column halo that the two sweeps need, widened to
-// whole 16-byte groups).
+// index c + kHalo; K2's 2-column halo, K1's 1-column one, widened to
+// whole 16-byte groups).  K1 stages a row whose start is off 16-byte
+// alignment by its aligned superset instead: column j0 + c at index
+// c + kHalo + o, with o the row start's distance in floats from the
+// 16-byte boundary below it, so indices 0 .. 135 still hold it.
 constexpr int kStrip = 128;
 constexpr int kStepRows = 8;
 constexpr int kJacobiThreads = 32 * kStepRows;
@@ -125,18 +99,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Stage columns c .. c+3 of row i of a (nx, ny) buffer into dst: the
-// values on the logical region, zeros elsewhere (the pads are never
-// read).  `vec`: one 16-byte copy (rows and the base 16-byte aligned),
-// else four 4-byte copies.
+// Distance in floats of row i's start from the 16-byte boundary at or
+// below it (0 for every row of a 16-byte aligned buffer with ny % 4 == 0).
+__device__ __forceinline__ int row_offset(const float* base, int i, int ny) {
+  return static_cast<int>(
+      (reinterpret_cast<uintptr_t>(base + (ptrdiff_t)i * ny) >> 2) & 3);
+}
+
+// Stage the four columns c-o .. c-o+3 of row i of a (nx, ny) buffer into
+// dst: those on the logical region and any before column 0 (the previous
+// row's, which the reader masks); zeros past ncols and for a row off the
+// logical region (the pads are never read).  `vec`: one 16-byte copy (the
+// group 16-byte aligned), else four 4-byte copies (o = 0 only).  A copied
+// group always holds an element of row i, so an aligned 16-byte copy of
+// it never leaves the buffer's pages.
 __device__ __forceinline__ void stage_group(float* dst,
                                             const float* __restrict__ src,
-                                            int i, int c, int ny, int nrows,
-                                            int ncols, bool vec) {
-  const int valid = (i >= 0 && i < nrows && c >= 0)
-                        ? min(max(ncols - c, 0), 4)
+                                            int i, int c, int o, int ny,
+                                            int nrows, int ncols, bool vec) {
+  const int s = c - o;
+  const int valid = (i >= 0 && i < nrows && s + 4 > 0)
+                        ? min(max(ncols - s, 0), 4)
                         : 0;
-  const float* p = valid > 0 ? src + (size_t)i * ny + c : src;
+  const float* p = valid > 0 ? src + (ptrdiff_t)i * ny + s : src;
   if (vec) {
     cp_async16(dst, p, 4 * valid);
   } else {
@@ -148,17 +133,18 @@ __device__ __forceinline__ void stage_group(float* dst,
 }
 
 // One warp stages row i of the strip into a ring row: lane l the group at
-// column j0 + 4l, lanes 0 and 1 also the halo groups at j0-4 and j0+128.
+// column j0 + 4l, lanes 0 and 1 also the halo groups at j0-4 and j0+128,
+// each shifted back by the row's offset o.
 __device__ __forceinline__ void stage_row(float* row,
                                           const float* __restrict__ src,
-                                          int i, int j0, int ny, int nrows,
-                                          int ncols, bool vec) {
+                                          int i, int j0, int o, int ny,
+                                          int nrows, int ncols, bool vec) {
   const int lane = threadIdx.x & 31;
-  stage_group(row + kHalo + 4 * lane, src, i, j0 + 4 * lane, ny, nrows,
+  stage_group(row + kHalo + 4 * lane, src, i, j0 + 4 * lane, o, ny, nrows,
               ncols, vec);
   if (lane < 2) {
     const int c = lane == 0 ? -kHalo : kStrip;
-    stage_group(row + kHalo + c, src, i, j0 + c, ny, nrows, ncols, vec);
+    stage_group(row + kHalo + c, src, i, j0 + c, o, ny, nrows, ncols, vec);
   }
 }
 
@@ -276,10 +262,10 @@ __global__ void __launch_bounds__(kJacobiThreads)
   // prologue: u rows i0-2 .. i0+9, g rows i0-1 .. i0+8, then v rows i0-1
   // and i0
   for (int i = i0 - 2 + warp; i < min(i0 + 10, u_end); i += kStepRows) {
-    stage_row(urow(i), u, i, j0, ny, nrows, ncols, vec_in);
+    stage_row(urow(i), u, i, j0, 0, ny, nrows, ncols, vec_in);
   }
   for (int i = i0 - 1 + warp; i < min(i0 + 9, g_end); i += kStepRows) {
-    stage_row(grow(i), g, i, j0, ny, nrows, ncols, vec_in);
+    stage_row(grow(i), g, i, j0, 0, ny, nrows, ncols, vec_in);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -299,12 +285,12 @@ __global__ void __launch_bounds__(kJacobiThreads)
   for (int b = i0; b < i_end; b += kStepRows) {
     // the next step's rows: u b+10 .. b+17, g b+9 .. b+16
     if (b + 10 + warp < u_end) {
-      stage_row(urow(b + 10 + warp), u, b + 10 + warp, j0, ny, nrows, ncols,
-                vec_in);
+      stage_row(urow(b + 10 + warp), u, b + 10 + warp, j0, 0, ny, nrows,
+                ncols, vec_in);
     }
     if (b + 9 + warp < g_end) {
-      stage_row(grow(b + 9 + warp), g, b + 9 + warp, j0, ny, nrows, ncols,
-                vec_in);
+      stage_row(grow(b + 9 + warp), g, b + 9 + warp, j0, 0, ny, nrows,
+                ncols, vec_in);
     }
     cp_async_commit();
     // sweep 1: v on rows b+1 .. b+8 (as far as the run needs)
@@ -342,6 +328,214 @@ __global__ void __launch_bounds__(kJacobiThreads)
     }
     cp_async_wait_all();
     __syncthreads();
+  }
+}
+
+// The four values at indices o .. o+3 of the eight in (a, b); o in 0..3,
+// the same across the warp.
+__device__ __forceinline__ float4 shift4(float4 a, float4 b, int o) {
+  switch (o) {
+    case 0:
+      return a;
+    case 1:
+      return make_float4(a.y, a.z, a.w, b.x);
+    case 2:
+      return make_float4(a.z, a.w, b.x, b.y);
+    default:
+      return make_float4(a.w, b.x, b.y, b.z);
+  }
+}
+
+// The four values at ring-row indices x .. x+3 (x >= 1, the same across
+// the warp but for a multiple of 4 per lane), and in *next the one at
+// x+4: two 16-byte shared-memory reads.
+__device__ __forceinline__ float4 ring_at(const float* row, int x,
+                                          float* next) {
+  const int o = x & 3;
+  const float4 a = *reinterpret_cast<const float4*>(row + (x - o));
+  const float4 b = *reinterpret_cast<const float4*>(row + (x - o) + 4);
+  *next = o == 0 ? b.x : o == 1 ? b.y : o == 2 ? b.z : b.w;
+  return shift4(a, b, o);
+}
+
+// K1 ring depths: the 10 rows of u a step reads plus the 8 the next step's
+// loads write; g's 8 plus 8
+constexpr int kAffineURing = 18;
+constexpr int kAffineGRing = 16;
+
+// K1.  Replaces krypy_tpu/kernels/stencil.py:stencil5_affine
+// (_make_stencil5_kernel):
+//   out = alpha*u + beta*g + a(u-up) + b(u-dn) + c(u-lf) + d(u-rt) + e*u
+// on the logical region, zero elsewhere.  g may be null (beta unused).
+//
+// Bound: device memory.  It moves 3 streams (u, g, out; 2 without g)
+// and does ~15 flops per 12 bytes.  Design: K2's row-ring tiles with one
+// sweep.  The block marches down its strip (K2's runs,
+// kernels/stencil.py: affine_grid); at each step every warp stages one
+// new row of u (and of g) with 16-byte cp.async copies for the NEXT step
+// while the block computes this step, one output row per warp from the
+// ring rows above, at and below it, so each row of u is read once per
+// run of rows (and its halo groups from the neighbouring strips).  Rows
+// that start off 16-byte alignment (the odd widths of the unpadded
+// V-cycle, 4095, 2047, ...) take the same path: each row is staged as its
+// aligned superset (stage_row's offset), and the strip covers each row in
+// the frame of its OUTPUT's alignment (columns j0 - o .. j0 - o + 127 for
+// an output row o floats past a 16-byte boundary), so every lane stores
+// one aligned 16-byte group and only the groups at a row's two ends are
+// stored a float at a time; the inputs are read at their offset against
+// that frame (ring_at).  The staged copies are zero off the logical
+// region except before column 0 (the row above's elements), which the
+// row computation masks: the Dirichlet zero.  One barrier per step of 8
+// rows.
+__global__ void __launch_bounds__(kJacobiThreads)
+    stencil5_affine_kernel(const float* __restrict__ u,
+                           const float* __restrict__ g,
+                           float* __restrict__ out, int nx, int ny,
+                           int nrows, int ncols, Coeffs k, float alpha,
+                           float beta, int steps) {
+  __shared__ __align__(16) float su[kAffineURing][kPitch];
+  __shared__ __align__(16) float sg[kAffineGRing][kPitch];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.x * kStrip;
+  const int i0 = blockIdx.y * steps * kStepRows;
+  const int i_end = min(nx, i0 + steps * kStepRows);  // output rows
+  const bool has_g = g != nullptr;
+  // ring rows: u from row i0-1, g from i0
+  auto urow = [&](int i) { return su[(i - i0 + 1) % kAffineURing]; };
+  auto grow = [&](int i) { return sg[(i - i0) % kAffineGRing]; };
+  auto stage_u = [&](int i) {
+    stage_row(urow(i), u, i, j0, row_offset(u, i, ny), ny, nrows, ncols,
+              true);
+  };
+  auto stage_g = [&](int i) {
+    stage_row(grow(i), g, i, j0, row_offset(g, i, ny), ny, nrows, ncols,
+              true);
+  };
+  // the run's output rows need u on rows i0-1 .. i_end and g on i0 ..
+  // i_end-1
+  const int u_end = i_end + 1;
+
+  // prologue: u rows i0-1 .. i0+8, g rows i0 .. i0+7
+  for (int i = i0 - 1 + warp; i < min(i0 + 9, u_end); i += kStepRows) {
+    stage_u(i);
+  }
+  if (has_g && i0 + warp < i_end) stage_g(i0 + warp);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int b = i0; b < i_end; b += kStepRows) {
+    // the next step's rows: u b+9 .. b+16, g b+8 .. b+15
+    if (b + 9 + warp < u_end) stage_u(b + 9 + warp);
+    if (has_g && b + 8 + warp < i_end) stage_g(b + 8 + warp);
+    cp_async_commit();
+    const int i = b + warp;
+    if (i < i_end) {
+      // the lane's columns j .. j+3 in the output row's aligned frame; a
+      // row staged with offset o' holds column J at kHalo + J - j0 + o'
+      const int oo = row_offset(out, i, ny);
+      const int j = j0 - oo + 4 * lane;
+      const int x = kHalo + 4 * lane - oo;
+      const int xu = x + row_offset(u, i, ny);
+      float rt, unused;
+      const float4 cu = ring_at(urow(i), xu, &rt);
+      const float4 cau =
+          ring_at(urow(i - 1), x + row_offset(u, i - 1, ny), &unused);
+      const float4 cad =
+          ring_at(urow(i + 1), x + row_offset(u, i + 1, ny), &unused);
+      const float4 cg =
+          has_g ? ring_at(grow(i), x + row_offset(g, i, ny), &unused)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float lf = __shfl_up_sync(0xffffffffu, cu.w, 1);
+      if (lane == 0) lf = urow(i)[xu - 1];
+      const float c0[4] = {cu.x, cu.y, cu.z, cu.w};
+      const float up[4] = {cau.x, cau.y, cau.z, cau.w};
+      const float dn[4] = {cad.x, cad.y, cad.z, cad.w};
+      const float gg[4] = {cg.x, cg.y, cg.z, cg.w};
+      const float left[4] = {lf, cu.x, cu.y, cu.z};
+      const float right[4] = {cu.y, cu.z, cu.w, rt};
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // left of column 0 the staged value is the row above's
+        const float lq = j + q > 0 ? left[q] : 0.0f;
+        float v = k.a * (c0[q] - up[q]) + k.b * (c0[q] - dn[q]) +
+                  k.c * (c0[q] - lq) + k.d * (c0[q] - right[q]);
+        v = v + k.e * c0[q];
+        v = v + alpha * c0[q];
+        if (has_g) v = v + beta * gg[q];
+        o[q] = (i < nrows && j + q >= 0 && j + q < ncols) ? v : 0.0f;
+      }
+      float* dst = out + (ptrdiff_t)i * ny + j;
+      if (j >= 0 && j + 3 < ny) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (j + q >= 0 && j + q < ny) dst[q] = o[q];
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+// K1's coarse form: `sweeps` damped-Jacobi sweeps from zero,
+//   u <- u + w (r - A u),   A u = a(u-up) + b(u-dn) + c(u-lf) + d(u-rt) + e*u,
+// on the (nrows, ncols) logical region of an (nx, ny) buffer, zero
+// elsewhere: the coarsest level's solve of both V-cycles (the JAX
+// package's `u = w r` and `coarse_sweeps - 1` further sweeps on the padded
+// lane, `coarse_sweeps` sweeps from zero on the unpadded one; the first
+// sweep from zero IS w r).  Every product and sum is rounded on its own
+// (no FMA contraction: __fmul_rn / __fadd_rn), in the plain version's
+// order, so the two agree bit for bit and the V-cycles' coarse solve
+// keeps the rounding their plain coarse steps had (with FMA, bench.py's
+// Poisson solve took 16 inner iterations against the reference's 17 to
+// 21 on the H100).  ONE block holds u (double-buffered, each with a
+// zero border: the Dirichlet ghost) and r in shared memory, so the grid
+// goes to device memory once each way; a barrier between sweeps.  Bound:
+// the sweeps' latency on one SM, not bytes (the wrapper dispatches by
+// size: kernels/stencil.py: coarse_fits).
+__global__ void __launch_bounds__(1024)
+    stencil5_coarse_kernel(const float* __restrict__ r,
+                           float* __restrict__ out, int nx, int ny,
+                           int nrows, int ncols, Coeffs k, float w,
+                           int sweeps) {
+  extern __shared__ __align__(16) float smem[];
+  const int pitch = ncols + 2;
+  const int plane = (nrows + 2) * pitch;
+  const int npts = nrows * ncols;
+  float* ua = smem;
+  float* ub = smem + plane;
+  float* rs = smem + 2 * plane;
+  for (int t = threadIdx.x; t < 2 * plane; t += blockDim.x) smem[t] = 0.0f;
+  for (int t = threadIdx.x; t < npts; t += blockDim.x) {
+    const int i = t / ncols, j = t - i * ncols;
+    rs[t] = r[(ptrdiff_t)i * ny + j];
+  }
+  __syncthreads();
+  for (int s = 0; s < sweeps; ++s) {
+    for (int t = threadIdx.x; t < npts; t += blockDim.x) {
+      const int i = t / ncols, j = t - i * ncols;
+      const int x = (i + 1) * pitch + j + 1;
+      const float c0 = ua[x];
+      float au = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(k.a, c0 - ua[x - pitch]),
+                              __fmul_rn(k.b, c0 - ua[x + pitch])),
+                    __fmul_rn(k.c, c0 - ua[x - 1])),
+          __fmul_rn(k.d, c0 - ua[x + 1]));
+      au = __fadd_rn(au, __fmul_rn(k.e, c0));
+      ub[x] = __fadd_rn(c0, __fmul_rn(w, rs[t] - au));
+    }
+    __syncthreads();
+    float* tmp = ua;
+    ua = ub;
+    ub = tmp;
+  }
+  for (int t = threadIdx.x; t < nx * ny; t += blockDim.x) {
+    const int i = t / ny, j = t - i * ny;
+    out[t] = (i < nrows && j < ncols) ? ua[(i + 1) * pitch + j + 1] : 0.0f;
   }
 }
 
@@ -391,11 +585,54 @@ extern "C" {
 int krypy_stencil5_affine(const float* u, const float* g, float* out, int nx,
                           int ny, int nrows, int ncols, float a, float b,
                           float c, float d, float e, float alpha, float beta,
+                          int strip, int step_rows, int strips, int steps,
                           void* stream) {
-  const dim3 block(32, 8);
-  stencil5_affine_kernel<<<grid_for(nx, ny, block), block, 0,
+  // The wrapper sizes the grid with its own copy of the geometry
+  // (kernels/stencil.py: affine_grid); refuse any other.  Where the
+  // output's rows do not all start 16-byte aligned, each row's strips
+  // start up to 3 columns early (its aligned frame), so one more strip
+  // may be needed.
+  const bool aligned =
+      ny % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int want = (ny + (aligned ? 0 : 3) + kStrip - 1) / kStrip;
+  if (strip != kStrip || step_rows != kStepRows || strips != want ||
+      steps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int runs = (nx + steps * kStepRows - 1) / (steps * kStepRows);
+  stencil5_affine_kernel<<<dim3(want, runs), kJacobiThreads, 0,
                            (cudaStream_t)stream>>>(
-      u, g, out, nx, ny, nrows, ncols, Coeffs{a, b, c, d, e}, alpha, beta);
+      u, g, out, nx, ny, nrows, ncols, Coeffs{a, b, c, d, e}, alpha, beta,
+      steps);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of the coarse form: two bordered planes of u and r.
+static size_t coarse_smem(int nrows, int ncols) {
+  return sizeof(float) * (2 * (size_t)(nrows + 2) * (ncols + 2) +
+                          (size_t)nrows * ncols);
+}
+
+int krypy_stencil5_coarse(const float* r, float* out, int nx, int ny,
+                          int nrows, int ncols, float a, float b, float c,
+                          float d, float e, float w, int sweeps,
+                          int max_smem, void* stream) {
+  // the wrapper's limit (kernels/stencil.py: COARSE_MAX_SMEM) must be the
+  // kernel's own; a grid above it keeps the per-sweep K1 launches
+  const size_t smem = coarse_smem(nrows, ncols);
+  if (max_smem != 232448 || smem > (size_t)max_smem || sweeps < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stencil5_coarse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int pts = nrows * ncols;
+  const int threads = min(1024, max(32, (pts + 31) / 32 * 32));
+  stencil5_coarse_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      r, out, nx, ny, nrows, ncols, Coeffs{a, b, c, d, e}, w, sweeps);
   return (int)cudaGetLastError();
 }
 

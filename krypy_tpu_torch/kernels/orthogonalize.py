@@ -62,13 +62,14 @@ __all__ = [
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: threads per block of the sweeps
 THREADS = 256
-#: cap on the grid of K5 and K6 (and K7's phase 1): a fixed number (not
-#: the card's SM count), so the reduction order, and with it every bit of
-#: the result, depends on N alone
+#: cap on the grid of K5 and K6 (and K7's phase 1 where it is K6's): a
+#: fixed number (not the card's SM count), so the reduction order, and
+#: with it every bit of the result, depends on N alone
 MAX_BLOCKS = 1024
-#: K4 (and K7's phase 0): the 16-byte column groups (4 float32 or 2
-#: float64 columns) each thread takes per row of its block's contiguous
-#: range; the grid is the number of such ranges that cover N
+#: K4 (and K7's phase 0 and shifted phase 1): the 16-byte column groups
+#: (4 float32 or 2 float64 columns) each thread takes per row of its
+#: block's contiguous range; the grid is the number of such ranges that
+#: cover N
 GROUPS_PER_THREAD = 16
 #: K4's chunks of rows summed in registers, its C instantiations
 ROW_CHUNKS = (8, 16)
@@ -84,7 +85,7 @@ def _smem(kernel, rows, threads, itemsize):
     """Dynamic shared memory of one block, as ``orthogonalize.cu`` asks
     for it: K4 none (its chunk's warp totals are static), K5 the
     coefficients, warp totals and staged column tile, K6 the
-    coefficients, K7 its phase 1's (K6's)."""
+    coefficients, K7 its phase 1's (its coefficients)."""
     per_row = {"project_prefix": 0,
                "apply_project": 1 + threads // 32 + threads,
                "update_prefix": 1,
@@ -101,11 +102,11 @@ def row_chunk(rows):
 
 def launch_config(N, rows, itemsize, kernel):
     """``(blocks, threads)`` of ``kernel``'s sweep over N columns,
-    ``THREADS`` threads a block.  K4 (and K7's phase 0,
-    ``"cgs_project"``): one block per contiguous range of
+    ``THREADS`` threads a block.  K4 (and K7's phase 0 and shifted
+    phase 1, ``"cgs_project"``): one block per contiguous range of
     ``THREADS * GROUPS_PER_THREAD`` 16-byte column groups.  K5 and K6
-    (and K7's phase 1): at most ``MAX_BLOCKS`` blocks, each walking its
-    columns in a grid-stride loop; K5 halves its threads, down to one
+    (and K7's other phase 1): at most ``MAX_BLOCKS`` blocks, each walking
+    its columns in a grid-stride loop; K5 halves its threads, down to one
     warp, while its staged tile exceeds the budget.  The grid depends on
     N, ``rows`` and the dtype alone.  Raises ``ValueError`` where
     ``rows`` do not fit one block's shared memory (see
@@ -358,7 +359,11 @@ def cgs_project(V, w, mask, basis=None, *, rows=None):
     past ``rows``.  ``basis`` is the ``(m, N)`` basis to subtract along
     (default ``V``; the dual basis P of GMRES with ``M``, where ``V = M
     P``).  Counterpart of ``krypy_tpu.kernels.orthogonalize.cgs_project``;
-    ``rows`` (default m) replaces its full-height masked sweep."""
+    ``rows`` (default m) replaces its full-height masked sweep.  Phase 0
+    is K4's sweep (the same coefficient bits as :func:`project_prefix`);
+    phase 1 is K6's update or, where N is not a multiple of the 16-byte
+    group (4 float32 or 2 float64 columns), an update on K4's grid that
+    reads every row in aligned 16-byte groups shifted across lanes."""
     mask = _mask(mask, V)
     B = V if basis is None else basis
     rows, cuda = _check("cgs_project", V, rows, (w,), (mask,))

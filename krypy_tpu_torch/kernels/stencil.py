@@ -5,7 +5,9 @@ Counterparts of the three Pallas kernels in
 ``krypy_tpu/kernels/stencil.py`` that the padded multigrid-CG solve runs:
 
 * :func:`stencil5_affine` (K1): ``alpha*u + beta*g + S(u)``, the matvec,
-  damped-Jacobi step, residual and collapsed presmooth;
+  damped-Jacobi step, residual and collapsed presmooth, with its coarse
+  form :func:`stencil5_coarse`, the coarsest level's damped-Jacobi
+  sweeps in one launch;
 * :func:`stencil5_jacobi2` (K2): two fused damped-Jacobi sweeps;
 * :func:`stencil5_resrestrict_rows` (K3): residual plus full-weighting
   row restriction;
@@ -47,24 +49,50 @@ __all__ = [
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
+    "coarse_smem",
+    "stencil5_coarse",
+    "stencil5_coarse_torch",
+    "coarse_fits",
     "jacobi2_grid",
+    "affine_grid",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 
-#: K2's geometry: a block's strip of columns and the rows of one step
-#: (one per warp), both passed to the C entry, which refuses any other
-#: than ``csrc/stencil5.cu``'s own; the most steps of a block's run, and
-#: the grid size below which K2 shortens its runs
+#: K1's and K2's geometry: a block's strip of columns and the rows of one
+#: step (one per warp), both passed to the C entries, which refuse any
+#: other than ``csrc/stencil5.cu``'s own; the most steps of a block's run,
+#: and the grid size below which the runs are shortened
 JACOBI2_STRIP = 128
 JACOBI2_STEP_ROWS = 8
 JACOBI2_MAX_STEPS = 4
 JACOBI2_MIN_BLOCKS = 512
 
 
+def affine_grid(nx, ny, aligned=True):
+    """K1's launch on an ``(nx, ny)`` buffer: ``(strips, runs, steps)``,
+    K2's runs (:func:`jacobi2_grid`).  Strip ``x`` computes, in each row,
+    the columns ``[x * JACOBI2_STRIP - o, (x + 1) * JACOBI2_STRIP - o)``
+    of the row's aligned frame, where the output row starts ``o`` floats
+    past a 16-byte boundary; a buffer whose rows are not all 16-byte
+    aligned (``aligned=False``: ``ny % 4 != 0`` or the output itself
+    offset) takes ``ceil((ny + 3) / JACOBI2_STRIP)`` strips."""
+    strips, runs, steps = jacobi2_grid(nx, ny)
+    if not aligned:
+        strips = -(-(ny + 3) // JACOBI2_STRIP)
+    return strips, runs, steps
+
+
+#: the most dynamic shared memory a block can have on Hopper; the coarse
+#: form takes every grid whose buffers fit in it (:func:`coarse_fits`),
+#: and its C entry refuses any other limit
+COARSE_MAX_SMEM = 232448
+
+
 def jacobi2_grid(nx, ny):
-    """K2's launch on an ``(nx, ny)`` buffer: ``(strips, runs, steps)``.
+    """K2's launch on an ``(nx, ny)`` buffer, and K1's runs
+    (:func:`affine_grid`): ``(strips, runs, steps)``.
     Block ``(x, y)`` computes the output columns ``[x * JACOBI2_STRIP,
     (x + 1) * JACOBI2_STRIP)`` and rows ``[y * h, (y + 1) * h)`` with ``h
     = steps * JACOBI2_STEP_ROWS``, each clipped to the buffer.  A run is
@@ -72,8 +100,8 @@ def jacobi2_grid(nx, ny):
     than ``JACOBI2_MIN_BLOCKS`` blocks (down to one step), so that small
     levels still spread over the card; it depends on the shape alone.
     On the H100 these runs (32, 32, 16 and 8 rows at the V-cycle's
-    4096^2, 2048^2, 1024^2 and 512^2 buffers) took the least summed time
-    of runs from 8 to 64 rows."""
+    4096^2, 2048^2, 1024^2 and 512^2 buffers) took K2 the least summed
+    time of runs from 8 to 64 rows."""
     strips = -(-ny // JACOBI2_STRIP)
     steps = JACOBI2_MAX_STEPS
     while steps > 1 and strips * -(-nx // (steps * JACOBI2_STEP_ROWS)) \
@@ -188,6 +216,26 @@ def stencil5_resrestrict_rows_torch(u, g, coeffs, nrows, ncols):
     return out
 
 
+def stencil5_coarse_torch(r, coeffs, w, sweeps, nrows, ncols):
+    """Plain version of K1's coarse form on a 2-D ``(R, P)`` buffer:
+    ``sweeps`` damped-Jacobi sweeps from zero, ``u = u + w (r - A u)``
+    with ``A = coeffs`` (:func:`stencil5_affine_torch`), on the ``(nrows,
+    ncols)`` logical region (``r`` read there only), exact zeros
+    elsewhere.  The JAX package's coarse solves, step by step: the
+    unpadded lane's ``coarse_sweeps`` sweeps from zero, and the padded
+    lane's ``u = w r`` and ``coarse_sweeps - 1`` sweeps (the first sweep
+    from zero is ``w r``)."""
+    R, P = r.shape
+    if (nrows, ncols) != (R, P):
+        r = torch.where(_logical_mask(R, P, nrows, ncols, r.device), r,
+                        torch.zeros((), dtype=r.dtype, device=r.device))
+    u = torch.zeros_like(r)
+    for _ in range(int(sweeps)):
+        u = u + w * (r - stencil5_affine_torch(u, None, coeffs, nrows,
+                                               ncols))
+    return u
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -209,13 +257,68 @@ def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
         ).reshape(-1)
     out = torch.empty(nx * ny, dtype=x.dtype, device=x.device)
     a, b, c, d, e = _grouped(coeffs)
+    strips, _, steps = affine_grid(
+        nx, ny, ny % 4 == 0 and out.data_ptr() % 16 == 0)
     _launch(
         "stencil5_affine", "krypy_stencil5_affine",
         (x.data_ptr(), None if g is None else g.data_ptr(), out.data_ptr(),
          nx, ny, nrows, ncols, a, b, c, d, e, float(alpha),
-         float(beta) if g is not None else 0.0),
+         float(beta) if g is not None else 0.0, JACOBI2_STRIP,
+         JACOBI2_STEP_ROWS, strips, steps),
         x.device,
     )
+    return out
+
+
+def coarse_smem(nrows, ncols):
+    """Bytes of shared memory the coarse form takes for an ``(nrows,
+    ncols)`` logical region: two planes of ``u`` with a zero border (the
+    Dirichlet ghost) and ``r``, in float32."""
+    return 4 * (2 * (nrows + 2) * (ncols + 2) + nrows * ncols)
+
+
+def coarse_fits(nrows, ncols):
+    """Whether :func:`stencil5_coarse` takes a logical region of ``(nrows,
+    ncols)``: its buffers fit one block's shared memory,
+    ``COARSE_MAX_SMEM`` (127^2 does, 255^2 does not)."""
+    return coarse_smem(nrows, ncols) <= COARSE_MAX_SMEM
+
+
+def stencil5_coarse(r, *, nx, ny, coeffs, w, sweeps, ncols=None,
+                    nrows=None):
+    """K1's coarse form: ``sweeps`` damped-Jacobi sweeps from zero, ``u =
+    u + w (r - A u)`` with ``A = coeffs`` (the operator's ``(cc, cu, cd,
+    cl, cr)``), on the ``(nrows, ncols)`` logical region of an ``(nx,
+    ny)`` buffer (flat operand), exact zeros elsewhere: the coarsest
+    level's solve of both V-cycles in ONE launch of one block that keeps
+    the grid in shared memory.  Counts as one ``stencil5_affine`` launch
+    (and one ``stencil5_coarse``).
+
+    Dispatch by size: the kernel takes every region for which
+    :func:`coarse_fits` holds (up to 127^2 of the V-cycle's levels) and
+    raises ``ValueError`` for a larger one, which the V-cycles run as
+    per-sweep launches instead.  Plain version:
+    :func:`stencil5_coarse_torch`."""
+    ncols = ny if ncols is None else ncols
+    nrows = nx if nrows is None else nrows
+    if sweeps < 0:
+        raise ValueError(f"stencil5_coarse: sweeps={sweeps} < 0")
+    if not _check("stencil5_coarse", nx, ny, nrows, ncols, r):
+        return stencil5_coarse_torch(r.reshape(nx, ny), coeffs, w, sweeps,
+                                     nrows, ncols).reshape(-1)
+    if not coarse_fits(nrows, ncols):
+        raise ValueError(
+            f"stencil5_coarse: a {nrows}x{ncols} region needs "
+            f"{coarse_smem(nrows, ncols)} bytes of shared memory, above "
+            f"one block's {COARSE_MAX_SMEM}")
+    out = torch.empty(nx * ny, dtype=r.dtype, device=r.device)
+    _launch(
+        "stencil5_affine", "krypy_stencil5_coarse",
+        (r.data_ptr(), out.data_ptr(), nx, ny, nrows, ncols,
+         *_grouped(coeffs), float(w), int(sweeps), COARSE_MAX_SMEM),
+        r.device,
+    )
+    LAUNCHES["stencil5_coarse"] += 1
     return out
 
 

@@ -578,7 +578,13 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
     pad128(n))`` buffer.  With ``impl="cuda"``, float32 levels with
     ``n >= 256`` run the kernels: K1 for the step, residual and collapsed
     presmooth, K2 for post-smoothing pairs, K3 for residual plus row
-    restriction; every other leg is plain torch.  ``scale`` is folded
+    restriction; the coarsest level's sweeps run as ONE launch of K1's
+    coarse form (:func:`~krypy_tpu_torch.kernels.stencil.stencil5_coarse`)
+    where its grid fits the kernel (``coarse_fits``: up to 127^2), as its
+    per-sweep steps above that; every other leg is plain torch.  The JAX
+    package's coarse level, below its kernels' 256, is plain jnp (a TPU
+    choice); on the H100 its ~240 launches per coarse solve were most of a
+    host-bound V-cycle's time.  ``scale`` is folded
     into the final post-smoothing sweep.  The operator applies only to
     vectors on ``device``."""
     device = _device(device)
@@ -676,9 +682,17 @@ def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
         )
 
         if n <= coarsest:
-            # first sweep from u=0 is the elementwise u1 = w*r
-            u = (smooth(w * r, r, step, coarse_sweeps - 1) if coarse_sweeps
-                 else torch.zeros_like(r))
+            if not coarse_sweeps:
+                u = torch.zeros_like(r)
+            elif impl == "cuda" and is_f32 and _kst.coarse_fits(n, n):
+                # every sweep in ONE launch (K1's coarse form)
+                u = kernels.stencil5_coarse(
+                    r.reshape(-1), nx=R, ny=P, coeffs=_lap_coeffs(h2), w=w,
+                    sweeps=coarse_sweeps, ncols=n, nrows=n,
+                ).reshape(R, P)
+            else:
+                # first sweep from u=0 is the elementwise u1 = w*r
+                u = smooth(w * r, r, step, coarse_sweeps - 1)
             return scale * u if (top and scale != 1.0) else u
 
         if nu_pre >= 2:
@@ -733,7 +747,11 @@ def _multigrid_unpadded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
     stencil.stencil5_pipelined`) on float32 with ``impl="cuda"``, the
     plain stencil otherwise; every other leg is plain torch.
 
-    K1 runs at every level.  The JAX package starts its kernel at 256 (a
+    K1 runs at every level, and the coarsest level's Jacobi sweeps run as
+    ONE launch of K1's coarse form (:func:`~krypy_tpu_torch.kernels.
+    stencil.stencil5_coarse`) where its grid fits the kernel
+    (``coarse_fits``: up to 127^2), as per-sweep K1 launches above that.
+    The JAX package starts its kernel at 256 (a
     TPU choice); on the H100 (80GB HBM3, 700 W) one K1 launch took less
     time per call than the plain stencil's chain of launches at every
     level size measured, 1^2 to 4095^2: below 2047^2 the cost is the
@@ -790,6 +808,13 @@ def _multigrid_unpadded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
                 for _ in range((coarse_sweeps + 1) // 2):
                     u = step(step(u), reverse=True)
                 return u
+            if coarse_sweeps and impl == "cuda" and \
+                    r.dtype == torch.float32 and _kst.coarse_fits(n, n):
+                # every sweep in ONE launch (K1's coarse form)
+                return kernels.stencil5_coarse(
+                    r.reshape(-1), nx=n, ny=n, coeffs=_lap_coeffs(h2),
+                    w=omega / diag, sweeps=coarse_sweeps,
+                ).reshape(n, n)
             return smooth(u, coarse_sweeps)
 
         if smoother == "rbgs" or nu_pre < 2:

@@ -224,3 +224,67 @@ def test_laplacian_2d_operator():
                                atol=1e-9)
     with pytest.raises((RuntimeError, AssertionError)):
         kernels.laplacian_2d(nx)  # the default device is the card
+
+
+#: (N, itemsize, start): N of every residue mod 4 in float32 and odd N in
+#: float64, each over several blocks with a ragged last one, a basis
+#: whose first element lies ``start`` elements past a 16-byte boundary,
+#: and N below one block's range
+K7_COLUMNS = [(3 * 16384 + k, 4, 0) for k in range(4)] + [
+    (3 * 16384 + 1, 4, 3), (3 * 16384 + 2, 4, 1), (3 * 8192 + 1, 8, 0),
+    (3 * 8192 + 1, 8, 1), (4095, 4, 2), (37, 8, 1)]
+
+
+@pytest.mark.parametrize("N,itemsize,start", K7_COLUMNS, ids=str)
+def test_k7_grid_and_row_offsets_cover_every_column_once(N, itemsize,
+                                                         start):
+    """K7's shifted phase 1 (N not a multiple of the 16-byte group, so
+    that rows start at differing offsets; else phase 1 is K6's update) as
+    ``csrc/orthogonalize.cu`` walks it: blocks of ``launch_config(...,
+    "cgs_project")`` own contiguous, non-empty ranges of 16-byte column
+    groups; each warp steps 31 groups at a time (the block's warps
+    interleaved), its 32 lanes loading 32 consecutive aligned groups
+    ``A_g = row - o + g VW`` of the row's aligned superset (row r starts
+    ``o = (start + r N) mod (16 / itemsize)`` elements past a 16-byte
+    boundary) where one holds an element of the row, and lanes 0..30
+    producing group g from their own ``A_g`` and the next lane's
+    ``A_{g+1}``.  Every column of every row is produced exactly once,
+    from the loaded group that holds its address, and each 16-byte load
+    holds at least one element of the row (so it never leaves the
+    tensor)."""
+    VW, step = 16 // itemsize, 31
+    rows = 6
+    blocks, threads = orth.launch_config(N, rows, itemsize, "cgs_project")
+    assert threads % 32 == 0
+    nwarps = threads // 32
+    ngroups = -(-N // VW)
+    span = -(-ngroups // blocks)
+    lanes = np.arange(32)
+    for r in range(rows):
+        row = start + r * N  # the row's first element, past a boundary
+        o = row % VW
+        cover = np.zeros(N, dtype=np.int64)
+        for b in range(blocks):
+            g_lo, g_hi = b * span, min(ngroups, (b + 1) * span)
+            assert g_lo < g_hi
+            for wp in range(nwarps):
+                for g0 in range(g_lo + wp * step, g_hi, nwarps * step):
+                    g = g0 + lanes
+                    addr = row - o + g * VW
+                    loaded = g * VW - o < N
+                    assert np.all(addr % VW == 0)
+                    assert np.all((addr + VW > row)[loaded]
+                                  & (addr < row + N)[loaded])
+                    mine = (lanes < step) & (g < g_hi)
+                    for k in range(VW):
+                        col = g * VW + k
+                        use = mine & (col < N)
+                        # element o + k of (A_g, A_{g+1}): the lane's own
+                        # load or, past VW, the next lane's
+                        src = np.where(o + k < VW, g, g + 1)
+                        assert np.all(np.isin(src[use], g[loaded]))
+                        off = (o + k) % VW
+                        assert np.all((row - o + src * VW + off)[use]
+                                      == row + col[use])
+                        cover[col[use]] += 1
+        assert np.all(cover == 1)

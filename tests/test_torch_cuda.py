@@ -356,6 +356,28 @@ def test_cgs_project_is_deterministic(cuda_device):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def test_cgs_project_phases_are_k4_and_k6(cuda_device):
+    """K7's phase 0 is K4's sweep, so its coefficients are K4's bit for
+    bit; where N is a multiple of 4 its phase 1 is K6's update, so ``w'``
+    is K6's with them, also for a basis and ``w`` one element off
+    alignment; one column more takes the shifted update, held to
+    float64."""
+    for N, off in ((1 << 20, 0), (1 << 20, 1), ((1 << 20) + 1, 0)):
+        gen = torch.Generator(device=cuda_device).manual_seed(N + off)
+        V = (torch.randn(26 * N + off, generator=gen, device=cuda_device)
+             / N ** 0.5)[off:].view(26, N)
+        w = torch.randn(N + off, generator=gen, device=cuda_device)[off:]
+        mask = torch.ones(26, device=cuda_device)
+        w_out, c = korth.cgs_project(V, w, mask, rows=13)
+        assert torch.equal(c, korth.project_prefix(V, w, mask, rows=13))
+        if N % 4 == 0:
+            assert torch.equal(w_out, korth.update_prefix(V, w, c, rows=13))
+        else:
+            plain = korth.cgs_project_torch(V, w, mask, V, 13)
+            assert ProjectCheck(V, w, mask, 13, plain).failures(
+                (w_out, c)) == []
+
+
 def test_cgs_project_raises_on_bad_operands(cuda_device):
     for dtype in (torch.complex64, torch.float16):
         V = torch.zeros(4, 64, dtype=dtype, device=cuda_device)
@@ -375,6 +397,157 @@ def test_cgs_project_raises_on_bad_operands(cuda_device):
     korth.cgs_project(tall, w, torch.ones(top + 1), rows=top)
     with pytest.raises(ValueError, match="shared memory"):
         korth.cgs_project(tall, w, torch.ones(top + 1), rows=top + 1)
+
+
+#: K7 as config 3 runs it: a 31-row float32 basis of 4095^2 columns (N = 1
+#: mod 4), and of one and two columns more (2 and 3 mod 4), projected along
+#: a second basis (the dual basis P) at its first prefixes, the middle
+#: one and the last two
+C3_PROJECT_ROWS = [1, 2, 3, 4, 5, 16, 30, 31]
+
+
+@pytest.mark.parametrize("extra", [0, 1, 2],
+                         ids=["N=1mod4", "N=2mod4", "N=3mod4"])
+def test_cgs_project_at_config3_shape(cuda_device, extra):
+    """K7 where three rows in four start off a 16-byte boundary: at every
+    prefix of ``C3_PROJECT_ROWS`` held to float64 by ``ProjectCheck``,
+    each planted fault caught, a repeated call bit-identical."""
+    m, N = 31, 4095 ** 2 + extra
+    gen = torch.Generator(device=cuda_device).manual_seed(extra)
+    V, P = (torch.randn(m, N, generator=gen, device=cuda_device) / N ** 0.5
+            for _ in range(2))
+    w = torch.randn(N, generator=gen, device=cuda_device)
+    for rows in C3_PROJECT_ROWS:
+        mask = (torch.arange(m, device=cuda_device) < rows).float()
+        got = korth.cgs_project(V, w, mask, P, rows=rows)
+        again = korth.cgs_project(V, w, mask, P, rows=rows)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+        plain = korth.cgs_project_torch(V, w, mask, P, rows)
+        check = ProjectCheck(V, w, mask, rows, plain, P)
+        assert check.failures(got) == [], rows
+        assert check.assert_faults_caught(got) == 4
+        del check, got, again, plain
+
+
+#: K1's row-ring tiles: (nrows, ncols, R, P, offset) with the operands
+#: starting ``offset`` floats past a 16-byte boundary: the padded and
+#: unpadded finest buffers, the odd widths of the unpadded V-cycle, a
+#: ragged grid, the smallest levels, and row starts of every alignment
+K1_SHAPES = [(4095, 4095, 4096, 4096, 0), (4096, 4096, 4096, 4096, 0),
+             (4095, 4095, 4095, 4095, 0), (2047, 2047, 2047, 2047, 0),
+             (511, 511, 511, 511, 0), (1021, 1000, 1021, 1000, 0),
+             (1, 1, 1, 1, 0), (3, 3, 3, 3, 0), (7, 7, 7, 7, 0),
+             (13, 130, 13, 130, 1), (9, 121, 9, 122, 3),
+             (300, 257, 300, 257, 2)]
+
+
+@pytest.mark.parametrize("kind", ["lap", "cd"])
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=str)
+def test_k1_tiles_match_plain(cuda_device, shape, kind):
+    """K1's four uses against the plain version (the stencil tolerance),
+    with the V-cycle's Laplacian and the north star's nonsymmetric
+    coefficients; noise in the pads must not reach the output; a repeated
+    call gives the same bits."""
+    nrows, ncols, R, P, off = shape
+    rng = np.random.default_rng(R * P + off + (kind == "cd"))
+    u, g = (interop.from_numpy(rng.standard_normal(R * P + off).astype(
+        np.float32), cuda_device)[off:] for _ in range(2))
+    A = cd_coeffs(nrows) if kind == "cd" else _operator_lap(nrows)
+    for co, has_g, al, be in _affine_uses(A, 0.8 / A[0]):
+        kw = dict(nx=R, ny=P, coeffs=co, ncols=ncols, nrows=nrows, alpha=al,
+                  beta=be)
+        got = kst.stencil5_affine(u, g if has_g else None, **kw)
+        again = kst.stencil5_affine(u, g if has_g else None, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+        def plain(a, b):
+            return kst.stencil5_affine_torch(
+                a.view(R, P), b.view(R, P) if has_g else None, co, nrows,
+                ncols, al, be).view(-1)
+
+        want, want64 = plain(u, g), plain(u.double(), g.double())
+        np.testing.assert_allclose(interop.to_numpy(got),
+                                   interop.to_numpy(want), rtol=2e-6,
+                                   atol=fma_atol(want, want64))
+
+
+#: the coarse form: (nrows, ncols, R, P) of the unpadded and the padded
+#: coarsest level, the largest V-cycle level it takes, and a ragged region
+COARSE_SHAPES = [(31, 31, 31, 31), (31, 31, 32, 128), (127, 127, 127, 127),
+                 (9, 121, 16, 128)]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 60])
+@pytest.mark.parametrize("shape", COARSE_SHAPES, ids=str)
+def test_coarse_form_matches_plain(cuda_device, shape, sweeps):
+    """K1's coarse form against its plain version (the stencil
+    tolerance), noise in the pads of ``r`` never read, exact zeros off
+    the region, one launch counted as ``stencil5_affine`` and
+    ``stencil5_coarse``, a repeated call bit-identical."""
+    nrows, ncols, R, P = shape
+    rng = np.random.default_rng(R * P + sweeps)
+    r = interop.from_numpy(rng.standard_normal(R * P).astype(np.float32),
+                           cuda_device)
+    A = _operator_lap(nrows)
+    w = 0.8 / A[0]
+    kw = dict(nx=R, ny=P, coeffs=A, w=w, sweeps=sweeps, ncols=ncols,
+              nrows=nrows)
+    before = kernels.launch_counts()
+    got = kst.stencil5_coarse(r, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["stencil5_affine"] == before["stencil5_affine"] + 1
+    assert after["stencil5_coarse"] == before["stencil5_coarse"] + 1
+    assert torch.equal(got, kst.stencil5_coarse(r, **kw))
+    out = got.view(R, P)
+    assert bool(torch.all(out[nrows:] == 0)) and bool(torch.all(
+        out[:, ncols:] == 0))
+
+    def plain(v):
+        return kst.stencil5_coarse_torch(v.view(R, P), A, w, sweeps, nrows,
+                                         ncols).view(-1)
+
+    want, want64 = plain(r), plain(r.double())
+    np.testing.assert_allclose(interop.to_numpy(got), interop.to_numpy(want),
+                               rtol=2e-6, atol=fma_atol(want, want64))
+
+
+def test_coarse_form_size_limit(cuda_device):
+    """The dispatch by size on the card: the coarse form takes the
+    largest region that fits one block's shared memory and refuses the
+    next one; the V-cycle runs its coarsest level as one coarse launch at
+    127^2 and as per-sweep K1 launches at 255^2."""
+    n = 1
+    while kst.coarse_fits(n + 1, n + 1):
+        n += 1
+    for m, fits in ((n, True), (n + 1, False)):
+        r = torch.randn(m * m, device=cuda_device)
+        kw = dict(nx=m, ny=m, coeffs=_operator_lap(m), w=0.1, sweeps=2)
+        if fits:
+            kst.stencil5_coarse(r, **kw)
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                kst.stencil5_coarse(r, **kw)
+    for coarsest, coarse, per_sweep in ((127, 1, 0), (255, 0, 3)):
+        M = ops.multigrid_poisson_preconditioner(
+            255, coarsest=coarsest, coarse_sweeps=3, impl="cuda",
+            device=cuda_device)
+        r = torch.randn(255 * 255, device=cuda_device)
+        kernels.reset_launch_counts()
+        got = M(r)
+        counts = kernels.launch_counts()
+        plain = ops.multigrid_poisson_preconditioner(
+            255, coarsest=coarsest, coarse_sweeps=3, impl="torch",
+            device=cuda_device)(r)
+        assert counts["stencil5_coarse"] == coarse
+        # above the coarse level: 4 K1 launches per level
+        levels = 1 if coarsest == 127 else 0
+        assert counts["stencil5_affine"] == 4 * levels + coarse + per_sweep
+        scale = max(1.0, float(plain.abs().max()))
+        assert float((got - plain).abs().max()) <= 5e-6 * scale
 
 
 #: K2 beyond CASES: the north star's two finest V-cycle buffers, a buffer
@@ -750,7 +923,8 @@ def test_unpadded_vcycle_kernel_lane_matches_plain(cuda_device):
     through K1 at every level against its plain lane on the card, float32,
     within the bound of the padded V-cycle's lanes (``5e-6 * max|want|``);
     K1 once per level Laplacian: 4 per level above the coarse one (the
-    collapsed presmooth, the residual, two post-sweeps) and 60 there."""
+    collapsed presmooth, the residual, two post-sweeps), and its coarse
+    form once for the 60 sweeps there."""
     nx = 1023
     kw = dict(coarsest=31, coarse_sweeps=60, device=cuda_device)
     r = torch.randn(nx * nx, generator=torch.Generator(
@@ -759,8 +933,9 @@ def test_unpadded_vcycle_kernel_lane_matches_plain(cuda_device):
     kernels.reset_launch_counts()
     got = ops.multigrid_poisson_preconditioner(nx, impl="cuda", **kw)(r)
     counts = kernels.launch_counts()
-    assert counts["stencil5_affine"] == 4 * 5 + 60
-    assert sum(counts.values()) == counts["stencil5_affine"]
+    assert counts["stencil5_affine"] == 4 * 5 + 1
+    assert counts["stencil5_coarse"] == 1
+    assert sum(counts.values()) == counts["stencil5_affine"] + 1
     scale = max(1.0, float(plain.abs().max()))
     assert float((got - plain).abs().max()) <= 5e-6 * scale
     # float64 never reaches K1

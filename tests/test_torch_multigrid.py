@@ -3,7 +3,9 @@ krypy_tpu.ops on the same numpy inputs: one V-cycle application of
 ``multigrid_poisson_preconditioner`` without ``pad_cols``, the exact
 coarse solve ``poisson_dst_solver`` and the red-black
 ``ssor_poisson_preconditioner``; and the padded lane's ``nu_pre`` of 0 and
-1 and ``coarse_sweeps=0`` held to the unpadded lane.
+1 and ``coarse_sweeps=0`` held to the unpadded lane; and K1's coarse
+form (``kernels.stencil.stencil5_coarse``, its plain version on the CPU)
+against the JAX package's coarse solve on both layouts.
 
 Tolerances: float64 ``rtol = 1e-12`` relative to the largest output entry
 (the two packages sum the same terms in the same order; the FFT of the
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 
 from krypy_tpu import ops as jops
 from krypy_tpu_torch import interop, ops
+from krypy_tpu_torch.kernels import stencil as tst
 
 torch.set_num_threads(1)
 
@@ -215,3 +218,48 @@ def test_multigrid_masks_are_built_once(monkeypatch):
     assert [n for n, _ in calls] == [63, 31, 15, 7]
     M(torch.ones(63 * 63, dtype=torch.float64))
     assert len(calls) == 4
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("sweeps", [1, 2, 59, 60])
+@pytest.mark.parametrize("n", [7, 31])
+@pytest.mark.parametrize("pad", [False, True], ids=["unpadded", "padded"])
+def test_coarse_form_matches_jax(pad, n, sweeps, dtype):
+    """K1's coarse form (its plain version on the CPU) against the JAX
+    package's coarse solve: ``multigrid_poisson_preconditioner(n,
+    coarsest=n, coarse_sweeps=k)``, whose whole V-cycle is the coarsest
+    level's damped-Jacobi sweeps (unpadded: ``k`` sweeps from zero;
+    padded: ``u = w r`` and ``k - 1`` sweeps); and the port's own
+    V-cycle built alike on both lanes (``impl="cuda"`` reaches the coarse
+    form in float32).  float64 to 1e-12; float32 ``atol = max(2e-7
+    max|want|, 4 x the plain version's own float32 error against
+    float64)``."""
+    kw = dict(coarsest=n, coarse_sweeps=sweeps, pad_cols=pad)
+    R, P = (ops.pad_rows_width(n), ops.pad_cols_width(n)) if pad else (n, n)
+    rng = np.random.default_rng(n * 100 + sweeps)
+    buf = np.zeros((R, P))
+    buf[:n, :n] = rng.standard_normal((n, n))
+    r = buf.reshape(-1)
+    want = np.asarray(jops.multigrid_poisson_preconditioner(n, **kw)(
+        jnp.asarray(r.astype(dtype))))
+    h2 = (1.0 / (n + 1)) ** 2
+
+    def coarse(dt):
+        return interop.to_numpy(tst.stencil5_coarse(
+            _t(r.astype(dt)), nx=R, ny=P, coeffs=ops._lap_coeffs(h2),
+            w=0.8 / (4.0 / h2), sweeps=sweeps, ncols=n, nrows=n))
+
+    got = [coarse(dtype)]
+    got += [interop.to_numpy(ops.multigrid_poisson_preconditioner(
+        n, impl=impl, device="cpu", **kw)(_t(r.astype(dtype))))
+        for impl in ("cuda", "torch")]
+    if dtype == np.float64:
+        for g in got:
+            _close(g, want)
+        return
+    own = float(np.max(np.abs(got[0].astype(np.float64) - coarse(
+        np.float64))))
+    atol = max(2e-7 * float(np.max(np.abs(want))), 4.0 * own)
+    for g in got:
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, want, rtol=0, atol=atol)

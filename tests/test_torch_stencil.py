@@ -151,10 +151,13 @@ def test_stencil5_resrestrict_rows_matches_pallas(dt):
     (9, 120, 16, 128), (8, 128, 8, 128), (7, 127, 8, 128),
     (63, 255, 64, 256), (65, 129, 72, 256), (9, 121, 9, 122),
     (511, 511, 512, 512), (1023, 1023, 1024, 1024), (2047, 2047, 2048, 2048),
-    (4095, 4095, 4096, 4096), (1, 1, 1, 1), (3000, 5, 3000, 5)])
+    (4095, 4095, 4096, 4096), (1, 1, 1, 1), (3000, 5, 3000, 5),
+    (4095, 4095, 4095, 4095), (2047, 2047, 2047, 2047), (511, 511, 511, 511),
+    (1021, 1000, 1021, 1000), (31, 31, 31, 31), (7, 7, 7, 7), (3, 3, 3, 3)])
 def test_jacobi2_grid_covers_every_output_once(nrows, ncols, nx, ny):
-    """K2's grid (``jacobi2_grid``, a function of the buffer's shape
-    alone) tiles the ``(nx, ny)`` buffer: each block's strip of columns
+    """K1's and K2's grid (``jacobi2_grid``, a function of the buffer's
+    shape alone; K1 also on the unpadded odd widths) tiles the ``(nx,
+    ny)`` buffer: each block's strip of columns
     and run of rows, clipped to the buffer, as the kernel computes them,
     cover every output exactly once and no block is empty; runs are whole
     steps, shortened only while the grid is below its block target."""
@@ -198,3 +201,96 @@ def test_cpu_path_counts_no_launch():
     u = torch.ones(16 * 128, dtype=torch.float32)
     tst.stencil5_affine(u, nx=16, ny=128, coeffs=COEFFS, ncols=9, nrows=9)
     assert tst.launch_counts() == {k: 0 for k in tst.LAUNCHES}
+
+
+def test_coarse_form_size_limit(monkeypatch):
+    """The coarse form's dispatch by size: ``coarse_fits`` takes every
+    region whose two bordered planes of ``u`` and ``r`` fit one block's
+    shared memory (the largest square 137^2 in, 138^2 out; of the
+    V-cycle's levels 127^2 in, 255^2 out), and the ``impl="cuda"``
+    V-cycle calls the coarse form at a coarsest level that fits and the
+    per-sweep stencil at one that does not."""
+    assert tst.coarse_smem(137, 137) <= tst.COARSE_MAX_SMEM \
+        < tst.coarse_smem(138, 138)
+    assert tst.coarse_fits(137, 137) and not tst.coarse_fits(138, 138)
+    assert tst.coarse_fits(127, 127) and not tst.coarse_fits(255, 255)
+    assert tst.coarse_fits(31, 31) and tst.coarse_fits(1, 1)
+    calls = []
+    real = tst.stencil5_coarse
+    monkeypatch.setattr(ops.kernels, "stencil5_coarse",
+                        lambda *a, **k: calls.append(k["nx"]) or real(*a, **k))
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        255 * 255).astype(np.float32))
+    for coarsest, want in ((127, [127]), (255, [])):
+        calls.clear()
+        for impl in ("cuda", "torch"):
+            ops.multigrid_poisson_preconditioner(
+                255, coarsest=coarsest, coarse_sweeps=3, impl=impl,
+                device="cpu")(r)
+        assert calls == want
+    calls.clear()
+    ops.multigrid_poisson_preconditioner(
+        255, coarsest=127, coarse_sweeps=3, impl="cuda", pad_cols=True,
+        device="cpu")(ops.pad_grid_vec(r, 255, 255))
+    assert calls == [ops.pad_rows_width(127)]
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 5])
+def test_coarse_form_wrapper_on_the_cpu(sweeps):
+    """On a CPU tensor the coarse form runs its plain version, reading only
+    the logical region (noise in the pads of ``r``) and writing exact
+    zeros elsewhere, counts no launch, and equals ``sweeps`` chained K1
+    steps from zero."""
+    nx, ny, R, P = 9, 20, 16, 24
+    rng = np.random.default_rng(sweeps)
+    r = torch.from_numpy(rng.standard_normal(R * P))
+    w = 0.2
+    tst.reset_launch_counts()
+    got = tst.stencil5_coarse(r, nx=R, ny=P, coeffs=COEFFS, w=w,
+                              sweeps=sweeps, ncols=ny, nrows=nx)
+    assert tst.launch_counts() == {k: 0 for k in tst.LAUNCHES}
+    out = got.reshape(R, P)
+    assert torch.all(out[nx:] == 0) and torch.all(out[:, ny:] == 0)
+    rz = torch.zeros(R, P, dtype=r.dtype)
+    rz[:nx, :ny] = r.reshape(R, P)[:nx, :ny]
+    u = torch.zeros(R * P, dtype=r.dtype)
+    step = tuple(-w * c for c in COEFFS)
+    for _ in range(sweeps):
+        u = tst.stencil5_affine(u, rz.reshape(-1), nx=R, ny=P, coeffs=step,
+                                ncols=ny, nrows=nx, alpha=1.0, beta=w)
+    np.testing.assert_allclose(got.numpy(), u.numpy(), rtol=1e-13,
+                               atol=1e-13 * max(1.0, float(u.abs().max())))
+
+
+@pytest.mark.parametrize("nx,ny", [(4095, 4095), (4096, 4096), (2047, 2047),
+                                   (1021, 1000), (7, 7), (1, 1), (13, 130),
+                                   (300, 257)])
+def test_affine_grid_covers_every_output_once(nx, ny):
+    """K1's grid (``affine_grid``) in each row's aligned frame, as
+    ``csrc/stencil5.cu`` walks it: strip x computes the row's columns
+    ``[128 x - o, 128 x - o + 128)`` (o the output row's distance from a
+    16-byte boundary, ``i ny mod 4`` for the wrapper's aligned output),
+    lane l the four at ``128 x - o + 4 l``; clipped to the buffer every
+    column of a row is computed exactly once, a lane's whole group is
+    stored as one aligned 16-byte store wherever it lies inside the row,
+    and the runs cover every row once."""
+    aligned = ny % 4 == 0
+    strips, runs, steps = tst.affine_grid(nx, ny, aligned)
+    assert (runs, steps) == tst.jacobi2_grid(nx, ny)[1:]
+    h = steps * tst.JACOBI2_STEP_ROWS
+    assert (runs - 1) * h < nx <= runs * h
+    lanes = np.arange(32)
+    # a row's frame depends on i ny mod 4 alone: the first rows of each
+    # residue and the last ones
+    for i in sorted(set(range(min(nx, 8))) | set(range(max(0, nx - 4), nx))):
+        o = (i * ny) % 4
+        cover = np.zeros(ny, dtype=np.int64)
+        for x in range(strips):
+            j = x * tst.JACOBI2_STRIP - o + 4 * lanes
+            whole = (j >= 0) & (j + 3 < ny)
+            assert np.all((i * ny + j[whole]) % 4 == 0)
+            for q in range(4):
+                col = j + q
+                inside = (col >= 0) & (col < ny)
+                cover[col[inside]] += 1
+        assert np.all(cover == 1)

@@ -5,11 +5,13 @@ convection-diffusion solve, the Ritz-deflated and recycling GMRES of
 benchmarks/suite.py's config 4 (shifted Laplacian) at the north star's
 size, its configs 1-3 (GMRES on the README diagonal; CG and MINRES with
 a weighted inner product and the unpadded V-cycle; restarted GMRES with
-``Ml``, ``M`` and ``Mr``), and the multi-device path on rank processes
-that share the card.
+``Ml``, ``M`` and ``Mr``), its config 5 (Newton-Krylov on a nonlinear
+Schrödinger residual, recycled Jacobian solves, K1 under
+``torch.func.jvp``), and the multi-device path on rank processes that
+share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
-                           --only {stencil,ortho,baseline}]
+                           --only {stencil,ortho,baseline,kernels,config5}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -122,7 +124,30 @@ before printing its last line):
    the inner iterations; then both configs' lanes timed, ``BL_ROUNDS``
    interleaved solves each, with the device busy share of one profiled
    solve; one JSON line per config;
-11. the mesh phase: single-device references in this process (K1's
+11. config 5 (``suite.config5_nls_newton_recycling``): K1's forward-mode
+   rule first, ``torch.func.jvp`` of K1 (matvec and affine form) at
+   96^2, 1023^2 and 1021x1000 and of config 5's ``F`` at 96^2 and 1023^2
+   against the plain versions' (the stencil phase's tolerance; two K1
+   launches per jvp, one counted as a tangent, ``kernels.tangent_counts``),
+   timed
+   beside the forward call, the plain jvp and ``F.conv2d`` on the pair;
+   then config 5 and 5a (``AutoRecyclingGmres``; the plain lane replays
+   the kernel lane's clock so that both choose from one) at 96^2 on the
+   kernel lane (``impl="cuda"``: K1 in ``F`` and in each Jacobian
+   action's tangent) and the plain lane, warm, then counted: both
+   converged in the JAX package's 5 Newton steps (``C5_JAX``), inner
+   iterations within 3 of the plain lane's, K1 launched ``1 + f_calls +
+   jvp_calls`` times (once per call of ``F``, once per tangent, once for
+   the manufactured source) and no other kernel, none on the plain lane,
+   5a's widths in ``C5_WIDTHS`` and equal; then config 5 at 1023^2 and
+   511^2 with the same gates (Newton steps within 1 of the plain lane's
+   and the JAX package's, inner iterations within 3 where neither solve
+   reaches the cap of 250), ``C5_ROUNDS`` interleaved sequences per lane
+   timed on ``serve_s`` (the first, counted, round gated), and at 1023^2
+   the device busy share of one profiled sequence of the kernel lane;
+   one JSON line per grid and config;
+   ``--only config5`` runs just it;
+12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
    takes no two ranks on one card): NCCL of 1 rank, gloo of 2 and 4.
@@ -144,8 +169,10 @@ before printing its last line):
    iteration, one halo exchange per matvec, the second recycled solve
    deflated.  Any rank's failure or the world's deadline fails the run.
    The times are per shard on ONE card: no multi-GPU speed-up;
-12. output: a JSON line of configs 2 and 3's walls, a JSON line of
-   per-kernel results (``timed_by`` says, for
+13. output: a JSON line of configs 2 and 3's walls, a JSON line of
+   per-kernel results (K1's forward-mode tangent as a row of its own,
+   ``stencil5_affine_jvp``, with config 5's launches; ``timed_by`` says,
+   for
    each time, whether it is a profiled device time, ``"profiler"``, or
    the wall of back-to-back calls, ``"events"``, taken only where the
    profiler recorded no device events), then, as the last line,
@@ -175,6 +202,7 @@ the Ritz hand-off); the V-cycle's host time is the default run's
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2585,6 +2613,354 @@ def baseline_phase(device):
     return report, c2_counts, c3_counts, c2_record, c3_record
 
 
+# ---------------------------------------------------------------------------
+# config 5: Newton-Krylov over recycled GMRES, K1 under torch.func.jvp
+# ---------------------------------------------------------------------------
+
+#: config 5's grids: benchmarks/suite.py's own (96^2), the full width
+#: (bench.py's 1023^2, a 1M-unknown Gross-Pitaevskii grid) and 511^2,
+#: where recycling still changes the counts
+C5_NX, C5_FULL, C5_MID = 96, NX, 511
+#: the JAX package's counts: benchmarks/suite.py's
+#: config5_nls_newton_recycling on the CPU (XLA:CPU, float32); ``"auto"``
+#: is its config 6, whose widths follow that run's own clock
+C5_JAX = {
+    96: {"newton_steps": 5, "inner_iters": [34, 86, 33, 30, 18]},
+    "96 auto": {"newton_steps": 5, "selected_widths": [0, 5, 5, 4, 5],
+                "inner_iters": [34, 85, 16, 24, 10]},
+    511: {"newton_steps": 5, "inner_iters": [188, 250, 250, 96, 122]},
+    1023: {"newton_steps": 7, "inner_iters": [250] * 7},
+}
+#: config 5's inner iteration cap (suite.py's ``inner_maxiter``) and the
+#: widths its auto variant may choose (``max_vectors = recycle + 2 = 5``)
+C5_CAP = 250
+C5_WIDTHS = tuple(range(6))
+#: timed Newton sequences per lane at each full-width grid
+C5_ROUNDS = 3
+#: K1's forward-mode rule is held and timed on these grids: config 5's
+#: two and one ragged odd one
+C5_JVP_GRIDS = ((C5_NX, C5_NX), (C5_FULL, C5_FULL), (1021, 1000))
+
+
+def config5_jvp_phase(device):
+    """K1's forward-mode rule on the card: ``torch.func.jvp`` of ``v ->
+    stencil5_affine(v, g, alpha, beta)`` (the matvec, which config 5's
+    Laplacian is, and the affine form with ``g``) and of the nls residual
+    ``F`` of config 5 on the kernel lane, against ``torch.func.jvp`` of
+    the plain versions, float32, the stencil phase's tolerance; each jvp
+    launches K1 twice (the primal and the tangent, the second counted as
+    a tangent, ``kernels.tangent_counts()``).  At each grid the matvec's jvp is timed
+    (device ms, and host ms of one synchronised call) beside the forward
+    call, the plain version's jvp and ``F.conv2d`` on the pair ``(x,
+    v)``, and on square grids the host ms of one Jacobian action of
+    config 5 on either lane.  Returns ``{"max_abs_err", "times": {(nx, ny): {...}}}``."""
+    import torch
+    from krypy_tpu_torch import interop, kernels, ops
+    from krypy_tpu_torch.kernels import stencil as kst
+    from krypy_tpu_torch.kernels.parity import fma_atol
+
+    report = {"max_abs_err": 0.0, "times": {}}
+
+    def hold(what, got, want, want64):
+        err = float((got - want).abs().max())
+        atol = fma_atol(want, want64)
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        np.testing.assert_allclose(interop.to_numpy(got),
+                                   interop.to_numpy(want), rtol=2e-6,
+                                   atol=atol, err_msg=what)
+
+    for nx, ny in C5_JVP_GRIDS:
+        gen = torch.Generator(device=device).manual_seed(nx + ny)
+        x, v, g, gt = (torch.randn(nx * ny, generator=gen, device=device)
+                       for _ in range(4))
+        co = _lap_coeffs(nx, ny)
+        for use, al, be in (("matvec", 0.0, 0.0), ("affine", 0.5, -1.5)):
+            def k1(u, gg=None, al=al, be=be):
+                return kst.stencil5_affine(u, gg, nx=nx, ny=ny, coeffs=co,
+                                           alpha=al, beta=be)
+
+            def plain(u, gg=None, al=al, be=be):
+                return kst.stencil5_affine_torch(
+                    u.reshape(nx, ny),
+                    None if gg is None else gg.reshape(nx, ny), co, nx, ny,
+                    al, be).reshape(-1)
+
+            args, tans = ((x,), (v,)) if use == "matvec" else ((x, g),
+                                                              (v, gt))
+            before = (kernels.launch_counts()["stencil5_affine"],
+                      kernels.tangent_counts()["stencil5_affine"])
+            pk, tk = torch.func.jvp(k1, args, tans)
+            torch.cuda.synchronize()
+            after = (kernels.launch_counts()["stencil5_affine"],
+                     kernels.tangent_counts()["stencil5_affine"])
+            if (after[0] - before[0], after[1] - before[1]) != (2, 1):
+                raise AssertionError(f"K1 jvp {nx}x{ny} {use}: (launches, "
+                                     f"tangents) {before} -> {after}")
+            pp, tp = torch.func.jvp(plain, args, tans)
+            pp64, tp64 = torch.func.jvp(
+                plain, tuple(a.double() for a in args),
+                tuple(t.double() for t in tans))
+            hold(f"K1 jvp {nx}x{ny} {use} primal", pk, pp, pp64)
+            hold(f"K1 jvp {nx}x{ny} {use} tangent", tk, tp, tp64)
+        if nx == ny:
+            Fk, uk = ops.nls_residual_2d(nx, amplitude=3.0, impl="cuda",
+                                         device=device)
+            Fp, _ = ops.nls_residual_2d(nx, amplitude=3.0, device=device)
+            Fp64, _ = ops.nls_residual_2d(nx, amplitude=3.0,
+                                          dtype=torch.float64, device=device)
+            u = uk + 0.1 * x
+            before = kernels.tangent_counts()["stencil5_affine"]
+            pk, tk = torch.func.jvp(Fk, (u,), (v,))
+            torch.cuda.synchronize()
+            if kernels.tangent_counts()["stencil5_affine"] != before + 1:
+                raise AssertionError(f"nls F jvp {nx}^2: no tangent launch")
+            pp, tp = torch.func.jvp(Fp, (u,), (v,))
+            _, tp64 = torch.func.jvp(Fp64, (u.double(),), (v.double(),))
+            hold(f"nls F jvp {nx}^2 tangent", tk, tp, tp64)
+            # the primal's float64 value with the float32 lane's own
+            # source g (F(0) = -g exactly)
+            z = torch.zeros_like(u)
+            pp64 = Fp64(u.double()) - Fp64(z.double()) + Fp(z).double()
+            hold(f"nls F jvp {nx}^2 primal", pk, pp, pp64)
+
+        def mv(u):
+            return kst.stencil5_affine(u, nx=nx, ny=ny, coeffs=co)
+
+        def mv_plain(u):
+            return kst.stencil5_affine_torch(u.reshape(nx, ny), None, co,
+                                             nx, ny).reshape(-1)
+
+        xv = torch.stack([x, v]).view(2, 1, nx, ny)
+        wt = torch.tensor([[0.0, co[1], 0.0], [co[3], co[0], co[4]],
+                           [0.0, co[2], 0.0]], device=device).view(1, 1, 3, 3)
+        # x and v read, the primal and the tangent written; ~15 operations
+        # per output
+        bms, by = bound(16 * nx * ny, 30 * nx * ny)
+        t = {"bound_ms": bms, "bound_by": by}
+        t["ms"], t["timed_by"] = _device_ms(
+            lambda: torch.func.jvp(mv, (x,), (v,)), bms)
+        t["forward_ms"], _ = _device_ms(lambda: mv(x), bms / 2)
+        t["plain_ms"], _ = _device_ms(
+            lambda: torch.func.jvp(mv_plain, (x,), (v,)), bms)
+        t["library_ms"], _ = _device_ms(
+            lambda: torch.nn.functional.conv2d(xv, wt, padding=1), bms)
+        t["host_ms"] = _host_ms(lambda: torch.func.jvp(mv, (x,), (v,)))
+        t["forward_host_ms"] = _host_ms(lambda: mv(x))
+        t["plain_host_ms"] = _host_ms(
+            lambda: torch.func.jvp(mv_plain, (x,), (v,)))
+        if nx == ny:
+            # config 5's Jacobian action, one call, on either lane
+            t["F_jvp_host_ms"] = _host_ms(
+                lambda: torch.func.jvp(Fk, (u,), (v,)))
+            t["F_jvp_plain_host_ms"] = _host_ms(
+                lambda: torch.func.jvp(Fp, (u,), (v,)))
+        report["times"][nx, ny] = t
+        print(f"K1 jvp {nx}x{ny}: device {t['ms']:.5f} ms ({t['timed_by']})"
+              f" forward {t['forward_ms']:.5f} plain jvp "
+              f"{t['plain_ms']:.5f} conv2d pair {t['library_ms']:.5f} bound "
+              f"{bms:.5f} ({by}); host per call {t['host_ms']:.4f} ms "
+              f"against forward {t['forward_host_ms']:.4f} and plain jvp "
+              f"{t['plain_host_ms']:.4f}"
+              + (f"; config 5's Jacobian action {t['F_jvp_host_ms']:.4f} "
+                 f"(plain lane {t['F_jvp_plain_host_ms']:.4f})"
+                 if nx == ny else ""), flush=True)
+    return report
+
+
+@contextlib.contextmanager
+def _replayed_clock(record=None, replay=None):
+    """A context in which ``AutoRecyclingGmres._observe`` appends each
+    solve's ``wall / niter`` to ``record``, or takes the i-th entry of
+    ``replay`` as its wall per iteration in place of the measured one:
+    the plain lane of config 5a then chooses its widths from the kernel
+    lane's clock, so that the two lanes' counts can be compared."""
+    from krypy_tpu_torch.functional import deflation as defl
+
+    orig = defl.AutoRecyclingGmres._observe
+    replayed = []
+
+    def observe(self, width, niter, wall_s):
+        if niter > 0 and record is not None:
+            record.append(wall_s / niter)
+        if niter > 0 and replay is not None:
+            wall_s = replay[len(replayed)] * niter
+            replayed.append(width)
+        return orig(self, width, niter, wall_s)
+
+    defl.AutoRecyclingGmres._observe = observe
+    try:
+        yield
+    finally:
+        defl.AutoRecyclingGmres._observe = orig
+
+
+def _c5_run(nx, impl, auto, device, record=None, replay=None):
+    """One config-5 Newton sequence (``suite.config5_nls_newton_recycling``)
+    with the launch counters zeroed just before it and read just after."""
+    import torch
+    from krypy_tpu_torch import kernels, suite
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with _replayed_clock(record, replay):
+        out = suite.config5_nls_newton_recycling(nx, auto=auto, impl=impl,
+                                                 device=device)
+    torch.cuda.synchronize()
+    out["launches"] = {k: c for k, c in kernels.launch_counts().items() if c}
+    out["tangent_launches"] = kernels.tangent_counts()["stencil5_affine"]
+    return out
+
+
+def _c5_check(tag, nx, runs, jax_ref, exact_steps):
+    """Config 5's gates on the kernel lane (``runs["cuda"]``, K1 in ``F``
+    and its tangent) and the plain lane (``runs["torch"]``)."""
+    k, p = runs["cuda"], runs["torch"]
+    for lane, r in runs.items():
+        if not r["converged"] or \
+                r["fnorm_final"] > r["tol"] * max(r["f0"], 1.0):
+            raise AssertionError(f"config {tag} {nx}^2 lane={lane}: not "
+                                 f"converged: {r['resnorms']}, tol "
+                                 f"{r['tol']}")
+    js = jax_ref["newton_steps"]
+    ks, ps = k["newton_steps"], p["newton_steps"]
+    if exact_steps and not ks == ps == js or \
+            max(abs(ks - ps), abs(ks - js), abs(ps - js)) > 1:
+        raise AssertionError(f"config {tag} {nx}^2: Newton steps {ks} "
+                             f"(kernel lane), {ps} (plain), JAX package "
+                             f"{js}")
+    for i, (a, b) in enumerate(zip(k["inner_iters"], p["inner_iters"])):
+        if a < C5_CAP and b < C5_CAP and abs(a - b) > 3:
+            raise AssertionError(
+                f"config {tag} {nx}^2: solve {i}: {a} inner iterations on "
+                f"the kernel lane against {b} on the plain lane "
+                f"({k['inner_iters']} / {p['inner_iters']})")
+    if p["launches"]:
+        raise AssertionError(f"config {tag} {nx}^2: the plain lane launched "
+                             f"{p['launches']}")
+    # every call of F launches K1 once, every Jacobian action once more
+    # for its tangent, building F once (the manufactured source)
+    want = {"stencil5_affine": 1 + k["f_calls"] + k["jvp_calls"]}
+    if k["launches"] != want or k["tangent_launches"] != k["jvp_calls"]:
+        raise AssertionError(
+            f"config {tag} {nx}^2: kernel lane launched {k['launches']} "
+            f"with {k['tangent_launches']} tangents, expected {want} with "
+            f"{k['jvp_calls']}")
+    if p["tangent_launches"]:
+        raise AssertionError(f"config {tag} {nx}^2: the plain lane "
+                             f"launched {p['tangent_launches']} tangents")
+    # one Jacobian action per GMRES iteration and at least one more per
+    # solve (A x0)
+    if k["jvp_calls"] < sum(k["inner_iters"]) + len(k["inner_iters"]):
+        raise AssertionError(f"config {tag} {nx}^2: {k['jvp_calls']} "
+                             f"Jacobian actions in {k['inner_iters']}")
+    if k["selected_widths"] is not None:
+        for lane, r in runs.items():
+            if not all(w in C5_WIDTHS for w in r["selected_widths"]):
+                raise AssertionError(f"config {tag} {nx}^2 lane={lane}: "
+                                     f"widths {r['selected_widths']}")
+        if k["selected_widths"] != p["selected_widths"]:
+            raise AssertionError(
+                f"config {tag} {nx}^2: widths {k['selected_widths']} "
+                f"(kernel lane) against {p['selected_widths']} (plain lane, "
+                "on the kernel lane's clock)")
+
+
+_C5_KEYS = ("newton_steps", "inner_iters", "resnorms", "fnorm_final", "tol",
+            "f0", "eval_floor", "converged", "selected_widths",
+            "predicted_steps", "walls_s", "total_s", "warmup_s", "serve_s",
+            "f_calls", "jvp_calls", "launches", "tangent_launches")
+
+
+def _c5_line(tag, nx, runs, jax_ref, smi, **extra):
+    rec = {"phase": "config5", "config": tag, "nx": nx, "N": nx * nx,
+           "device": smi, "jax": jax_ref,
+           "lanes": {lane: {key: r[key] for key in _C5_KEYS}
+                     for lane, r in runs.items()}}
+    k = runs["cuda"]
+    # K1 launches per GMRES iteration, everything included (primal and
+    # tangent of each Jacobian action, the per-solve and per-step calls)
+    rec["k1_launches_per_inner_iteration"] = (
+        k["launches"]["stencil5_affine"] / sum(k["inner_iters"]))
+    rec.update(extra)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def config5_phase(device, smi):
+    """BASELINE config 5 (``suite.config5_nls_newton_recycling``) on the
+    kernel lane (``impl="cuda"``: K1 in ``F`` and in every Jacobian
+    action's tangent) and the plain lane (``impl="torch"``).  K1's
+    forward-mode rule first (:func:`config5_jvp_phase`).  At 96^2 config
+    5 and 5a (``AutoRecyclingGmres``, the plain lane on the kernel lane's
+    clock), each lane warm, then once counted: both converged in the JAX
+    package's 5 Newton steps, inner iterations within 3 of the plain
+    lane's, the launch identity (``1 + f_calls + jvp_calls`` K1
+    launches, ``jvp_calls`` of them tangents, no other kernel; none on
+    the plain lane), 5a's widths in ``C5_WIDTHS`` and equal on both
+    lanes.  At ``C5_FULL`` and ``C5_MID``, fixed width 3: the same gates
+    with Newton steps within 1 of the plain lane's and of the JAX
+    package's, inner iterations within 3 where neither solve reaches the
+    cap of 250; then ``C5_ROUNDS`` interleaved sequences per lane timed
+    on ``serve_s`` and, at ``C5_FULL``, the device busy share of one
+    profiled sequence per lane.  One JSON line per grid and config.
+    Returns ``(jvp report, counted kernel-lane run at C5_FULL, lines)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    jvp = config5_jvp_phase(device)
+    lines = []
+    for tag, auto in (("5", False), ("5a", True)):
+        jax_ref = C5_JAX["96 auto" if auto else 96]
+        for lane in ("cuda", "torch"):
+            _c5_run(C5_NX, lane, auto, device)  # warm
+        clock = []
+        runs = {"cuda": _c5_run(C5_NX, "cuda", auto, device, record=clock)}
+        runs["torch"] = _c5_run(C5_NX, "torch", auto, device,
+                                replay=clock if auto else None)
+        _c5_check(tag, C5_NX, runs, jax_ref, exact_steps=True)
+        lines.append(_c5_line(tag, C5_NX, runs, jax_ref, smi))
+    full = None
+    for nx in (C5_FULL, C5_MID):
+        t0 = time.perf_counter()
+        # the counted sequences are the first round of the timing
+        serve = {"cuda": [], "torch": []}
+        total = {"cuda": [], "torch": []}
+        runs = {}
+        for r in range(C5_ROUNDS):
+            for lane in (("cuda", "torch") if r % 2 == 0
+                         else ("torch", "cuda")):
+                out = _c5_run(nx, lane, False, device)
+                runs.setdefault(lane, out)
+                serve[lane].append(out["serve_s"])
+                total[lane].append(out["total_s"])
+            if r == 0:
+                _c5_check("5", nx, runs, C5_JAX[nx], exact_steps=False)
+        timing = {lane: dict(serve_s=serve[lane], total_s=total[lane],
+                             serve_median=statistics.median(serve[lane]),
+                             total_median=statistics.median(total[lane]))
+                  for lane in runs}
+        if nx == C5_FULL:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _c5_run(nx, "cuda", False, device)
+            busy = sum(e.time_range.elapsed_us()
+                       for e in _device_events(prof)) / 1e6
+            timing["cuda"]["busy_s"] = busy
+            timing["cuda"]["busy_share_of_total"] = \
+                busy / timing["cuda"]["total_median"]
+            full = runs["cuda"]
+        for lane, t in timing.items():
+            print(f"timing config5 {nx}^2 lane={lane} serve_s median="
+                  f"{t['serve_median']:.6f} all={t['serve_s']} total_s "
+                  f"median={t['total_median']:.6f}"
+                  + (f" busy {t['busy_s']:.6f} s = "
+                     f"{100 * t['busy_share_of_total']:.1f}% of the total"
+                     if "busy_s" in t else ""), flush=True)
+        lines.append(_c5_line("5", nx, runs, C5_JAX[nx], smi, timing=timing,
+                              phase_s=time.perf_counter() - t0))
+    return jvp, full, lines
+
+
 def level_ranking(report, ns_counts):
     """The stencil and prefix-sweep kernels of one north-star solve
     ranked by launches x (device time - bound), each stencil kernel at
@@ -2719,12 +3095,14 @@ def main(argv=None):
                          "faults, against its residual-history limits; "
                          "prints no result line")
     ap.add_argument("--only",
-                    choices=("stencil", "ortho", "baseline", "kernels"),
+                    choices=("stencil", "ortho", "baseline", "kernels",
+                             "config5"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
-                         "baseline phase, unpadded K1 and configs 1-3; or "
+                         "baseline phase, unpadded K1 and configs 1-3; "
                          "the device times of K1's matvec, K4 and K7 by "
-                         "phase); "
+                         "phase; or config 5 with K1's forward-mode "
+                         "rule); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -2766,6 +3144,9 @@ def main(argv=None):
     if args.mesh_faults:
         mesh_fault_phase(device)
         return
+    if args.only == "config5":
+        config5_phase(device, smi)
+        return
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase,
@@ -2797,6 +3178,7 @@ def main(argv=None):
                  for k, c in c4_counts.items()}
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
+    c5_jvp, c5_full, _ = config5_phase(device, smi)
     worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
@@ -2878,6 +3260,29 @@ def main(argv=None):
         if name in ("stencil5_affine", "cgs_project"):
             rows[-1][f"launches_config2@{BL_NX}"] = c2_counts.get(name, 0)
             rows[-1][f"launches_config3@{BL_NX}"] = c3_counts[name]
+        if name == "stencil5_affine":
+            rows[-1][f"launches_config5@{C5_FULL}"] = \
+                c5_full["launches"]["stencil5_affine"]
+    # K1's forward-mode rule: the tangent's launch of config 5's
+    # Jacobian actions, timed as the jvp of the matvec at config 5's grid
+    t = c5_jvp["times"][C5_FULL, C5_FULL]
+    rows.append({
+        "name": "stencil5_affine_jvp", "route": "cuda",
+        "source": "krypy_tpu_torch/kernels/csrc/stencil5.cu",
+        "wrapper": "krypy_tpu_torch/kernels/stencil.py (_Affine.jvp)",
+        "replaces": "krypy_tpu/kernels/stencil.py:137 (its forward-mode "
+                    "derivative, jax.jvp of the nls residual)",
+        "launches": c5_full["tangent_launches"],
+        "launches_of": f"config5@{C5_FULL}",
+        "max_abs_err": c5_jvp["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "torch.nn.functional.conv2d on the pair (x, v)",
+        "timed_by": t["timed_by"], "forward_ms": t["forward_ms"],
+        "host_ms": t["host_ms"], "forward_host_ms": t["forward_host_ms"],
+        "ms_by_grid": {f"{nx}x{ny}": v
+                       for (nx, ny), v in c5_jvp["times"].items()},
+    })
     rows += _mesh_rows(worlds)
     print(json.dumps({"walls_s": {
         label: record[label] for record in (c2_rec, c3_rec)

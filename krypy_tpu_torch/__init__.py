@@ -14,13 +14,20 @@ kernels, three prefix-sweep CGS2 kernels, the ``cgs_project`` pass), and
 the multi-device path (``parallel``: meshes over ``torch.distributed``;
 the stencil operators' ``mesh=``; the sharded stencil and fused CGS2,
 K8 and K9, on those kernels per shard; CG, GMRES, deflation and
-recycling inside ``with mesh:``).
+recycling inside ``with mesh:``), BASELINE configs 1-3 (``suite``:
+``functional.minres``/``deflated_minres``, the unpadded V-cycle, K1 at
+every level), and BASELINE config 5 (``suite.config5_nls_newton_recycling``:
+``functional.newton_krylov`` over ``torch.func.jvp`` with K1's
+forward-mode rule, ``functional.AutoRecyclingGmres``,
+``ops.nls_residual_2d``, the ``spectral`` module and the ``core``
+subpackage: dtypes, operators, inner products, QR, rotations, timers).
 """
 
 from . import config  # noqa: F401  (full-f32 matmul defaults at import)
-from . import functional, kernels, northstar, ops, parallel, suite
+from . import (core, errors, functional, kernels, northstar, ops, parallel,
+               spectral, suite)
 
 __version__ = "0.1.0"
 
-__all__ = ["functional", "kernels", "northstar", "ops", "parallel", "suite",
-           "__version__"]
+__all__ = ["core", "errors", "functional", "kernels", "northstar", "ops",
+           "parallel", "spectral", "suite", "__version__"]

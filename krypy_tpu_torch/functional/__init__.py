@@ -2,7 +2,8 @@
 :mod:`krypy_tpu.functional`; ported so far: ``cg``, ``minres``,
 ``gmres``, ``restarted_gmres``, ``refine_to`` and the deflation module:
 ``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the Ritz
-extraction and ``RecyclingGmres``)."""
+extraction, ``RecyclingGmres`` and ``AutoRecyclingGmres``, and
+``newton_krylov``)."""
 
 from .cg import cg
 from .common import (
@@ -26,6 +27,7 @@ from .deflation import (
 )
 from .gmres import gmres, restarted_gmres
 from .minres import minres
+from .newton import NewtonResult, newton_krylov
 from .refine import refine_to
 
 __all__ = [
@@ -39,6 +41,8 @@ __all__ = [
     "deflated_minres",
     "RecyclingGmres",
     "AutoRecyclingGmres",
+    "newton_krylov",
+    "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",
     "assemble_ritz_vectors",

@@ -50,6 +50,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spectral
+from ..errors import AssumptionError
 from .common import (
     apply,
     as_matvec,
@@ -534,19 +536,49 @@ class RecyclingGmres:
         self._last_internals = None
         self._U = None
 
+    def _warmup_widths(self):
+        """Deflation widths whose solves :meth:`warmup` pre-runs."""
+        return (0, self.n_vectors)
+
     def warmup(self, A, b, **kwargs):
-        """Run the plain AND the deflated solver once on a ZERO right-hand
-        side (0 iterations each), with an orthonormal placeholder basis of
-        ``n_vectors`` columns, so that the kernels' build and the first
-        launches of the operator fall outside :meth:`solve`.  ``kwargs``
-        as for the subsequent :meth:`solve` calls.  Returns ``self``."""
+        """Pre-run the plain AND the deflated solver once each on a ZERO
+        right-hand side (0 iterations), the deflated one with an
+        orthonormal placeholder basis of each width of
+        :meth:`_warmup_widths`, and the Ritz extraction after each, so
+        that the kernels' build and the first launches of the operator
+        and of the extraction's products fall outside :meth:`solve`.
+        There is nothing to compile in eager torch: this is the JAX
+        package's pre-compilation only in that it moves first-call costs
+        out of the timed sequence.  ``kwargs`` as for the subsequent
+        :meth:`solve` calls.  Returns ``self``."""
         bz = torch.zeros_like(b)
         N = b.reshape(-1).shape[0]
-        _gmres(A, bz, **kwargs)
-        U = torch.eye(self.n_vectors, N, dtype=b.dtype, device=b.device).T
-        res = deflated_gmres(A, bz, U, **kwargs)
-        float(res.x.sum().real)  # wait for the device
+        for width in self._warmup_widths():
+            if width == 0:
+                res, ints = _gmres(A, bz, return_internal=True, **kwargs)
+                ints["E"] = torch.zeros((0, 0), dtype=b.dtype,
+                                        device=b.device)
+            else:
+                U = torch.eye(width, N, dtype=b.dtype, device=b.device).T
+                res, ints = deflated_gmres(A, bz, U, return_internal=True,
+                                           **kwargs)
+            float(res.x.sum().real)  # wait for the device
+            # the extraction's assembly product as a serving solve shapes
+            # it: at least n_vectors columns of the Krylov basis
+            ints["niter"] = min(self.n_vectors, int(ints["H"].shape[1]))
+            try:
+                self._warm_extraction(ints)
+            except np.linalg.LinAlgError:
+                pass
         return self
+
+    def _warm_extraction(self, ints):
+        """Run the extraction path a serving solve will run."""
+        vecs = ritz_deflation_vectors(
+            ints, n_vectors=self.n_vectors, which=self.which,
+            hermitian=self.hermitian,
+        )
+        float(vecs.sum().real)
 
     def _next_deflation_basis(self, kwargs):
         """Deflation basis for the upcoming solve (None = plain solve): a
@@ -590,9 +622,164 @@ class RecyclingGmres:
         return result
 
 
-def AutoRecyclingGmres(*args, **kwargs):
-    """Recycling GMRES with priced deflation-width selection: not ported
-    (it needs ``spectral.BoundMinres``)."""
-    raise NotImplementedError(
-        "AutoRecyclingGmres is not ported yet: it needs "
-        "spectral.BoundMinres (ROADMAP.md queue A, slice 3)")
+class AutoRecyclingGmres(RecyclingGmres):
+    r"""Recycling GMRES with automatic deflation-subspace selection
+    (counterpart of the JAX package's ``AutoRecyclingGmres``: the
+    reference's greedy ``RitzFactory`` with ``RitzApriori`` pricing).
+
+    * candidate subsets are the prefixes (width 0..``max_vectors``) of
+      the small-magnitude ordering of the augmented Ritz values;
+    * each candidate width ``d`` is priced as
+      ``d * tau(0) + predicted_steps(remaining spectrum) * tau(d)``
+      where ``predicted_steps`` comes from the a-priori
+      :class:`~krypy_tpu_torch.spectral.BoundMinres` (degrading to the CG
+      kappa-bound on definite spectra) applied to the NON-deflated Ritz
+      values, and ``tau(d)`` is the MEASURED per-iteration wall of the
+      width-``d`` solve, updated after every solve (:meth:`_observe`);
+    * an unevaluable candidate (complex Ritz values, empty remainder) is
+      skipped; if ALL candidates are unevaluable the driver falls back to
+      the fixed-width selection of the base class.
+
+    Widths not yet measured are extrapolated from the cheapest measured
+    width by a ``1 + growth * d`` per-iteration overhead factor.  The
+    choice follows measured walls, so two runs (and the two packages)
+    may choose differently; a test that compares them carries ``_tau``
+    across (:func:`krypy_tpu_torch.interop.auto_state_from_numpy`).
+    :meth:`warmup` pre-runs the solve of every candidate width and the
+    extraction product (there is nothing to compile in eager torch).
+    """
+
+    def __init__(self, max_vectors=4, which="sm", hermitian=True,
+                 growth=0.05, widths=None):
+        """:param widths: candidate deflation widths (default: every
+        width ``0..max_vectors``); the priced selection runs over the
+        allowed set only.  0 and ``max_vectors`` are always included (0
+        is the no-deflation fallback; ``max_vectors`` caps the
+        extraction shape)."""
+        super().__init__(
+            n_vectors=max_vectors, which=which, hermitian=hermitian
+        )
+        self.max_vectors = int(max_vectors)
+        if widths is None:
+            self._widths = tuple(range(self.max_vectors + 1))
+        else:
+            ws = {0, self.max_vectors} | {int(w) for w in widths}
+            if not all(0 <= w <= self.max_vectors for w in ws):
+                raise ValueError(
+                    f"widths must lie in [0, {self.max_vectors}]"
+                )
+            self._widths = tuple(sorted(ws))
+        self._growth = float(growth)
+        self._tau = {}
+        #: chosen deflation width per solve (observability)
+        self.selected_widths = []
+        #: predicted iteration counts of the chosen candidates
+        self.predicted_steps = []
+
+    def _warmup_widths(self):
+        return self._widths
+
+    def _warm_extraction(self, ints):
+        # the auto driver always assembles max_vectors columns and
+        # slices; warm that path plus each slice width
+        theta, coeffs, n, d = ritz_pairs(ints, hermitian=self.hermitian)
+        sel, theta_sel = self._padded_selection(theta, coeffs)
+        U_full = assemble_ritz_vectors(ints, sel, n, d, theta=theta_sel)
+        for w in self._widths:
+            if w > 0:
+                float(U_full[:, :w].sum().real)
+
+    def _tau_of(self, d):
+        if d in self._tau:
+            return self._tau[d]
+        if not self._tau:
+            return None
+        base_d = min(self._tau, key=self._tau.get)
+        return self._tau[base_d] * (
+            1.0 + self._growth * max(0, d - base_d)
+        )
+
+    def _observe(self, width, niter, wall_s):
+        if niter <= 0:
+            return
+        tau = wall_s / niter
+        prev = self._tau.get(width)
+        self._tau[width] = tau if prev is None else 0.5 * (prev + tau)
+
+    def _padded_selection(self, theta, coeffs):
+        """Coefficient block (and eigenvalues) of the max_vectors
+        smallest-|theta| Ritz vectors, zero-padded to max_vectors columns
+        (the JAX package's static assembly shape)."""
+        order = np.argsort(np.abs(theta))[: self.max_vectors]
+        sel = np.ascontiguousarray(coeffs[:, order])
+        theta_sel = np.asarray(theta)[order]
+        if sel.shape[1] < self.max_vectors:
+            pad = self.max_vectors - sel.shape[1]
+            sel = np.pad(sel, ((0, 0), (0, pad)))
+            theta_sel = np.pad(theta_sel, (0, pad), constant_values=1.0)
+        return sel, theta_sel
+
+    def _next_deflation_basis(self, kwargs):
+        if self._last_internals is None:
+            # keep an externally seeded basis
+            w = 0 if self._U is None else int(self._U.shape[1])
+            self.selected_widths.append(w)
+            self.predicted_steps.append(None)
+            return self._U
+        tol = float(kwargs.get("tol", 1e-5))
+        maxiter = kwargs.get("maxiter")
+
+        try:
+            theta, coeffs, n, d_prev = ritz_pairs(
+                self._last_internals, hermitian=self.hermitian
+            )
+        except np.linalg.LinAlgError:
+            self.selected_widths.append(0)
+            self.predicted_steps.append(None)
+            return None
+
+        order = np.argsort(np.abs(theta))
+        dmax = max(0, min(self.max_vectors, len(theta) - 1))
+        budget = float(maxiter) if maxiter else 10.0 * max(len(theta), 1)
+
+        best = None  # (cost, width, steps)
+        for dwidth in (w for w in self._widths if w <= dmax):
+            remaining = theta[order[dwidth:]]
+            if np.iscomplexobj(remaining) and not np.isreal(
+                remaining
+            ).all():
+                continue  # unevaluable candidate: skip (reference flow)
+            try:
+                bound = spectral.BoundMinres(np.real(remaining))
+                steps = float(bound.get_step(tol))
+            except (AssumptionError, ValueError):
+                # an empty or one-signed remainder: unevaluable
+                continue
+            if not np.isfinite(steps) or steps < 0:
+                steps = budget
+            steps = min(steps, budget)
+            tau = self._tau_of(dwidth)
+            tau0 = self._tau_of(0)
+            if tau is None or tau0 is None:
+                cost = steps  # no timing data yet: price in iterations
+            else:
+                cost = dwidth * tau0 + steps * tau
+            if best is None or cost < best[0]:
+                best = (cost, dwidth, steps)
+
+        if best is None:
+            # every candidate unevaluable: fixed-width fallback
+            self.selected_widths.append(self.n_vectors)
+            self.predicted_steps.append(None)
+            return super()._next_deflation_basis(kwargs)
+
+        _, dwidth, steps = best
+        self.selected_widths.append(dwidth)
+        self.predicted_steps.append(steps)
+        if dwidth == 0:
+            return None
+        sel, theta_sel = self._padded_selection(theta, coeffs)
+        U_full = assemble_ritz_vectors(
+            self._last_internals, sel, n, d_prev, theta=theta_sel
+        )
+        return U_full[:, :dwidth]

@@ -10,6 +10,14 @@ JAX one (``nx``, ``pad_cols``, ``coarsest``, ``coarse_sweeps``, ...),
 since the JAX operators are closures whose only state is those
 arguments.
 
+A Newton iterate is a vector (:func:`from_numpy`); the nonlinear
+problem of BASELINE config 5 crosses as its root ``u*`` and its
+manufactured source ``g`` (:func:`nls_to_numpy`); an
+``AutoRecyclingGmres`` crosses as its timing table ``_tau``, its last
+solve's internals and its records of chosen widths
+(:func:`auto_state_to_numpy`, :func:`auto_state_from_numpy`), since it
+chooses widths from measured walls, which two runs do not share.
+
 On a mesh the numpy value of a sharded JAX array crosses as the rank's
 block (:func:`shard_from_numpy`, the layout of
 :func:`krypy_tpu_torch.parallel.shard_vector`) and comes back whole
@@ -23,7 +31,8 @@ from . import parallel
 
 __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
            "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
-           "gather_to_numpy"]
+           "gather_to_numpy", "nls_to_numpy", "auto_state_to_numpy",
+           "auto_state_from_numpy"]
 
 
 def from_numpy(arr, device):
@@ -91,3 +100,45 @@ def gather_to_numpy(t, mesh, axis=-1):
                          for r in flat])
     return np.moveaxis(to_numpy(whole).reshape(*rows.shape[:-1], -1), -1,
                        axis)
+
+
+def nls_to_numpy(F, ustar):
+    """The state of the nonlinear-Schrödinger problem of
+    ``ops.nls_residual_2d`` (the port's or the JAX package's) as numpy:
+    ``{"ustar", "g"}``.  The source is read through ``F`` itself: ``F(0)
+    = Lap 0 + kappa 0^3 - lam 0 - g`` is ``-g`` exactly."""
+    def as_np(a):
+        return to_numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    return {"ustar": as_np(ustar), "g": -as_np(F(ustar * 0))}
+
+
+def auto_state_to_numpy(rec):
+    """An ``AutoRecyclingGmres``'s (the port's or the JAX package's) state
+    that decides its next width: ``{"tau", "internals", "selected_widths",
+    "predicted_steps"}``, arrays as numpy."""
+    ints = rec._last_internals
+    if ints is not None:
+        ints = {k: (to_numpy(v) if isinstance(v, torch.Tensor)
+                    else v if v is None or isinstance(v, (bool, int, float))
+                    else np.asarray(v))
+                for k, v in ints.items()}
+    return {"tau": dict(rec._tau), "internals": ints,
+            "selected_widths": list(rec.selected_widths),
+            "predicted_steps": list(rec.predicted_steps)}
+
+
+def auto_state_from_numpy(rec, state, device, keys=("tau", "internals")):
+    """Put ``state`` (:func:`auto_state_to_numpy`) into the port's
+    ``AutoRecyclingGmres`` ``rec``, only the parts named in ``keys``;
+    internals go to ``device``.  Returns ``rec``."""
+    if "tau" in keys:
+        rec._tau = dict(state["tau"])
+    if "internals" in keys:
+        ints = state["internals"]
+        rec._last_internals = (None if ints is None
+                               else internals_from_numpy(ints, device))
+    if "selected_widths" in keys:
+        rec.selected_widths = list(state["selected_widths"])
+        rec.predicted_steps = list(state["predicted_steps"])
+    return rec

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the PyTorch port (built from ``csrc/`` at
 first use; see :mod:`krypy_tpu_torch.kernels._build`)."""
 
-from ._launch import launch_counts, reset_launch_counts
+from ._launch import launch_counts, reset_launch_counts, tangent_counts
 from .orthogonalize import (
     apply_project,
     cgs2_fused,
@@ -44,4 +44,5 @@ __all__ = [
     "cgs_project_blocks",
     "launch_counts",
     "reset_launch_counts",
+    "tangent_counts",
 ]

@@ -27,14 +27,25 @@ LAUNCHES = {
 }
 
 
+#: the launches among ``LAUNCHES`` that computed a forward-mode tangent
+#: (K1's rule under ``torch.func.jvp``); each is also its kernel's launch
+TANGENT_LAUNCHES = {"stencil5_affine": 0}
+
+
 def launch_counts():
     """Copy of the per-kernel launch counters."""
     return dict(LAUNCHES)
 
 
+def tangent_counts():
+    """Copy of the tangent-launch counters (a subset of the launches)."""
+    return dict(TANGENT_LAUNCHES)
+
+
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TANGENT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch(name, fn_name, args, device):

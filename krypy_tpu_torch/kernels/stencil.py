@@ -31,9 +31,16 @@ and follow the Pallas kernels' arithmetic term for term.
 """
 
 import torch
+import torch.autograd.forward_ad as _fwad
 
 from ..parallel import halo_exchange
-from ._launch import LAUNCHES, launch_counts, reset_launch_counts  # noqa: F401
+from ._launch import (  # noqa: F401
+    LAUNCHES,
+    TANGENT_LAUNCHES,
+    launch_counts,
+    reset_launch_counts,
+    tangent_counts,
+)
 from ._launch import launch as _launch
 
 __all__ = [
@@ -57,6 +64,7 @@ __all__ = [
     "affine_grid",
     "launch_counts",
     "reset_launch_counts",
+    "tangent_counts",
 ]
 
 
@@ -241,14 +249,11 @@ def stencil5_coarse_torch(r, coeffs, w, sweeps, nrows, ncols):
 # ---------------------------------------------------------------------------
 
 
-def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
-                    alpha=0.0, beta=0.0):
-    """K1: ``out = alpha*x + beta*g + Stencil5(x)`` on the ``(nrows,
-    ncols)`` logical region of an ``(nx, ny)`` buffer (flat operands),
-    exact zeros elsewhere.  ``coeffs = (cc, cu, cd, cl, cr)``.
-    Counterpart of ``krypy_tpu.kernels.stencil.stencil5_affine``."""
-    ncols = ny if ncols is None else ncols
-    nrows = nx if nrows is None else nrows
+def _affine(x, g, nx, ny, coeffs, nrows, ncols, alpha, beta, tangent):
+    """K1 on tensors that hold storage: the launch on a CUDA tensor, the
+    plain version on a CPU one.  ``tangent`` marks the launch of a
+    forward-mode tangent (counted as a ``stencil5_affine`` launch and,
+    besides, in ``tangent_counts()``)."""
     ops = (x,) if g is None else (x, g)
     if not _check("stencil5_affine", nx, ny, nrows, ncols, *ops):
         return stencil5_affine_torch(
@@ -267,7 +272,83 @@ def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
          JACOBI2_STEP_ROWS, strips, steps),
         x.device,
     )
+    if tangent:
+        TANGENT_LAUNCHES["stencil5_affine"] += 1
     return out
+
+
+class _Affine(torch.autograd.Function):
+    """K1 with its forward-mode rule.  K1 is affine in ``(x, g)``, so the
+    tangent of ``alpha*x + beta*g + S(x)`` is K1 itself on the tangents
+    ``(x', g')`` with the same coefficients: one more launch.  A missing
+    tangent is a zero one (``g' = None`` leaves out the ``beta`` term).
+    ``forward`` and ``jvp`` both launch K1 on CUDA tensors and run its
+    plain version on CPU tensors, so the CPU tests go through the same
+    rule.  Reverse mode is not ported."""
+
+    @staticmethod
+    def forward(x, g, geom, tangent):
+        return _affine(x, g, *geom, tangent=tangent)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, _, geom, _ = inputs
+        ctx.geom = geom
+        ctx.like = (x.shape, x.dtype, x.device)
+
+    @staticmethod
+    def jvp(ctx, x_t, g_t, *_):
+        if x_t is None:
+            shape, dtype, device = ctx.like
+            x_t = torch.zeros(shape, dtype=dtype, device=device)
+        return _dispatch(x_t.contiguous(),
+                         None if g_t is None else g_t.contiguous(),
+                         ctx.geom, tangent=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "stencil5_affine has a forward-mode rule only; reverse mode "
+            "is not ported (ROADMAP.md queue A, A7)")
+
+
+def _differentiated(*tensors):
+    """Whether a derivative may pass through ``tensors``: a torch.func
+    transform or a forward-mode dual level is active, or one of them
+    requires grad.  Only then does K1 go through :class:`_Affine`, whose
+    ``apply`` costs tens of microseconds of host time per call, about a
+    hundred times these checks (the solvers launch K1 thousands of times
+    a solve)."""
+    if torch._C._are_functorch_transforms_active() or \
+            _fwad._current_level >= 0:
+        return True
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _dispatch(x, g, geom, tangent=False):
+    if _differentiated(x, g):
+        return _Affine.apply(x, g, geom, tangent)
+    return _affine(x, g, *geom, tangent=tangent)
+
+
+def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
+                    alpha=0.0, beta=0.0):
+    """K1: ``out = alpha*x + beta*g + Stencil5(x)`` on the ``(nrows,
+    ncols)`` logical region of an ``(nx, ny)`` buffer (flat operands),
+    exact zeros elsewhere.  ``coeffs = (cc, cu, cd, cl, cr)``.
+    Counterpart of ``krypy_tpu.kernels.stencil.stencil5_affine``.
+
+    Differentiable in forward mode (``torch.func.jvp``,
+    ``torch.autograd.forward_ad``): the tangent is one more K1 launch on
+    the tangents (:class:`_Affine`), counted as a ``stencil5_affine``
+    launch and in ``tangent_counts()``.  Reverse mode raises
+    ``NotImplementedError``."""
+    ncols = ny if ncols is None else ncols
+    nrows = nx if nrows is None else nrows
+    geom = (nx, ny, tuple(float(c) for c in coeffs), nrows, ncols,
+            float(alpha), float(beta))
+    return _dispatch(x, g, geom)
 
 
 def coarse_smem(nrows, ncols):

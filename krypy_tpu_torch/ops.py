@@ -49,6 +49,8 @@ __all__ = [
     "convection_diffusion_2d",
     "shifted_laplacian_2d",
     "jacobi_preconditioner",
+    "nls_residual_2d",
+    "nls_jacobian_sequence",
     "poisson_dst_solver",
     "ssor_poisson_preconditioner",
     "multigrid_poisson_preconditioner",
@@ -333,6 +335,71 @@ def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="torch", mesh=None, *,
             return lap(x) - sigma * x
 
     return _finish(matvec, nx, ny, dval, device, mesh)
+
+
+def nls_residual_2d(nx, kappa=1.0, lam=25.0, amplitude=1.0,
+                    dtype=torch.float32, *, impl="torch", device="cuda"):
+    r"""Stationary nonlinear-Schrödinger (Gross-Pitaevskii) residual on
+    the 2-D unit square:
+
+    .. math:: F(u) = -\Delta u + \kappa u^3 - \lambda u - g,
+
+    with the source g manufactured so that ``u* = amplitude *`` (Gaussian
+    bump) satisfies ``F(u*) = 0``.  Returns ``(F, u_star)``, ``u_star`` a
+    ``dtype`` tensor on ``device``.  Counterpart of
+    ``krypy_tpu.ops.nls_residual_2d`` (the BASELINE config-5 problem),
+    with the formula term for term.
+
+    The Jacobian action ``J(u) v = -Lap v + 3 kappa u^2 v - lam v`` is
+    symmetric and, with ``lam`` inside the spectrum of the discrete
+    :math:`-\Delta`, indefinite with a few low-lying modes.
+    :func:`torch.func.jvp` of ``F`` computes it.  ``impl`` is
+    :func:`poisson_2d`'s: with ``impl="cuda"`` the Laplacian of a float32
+    ``u`` is K1 (``kernels.stencil5_affine``), and so is its tangent
+    under ``torch.func.jvp`` (one launch each).
+    """
+    lap = poisson_2d(nx, impl=impl, device=device)
+    xs = np.linspace(1.0 / (nx + 1), nx / (nx + 1.0), nx)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    bump = np.exp(-30.0 * ((X - 0.5) ** 2 + (Y - 0.5) ** 2))
+    ustar = torch.tensor(amplitude * bump.reshape(-1), dtype=dtype,
+                         device=lap.diag.device)
+    g = lap(ustar) + kappa * ustar**3 - lam * ustar
+
+    def F(u):
+        return lap(u) + kappa * u**3 - lam * u - g
+
+    return F, ustar
+
+
+def nls_jacobian_sequence(n, n_sys=5, kappa=1.0, seed=0, *, device="cuda"):
+    """A sequence of Jacobian-like SPD operators ``J_i = Lap_1d + diag(1 +
+    3 kappa psi_i^2)`` mimicking Newton steps on a nonlinear
+    Schrödinger-type equation (counterpart of
+    ``krypy_tpu.ops.nls_jacobian_sequence``); float64 diagonals on
+    ``device``.  Each operator keeps the JAX package's family attributes
+    (``family``, ``params``, ``rebuild``): the diagonal part as the
+    parameter of one operator family."""
+    lap = poisson_1d(n, device=device)
+    dev = lap.diag.device
+    rng = np.random.RandomState(seed)
+    xs = np.linspace(0, 1, n)
+    psi = np.exp(-40 * (xs - 0.5) ** 2)
+    out = []
+    for i in range(n_sys):
+        psi_i = psi * (1.0 + 0.05 * i) + 0.01 * rng.randn(n) * i
+        d = torch.tensor(1.0 + 3.0 * kappa * psi_i**2, device=dev)
+
+        def matvec(x, _d=d):
+            return lap(x) + _d * x
+
+        matvec.shape = (n, n)
+        matvec.diag = lap.diag + d
+        matvec.family = ("nls_jacobian", id(lap))
+        matvec.params = d
+        matvec.rebuild = lambda p, _lap=lap: (lambda x: _lap(x) + p * x)
+        out.append(matvec)
+    return out
 
 
 def jacobi_preconditioner(op_or_diag):

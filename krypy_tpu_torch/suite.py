@@ -26,6 +26,10 @@ Beside it, BASELINE configs 1-3 as benchmarks/suite.py runs them
 unpadded V-cycle of ``w r`` and the inner product ``<x, w y>``; and
 restarted GMRES(30) with ``Ml`` (the V-cycle), ``M`` and ``Mr`` on
 convection-diffusion; configs 2 and 3 in float64 refinement to 1e-8.
+And config 5 (:func:`config5_nls_newton_recycling`): Newton-Krylov on
+the stationary nonlinear-Schrödinger residual with recycled Jacobian
+solves, the Jacobian action ``torch.func.jvp`` (K1 and its forward-mode
+rule with ``impl="cuda"``).
 """
 
 import time
@@ -38,7 +42,7 @@ from . import functional as F, interop, ops
 __all__ = ["SIGMA", "SIGMAS", "N_VECTORS", "INNER_TOL", "RESTART", "TOL",
            "kappa_bound", "make_config4", "recycling_sequence",
            "config1_readme_gmres", "config2_weights", "make_config2",
-           "make_config3"]
+           "make_config3", "config5_nls_newton_recycling"]
 
 #: the shift of config 4
 SIGMA = 200.0
@@ -317,3 +321,125 @@ def make_config3(nx, impl, ortho, device="cuda", dtype=torch.float32):
 
     solve.inner = inner
     return solve, cd
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5 (benchmarks/suite.py:191-282)
+# ---------------------------------------------------------------------------
+
+
+def _counting(cls):
+    """A subclass of the recycling driver ``cls`` that counts the Jacobian
+    actions its solves and its warmup ask for (``jvp_calls``)."""
+    class Counting(cls):
+        jvp_calls = 0
+
+        def _counted(self, A):
+            def mv(v):
+                self.jvp_calls += 1
+                return A(v)
+            return mv
+
+        def warmup(self, A, b, **kwargs):
+            return super().warmup(self._counted(A), b, **kwargs)
+
+        def solve(self, A, b, **kwargs):
+            return super().solve(self._counted(A), b, **kwargs)
+
+    return Counting
+
+
+def config5_nls_newton_recycling(nx, recycle=3, auto=False, impl="torch",
+                                 device="cuda"):
+    """BASELINE config 5 as benchmarks/suite.py runs it: Newton on the
+    stationary nonlinear-Schrödinger residual ``ops.nls_residual_2d(nx,
+    kappa=1, lam=25, amplitude=3)`` from zero, in float32, with
+    ``maxiter=15``, ``inner_maxiter=250`` and ``warmup=True``, every
+    Jacobian solve through ``RecyclingGmres(recycle, "sm",
+    hermitian=True)``, or with ``auto=True`` through
+    ``AutoRecyclingGmres(max_vectors=recycle + 2, hermitian=True)``
+    (suite.py's config 6).  ``impl="cuda"`` runs the Laplacian of ``F``,
+    and its tangent in every Jacobian action, through K1; GMRES's
+    default ``ortho="cgs2"`` is plain torch on both lanes.
+
+    The tolerance follows suite.py: half the float32 floor (the median
+    ``||F||`` of three dithered roots ``u* (1 + eps32 U(-1, 1))``, numpy
+    ``RandomState(0)``) relative to ``||F(0)||``, and at least 1e-5.
+
+    Returns the keys of suite.py's dictionary (walls unrounded) and:
+    ``resnorms`` (``||F||`` per Newton step), ``tol``, ``f0``,
+    ``predicted_steps`` (auto only), ``f_calls`` (evaluations of ``F``,
+    those inside ``torch.func.jvp`` included) and ``jvp_calls`` (Jacobian
+    actions).  On the kernel lane every call of ``F`` launches K1 once
+    and every Jacobian action once more for its tangent, and building
+    ``F`` launches it once (the manufactured source): ``1 + f_calls +
+    jvp_calls`` K1 launches in all."""
+    func, ustar = ops.nls_residual_2d(nx, kappa=1.0, lam=25.0,
+                                      amplitude=3.0, impl=impl,
+                                      device=device)
+    calls = {"F": 0}
+
+    def counted(u):
+        calls["F"] += 1
+        return func(u)
+
+    N = nx * nx
+    dev = ustar.device
+    x0 = torch.zeros(N, dtype=torch.float32, device=dev)
+    if auto:
+        rec = _counting(F.AutoRecyclingGmres)(
+            max_vectors=recycle + 2, hermitian=True)
+    else:
+        rec = _counting(F.RecyclingGmres)(
+            n_vectors=recycle, which="sm", hermitian=True)
+
+    # the float32 floor: the residual at a last-bit-dithered root (F(u*)
+    # itself is 0 in float32, the manufactured g absorbing the rounding)
+    u32 = ustar.to(torch.float32)
+    eps32 = float(np.finfo(np.float32).eps)
+    rng = np.random.RandomState(0)
+    floor = float(np.median([
+        float(torch.linalg.vector_norm(counted(
+            u32 * (1 + eps32 * torch.tensor(rng.uniform(-1, 1, N),
+                                            dtype=torch.float32, device=dev))
+        ).to(torch.float64)))
+        for _ in range(3)
+    ]))
+    f0 = float(torch.linalg.vector_norm(counted(x0)))
+    tol = max(1e-5, 0.5 * floor / max(f0, 1.0))
+
+    t0 = time.perf_counter()
+    res = F.newton_krylov(
+        counted, x0, tol=tol, maxiter=15, inner_maxiter=250,
+        recycling_solver=rec, warmup=True,
+    )
+    total_s = time.perf_counter() - t0
+
+    walls = res.inner_walls.tolist()
+    iters = res.inner_history.tolist()
+    transient = (max(walls[1:]) / walls[-1]
+                 if len(walls) > 2 and walls[-1] > 0 else 1.0)
+    tag = "5a_auto" if auto else "5"
+    return {
+        "config": f"{tag}_nls_newton_recycling_{N}dof_x{len(iters)}solves",
+        "selected_widths": (
+            [int(w) for w in rec.selected_widths] if auto else None
+        ),
+        "predicted_steps": (list(rec.predicted_steps) if auto else None),
+        "newton_steps": int(res.niter),
+        "fnorm_final": float(res.resnorms[-1]),
+        "resnorms": res.resnorms.tolist(),
+        "tol": tol,
+        "f0": f0,
+        "eval_floor": floor,
+        "converged": bool(res.converged),
+        "inner_iters": iters,
+        "walls_s": walls,
+        "total_s": total_s,
+        "warmup_s": float(res.warmup_s),
+        "serve_s": total_s - float(res.warmup_s),
+        "max_transient_vs_last": transient,
+        "improved": bool(len(iters) > 2 and min(iters[2:]) <= iters[1]),
+        "f_calls": calls["F"],
+        "jvp_calls": rec.jvp_calls,
+    }

@@ -1040,3 +1040,87 @@ def test_gmres_cgs2_pallas_on_mesh(cuda_device, tmp_path):
         assert float(r["dx"]) <= 1e-9
         assert list(r["launches"]) == [2 * n, 2 * n, 0]
         assert r["resnorms"].tobytes() == ranks[0]["resnorms"].tobytes()
+
+
+@pytest.mark.parametrize("nx,ny", [(96, 96), (1021, 1000)])
+def test_k1_jvp_matches_plain(cuda_device, nx, ny):
+    """K1's forward-mode rule on the card: ``torch.func.jvp`` through the
+    kernel (two launches: the primal and the tangent, the second counted
+    in ``kernels.tangent_counts()`` too) against ``torch.func.jvp`` of
+    the plain version, at the stencil tolerance; and through the nls
+    residual of config 5 on the kernel lane."""
+    gen = torch.Generator(device=cuda_device).manual_seed(nx)
+    x, v, g, gt = (torch.randn(nx * ny, generator=gen, device=cuda_device)
+                   for _ in range(4))
+    # a nonsymmetric stencil (upwind-like up/left coefficients)
+    co = (5.5, -2.0, -1.0, -1.5, -1.0)
+
+    def k1(u, gg):
+        return kst.stencil5_affine(u, gg, nx=nx, ny=ny, coeffs=co,
+                                   alpha=0.5, beta=-1.5)
+
+    def plain(u, gg):
+        return kst.stencil5_affine_torch(u.reshape(nx, ny),
+                                         gg.reshape(nx, ny), co, nx, ny,
+                                         0.5, -1.5).reshape(-1)
+
+    before = kernels.launch_counts()
+    tangents = kernels.tangent_counts()["stencil5_affine"]
+    pk, tk = torch.func.jvp(k1, (x, g), (v, gt))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["stencil5_affine"] == before["stencil5_affine"] + 2
+    assert kernels.tangent_counts()["stencil5_affine"] == tangents + 1
+    for got, (a, b) in ((pk, (x, g)), (tk, (v, gt))):
+        want, want64 = plain(a, b), plain(a.double(), b.double())
+        np.testing.assert_allclose(interop.to_numpy(got),
+                                   interop.to_numpy(want), rtol=2e-6,
+                                   atol=fma_atol(want, want64))
+    Fk, uk = ops.nls_residual_2d(nx, amplitude=3.0, impl="cuda",
+                                 device=cuda_device)
+    Fp, _ = ops.nls_residual_2d(nx, amplitude=3.0, device=cuda_device)
+    if nx == ny:
+        _, jk = torch.func.jvp(Fk, (uk,), (v,))
+        _, jp = torch.func.jvp(Fp, (uk,), (v,))
+        _, jp64 = torch.func.jvp(Fp, (uk.double(),), (v.double(),))
+        np.testing.assert_allclose(interop.to_numpy(jk),
+                                   interop.to_numpy(jp), rtol=2e-6,
+                                   atol=fma_atol(jp, jp64))
+
+
+def test_config5_newton_step_on_kernel_lane(cuda_device):
+    """One Newton step of config 5 at 96^2 with recycled Jacobian solves,
+    kernel lane against plain lane: the same inner iterations within 3,
+    the residuals within 1e-2 relative, and K1 launched once per call of
+    F and once more per Jacobian action's tangent, nothing else.  The
+    step's ``||F||`` is the float32 GMRES residual at the forcing term
+    0.1 after ~34 iterations, which K1's rounding (FMA) moves: 467.30
+    against 468.26 on the H100 (0.2%)."""
+    out = {}
+    for impl in ("cuda", "torch"):
+        func, _ = ops.nls_residual_2d(96, amplitude=3.0, impl=impl,
+                                      device=cuda_device)
+        calls = {"F": 0}
+
+        def counted(u, func=func, calls=calls):
+            calls["F"] += 1
+            return func(u)
+
+        rec = suite._counting(F.RecyclingGmres)(3, "sm", hermitian=True)
+        kernels.reset_launch_counts()
+        res = F.newton_krylov(counted, torch.zeros(96 * 96,
+                                                   device=cuda_device),
+                              tol=1e-5, maxiter=1, inner_maxiter=250,
+                              recycling_solver=rec, warmup=True)
+        torch.cuda.synchronize()
+        out[impl] = (res, calls["F"], rec.jvp_calls,
+                     kernels.launch_counts(),
+                     kernels.tangent_counts()["stencil5_affine"])
+    (rk, fk, jk, ck, tk), (rp, _, _, cp, tp) = out["cuda"], out["torch"]
+    assert rk.niter == rp.niter == 1
+    assert abs(int(rk.inner_history[0]) - int(rp.inner_history[0])) <= 3
+    np.testing.assert_allclose(rk.resnorms, rp.resnorms, rtol=1e-2)
+    assert ck["stencil5_affine"] == fk + jk
+    assert tk == jk > int(rk.inner_history[0])
+    assert all(v == 0 for k, v in ck.items() if k != "stencil5_affine")
+    assert all(v == 0 for v in cp.values()) and tp == 0

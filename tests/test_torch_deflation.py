@@ -453,12 +453,19 @@ def test_recycling_gmres_nonsymmetric_with_preconditioner():
 
 @pytest.mark.parametrize("name", ["deflated_minres", "AutoRecyclingGmres"])
 def test_unported_names_raise(name):
-    """What of these names is not ported raises: ``AutoRecyclingGmres``,
-    and ``deflated_minres``'s one-reduce variant (the classic solver runs:
-    tests/test_torch_minres.py)."""
+    """What of these names is not ported raises: ``deflated_minres``'s
+    one-reduce variant (the classic solver runs:
+    tests/test_torch_minres.py).  ``AutoRecyclingGmres`` is ported
+    (tests/test_torch_auto_recycling.py): it raises where the JAX
+    driver does, on candidate widths outside ``[0, max_vectors]``."""
+    if name == "AutoRecyclingGmres":
+        assert issubclass(F.AutoRecyclingGmres, F.RecyclingGmres)
+        with pytest.raises(ValueError, match="widths"):
+            F.AutoRecyclingGmres(max_vectors=3, widths=(0, 7))
+        return
     fn = getattr(F, name)
-    args, kw = ((torch.eye(2), torch.ones(2), torch.ones(2, 1)),
-                dict(variant="1r")) if name == "deflated_minres" else ((), {})
+    args, kw = (torch.eye(2), torch.ones(2), torch.ones(2, 1)), dict(
+        variant="1r")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fn(*args, **kw)
 

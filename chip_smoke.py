@@ -11,7 +11,8 @@ Schrödinger residual, recycled Jacobian solves, K1 under
 share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
-                           --only {stencil,ortho,baseline,kernels,config5}]
+                           --only {stencil,ortho,baseline,kernels,config5,
+                                  mesh}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -34,7 +35,13 @@ before printing its last line):
    the bound; then K1's coarse form (``stencil5_coarse``: the coarsest
    level's 60 damped-Jacobi sweeps in one launch) at 31^2 unpadded, 31^2
    in 32x128 and 127^2, 1, 2 and 60 sweeps, against its plain version,
-   timed beside the 60 per-sweep K1 launches it replaces; then K10, the
+   timed beside the 60 per-sweep K1 launches it replaces; then K8's
+   kernel alone (``stencil5_halo``: K1's tiles reading the halo rows) at
+   4096^2, at the 4-rank block 1024x4096 and at 4095^2, with random halo
+   rows on the card and in pinned host memory, against its plain version,
+   with null halos bit for bit K1's matvec, split into the interior rows
+   and the two edge rows bit for bit one launch, timed at 1024x4096
+   beside K1 on the block; then K10, the
    ``laplacian_2d_kernel`` entry over K1, against
    ``ops.poisson_2d(impl="torch")`` at 1024^2 and at 1021x1000;
 4. prefix-sweep parity: K4-K6 (float32 and float64) on the north star's
@@ -153,13 +160,18 @@ before printing its last line):
    takes no two ranks on one card): NCCL of 1 rank, gloo of 2 and 4.
    Each rank holds K8 (``stencil5_sharded``) and K9
    (``cgs2_fused_sharded``), gathered, against their plain versions in
-   float64 and against the single-device kernels, and K4-K6 on its own
-   columns through ``PrefixCheck``; times
-   K8 and K9 per shard and the collectives on the host; then runs the
-   main path on the mesh, convection-diffusion and Poisson at 4096^2
-   with Jacobi: restarted GMRES(25) x 3 cycles (``cgs2_fused``), CG x
-   100 (on a seeded random right-hand side: with b = ones the Poisson
-   system is symmetric about its middle row, and a rank-local inner
+   float64 and against the single-device kernels (K8 also bit for bit
+   against K1's matvec, in each order against the exchange and each
+   route of the rows gloo receives; with the planted halo fault of
+   ``--mesh-faults`` its rows next to a neighbour must move and no
+   other), and K4-K6 on its own columns through ``PrefixCheck``; times
+   K8 and K9 per shard, K8 in each order and route and as the earlier
+   composition it replaced (device ms per shard and host ms per call),
+   and the collectives on the host; then runs the main path on the mesh,
+   convection-diffusion and Poisson at 4096^2 with Jacobi: restarted
+   GMRES(25) x 3 cycles (``cgs2_fused``), CG x 100 (on a seeded random
+   right-hand side: with b = ones the Poisson system is symmetric about
+   its middle row, and a rank-local inner
    product would not change CG's ratios on 2 ranks), two
    ``RecyclingGmres(6, "sm")`` solves, launch and collective
    counts zeroed just before each and read just after.  Gated against
@@ -187,8 +199,9 @@ and in float64) and prints no result line.
 on a gloo world of 2 ranks, sound and with each planted fault (a zeroed
 halo, an unreduced inner product), and fails unless ``MESH_RTOL`` lies
 between the sound readings and the faults'; it prints no result line.
-``--only stencil`` (``ortho``, ``baseline``) runs only the stencil phase
-(the prefix-sweep phase, the baseline phase) and prints no result line;
+``--only stencil`` (``ortho``, ``baseline``, ``mesh``) runs only the
+stencil phase (the prefix-sweep phase, the baseline phase, the mesh
+phase) and prints no result line;
 a copy of the script in a checkout of an earlier commit times that
 commit's K1-K3 (K4-K6) at the same shapes, in the same way.  ``--only
 kernels`` times K1's matvec at every V-cycle buffer, K4, and K7 split by
@@ -242,6 +255,10 @@ NS_ROWS = (13, 26)
 #: the north star's V-cycle levels that run the stencil kernels (n >=
 #: 256), finest first; Poisson's are the last two
 KERNEL_LEVELS = (NS_NX, 2047, NX, 511)
+#: the mesh phase's grid: 4096^2 (its rows divide over 1, 2 and 4 ranks;
+#: the north star's 4095 does not); the stencil phase checks K8's kernel
+#: on it too
+MESH_NX = 4096
 #: the card's published peaks (H100 SXM data sheet, 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -498,7 +515,126 @@ def stencil_phase(device):
                          f" | per_call_ms kernel={call:.5f} "
                          f"plain={plain_call:.5f}")
             print(line, flush=True)
+    report["stencil5_halo"] = halo_check(device, rng)
     return report
+
+
+#: K8's kernel alone: (rows, width) of a row block, the mesh phase's
+#: 4096^2 grid and its block on 4 ranks, and an odd width
+HALO_CHECK_SHAPES = ((MESH_NX, MESH_NX), (MESH_NX // 4, MESH_NX),
+                     (NS_NX, NS_NX))
+
+
+def halo_check(device, rng):
+    """K8's kernel (``stencil5_halo``) in one process: with random halo
+    rows on the card and in pinned host memory (read in place), at every
+    shape of ``HALO_CHECK_SHAPES``, against its plain version (the
+    stencil tolerance), and with null halo rows bit for bit K1's matvec
+    of the block; the split K8 takes with its exchange in flight (the
+    interior rows, then rows 0 and nx-1) the same bits as one launch.
+    Times the kernel on the 4-rank block with rows of each kind beside
+    K1 (null halos) on it.  Returns the report."""
+    import torch
+    from krypy_tpu_torch import interop
+    from krypy_tpu_torch.kernels import stencil as kst
+    from krypy_tpu_torch.kernels.parity import fma_atol
+
+    out = {"max_abs_err": 0.0, "times": {}}
+    for nx, ny in HALO_CHECK_SHAPES:
+        co = _cd_raw(ny)
+        x = interop.from_numpy(rng.standard_normal(nx * ny,
+                                                   dtype=np.float32), device)
+        vals = torch.from_numpy(rng.standard_normal((2, ny),
+                                                    dtype=np.float32))
+        rows = {"device": tuple(vals.to(device)),
+                "pinned": tuple(vals.pin_memory())}
+        k1 = kst.stencil5_affine(x, nx=nx, ny=ny, coeffs=co)
+        if not torch.equal(kst.stencil5_halo(x, nx=nx, ny=ny, coeffs=co),
+                           k1):
+            raise AssertionError(f"stencil5_halo at {nx}x{ny} with null "
+                                 "halo rows is not K1's matvec bit for bit")
+        for where, (top, bot) in rows.items():
+            got = kst.stencil5_halo(x, top, bot, nx=nx, ny=ny, coeffs=co)
+            split = torch.empty_like(x)
+            for k, segments in enumerate(kst.halo_segments(nx, True)):
+                kst._halo_launch(x, *((None, None) if k == 0 else
+                                      (top, bot)), split, nx, ny, co,
+                                 segments)
+
+            def plain(dtype, top=top, bot=bot):
+                return kst.stencil5_halo_torch(
+                    x.view(nx, ny).to(dtype), top.to(device, dtype),
+                    bot.to(device, dtype), co).reshape(-1)
+
+            want, want64 = plain(torch.float32), plain(torch.float64)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            atol = fma_atol(want, want64)
+            max_err = float(err.max())
+            out["max_abs_err"] = max(out["max_abs_err"], max_err)
+            if not bool(torch.all(err <= atol + 2e-6 * want.abs())) or \
+                    not torch.equal(split, got):
+                raise AssertionError(
+                    f"stencil5_halo at {nx}x{ny}, {where} halo rows: max "
+                    f"abs err {max_err:.3e} (atol={atol:.3e}); split "
+                    f"launches equal: {torch.equal(split, got)}")
+            line = (f"parity stencil5_halo {nx}x{ny} {where} halo rows: "
+                    f"max_abs_err={max_err:.3e} (atol={atol:.3e}); null "
+                    "halos == K1, split == one launch")
+            if nx == MESH_NX // 4:
+                # x read, out written, the two halo rows read
+                b_ms, b_by = bound((2 * nx + 2) * ny * 4, 15 * nx * ny)
+                ms, src = _device_ms(lambda: kst.stencil5_halo(
+                    x, top, bot, nx=nx, ny=ny, coeffs=co), b_ms)
+                k1_ms, k1_src = _device_ms(lambda: kst.stencil5_affine(
+                    x, nx=nx, ny=ny, coeffs=co), b_ms)
+                out["times"][where] = dict(
+                    ms=ms, k1_ms=k1_ms, bound_ms=b_ms, bound_by=b_by,
+                    timed_by=dict(ms=src, k1_ms=k1_src))
+                line += (f" device_ms kernel={ms:.5f} ({src}) K1 on the "
+                         f"block={k1_ms:.5f} ({k1_src}) bound={b_ms:.5f}")
+            print(line, flush=True)
+        if nx == MESH_NX // 4:
+            out["staging"] = _staging_ms(x, nx, ny)
+            print(f"staging of K8's two halo rows ({nx}x{ny} block), device "
+                  f"ms: {out['staging']}", flush=True)
+        del x, k1, got, split, want, want64
+    return out
+
+
+def _staging_ms(x, nx, ny):
+    """Device ms of K8's staging copies under gloo on an ``(nx, ny)``
+    block: both edge rows to pinned host memory in one ``copy_rows``
+    (``cudaMemcpy2DAsync``, the port's) and in two, and the two received
+    rows back to the card in one copy (route (a); route (b) reads them in
+    place)."""
+    import torch
+    from krypy_tpu_torch.kernels._launch import copy_rows
+
+    u, w = x.view(nx, ny), 4 * ny
+    pinned = torch.zeros((2, ny), pin_memory=True)
+    dev = torch.zeros((2, ny), device=x.device)
+
+    def rows_2d():
+        copy_rows(pinned.data_ptr(), w, u[0].data_ptr(),
+                  u[-1].data_ptr() - u[0].data_ptr(), w, 2, x.device)
+
+    def rows_1d():
+        for k in (0, -1):
+            copy_rows(pinned[k].data_ptr(), w, u[k].data_ptr(), w, w, 1,
+                      x.device)
+
+    times = {}
+    for name, fn in (("D2H one copy of both rows", rows_2d),
+                     ("D2H one copy per row", rows_1d),
+                     ("H2D one copy of both rows",
+                      lambda: dev.copy_(pinned, non_blocking=True))):
+        ms, src = _device_ms(fn, 0.0)
+        times[name] = dict(ms=ms, timed_by=src)
+    torch.cuda.synchronize()
+    if not torch.equal(pinned, u[[0, -1]].cpu()):
+        raise AssertionError("copy_rows did not stage K8's edge rows")
+    return times
 
 
 def ortho_phase(device):
@@ -1368,11 +1504,8 @@ def _profile_deflation(device, nx):
               f"max {max(ts):.3f} (10 samples)", flush=True)
 
 
-#: the mesh phase's grid: 4096^2 (its rows divide over 1, 2 and 4 ranks;
-#: the north star's 4095 does not)
-MESH_NX = 4096
-#: its worlds, every rank on the one card, ``MESH_DEVICE``: NCCL refuses
-#: two ranks on one device, so the wider worlds are gloo
+#: the mesh phase's worlds, every rank on the one card, ``MESH_DEVICE``:
+#: NCCL refuses two ranks on one device, so the wider worlds are gloo
 MESH_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
 MESH_DEVICE = "cuda:0"
 #: seconds: each collective, and each world from its start to its end
@@ -1519,6 +1652,57 @@ def _host_ms(fn, calls=50):
     return statistics.median(times)
 
 
+def _k8_variants(backend):
+    """K8's forms on a world of ``backend``, by name: each order against
+    the exchange (``overlap``) and, under gloo, each route of the
+    received rows (``mapped``)."""
+    routes = (False, True) if backend == "gloo" else (None,)
+    return {f"overlap={o}" + ("" if m is None else f" mapped={m}"):
+            dict(overlap=o, **({} if m is None else dict(mapped=m)))
+            for o in (False, True) for m in routes}
+
+
+def _k8_kept():
+    """The keywords of K8's defaults, as :func:`_k8_variants` names
+    them: what a call without them runs."""
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    return dict(overlap=kst.K8_OVERLAP, mapped=kst.K8_MAPPED)
+
+
+def _k8_composition(x_loc, nx, co, mesh):
+    """K8 as the earlier composition it replaced, kept to time that
+    design in the same run: K1 on the block (Dirichlet zeros at its edge
+    rows) while the edge rows cross (under gloo staged into fresh pinned
+    memory by one copy each, brought back by one ``.to`` each), then ``cu
+    * top`` and ``cd * bottom`` added to the edge rows."""
+    import torch
+    import torch.distributed as dist
+    from krypy_tpu_torch.kernels import stencil as kst
+
+    u = x_loc.view(-1, nx)
+    first, last = u[0], u[-1]
+    if mesh.backend != "nccl" and u.is_cuda:
+        rows = torch.empty((2, nx), dtype=u.dtype, pin_memory=True)
+        rows[0].copy_(first)
+        rows[1].copy_(last)
+        first, last = rows[0], rows[1]
+    top, bot = torch.zeros_like(first), torch.zeros_like(last)
+    ops = [op for peer, send, recv in ((mesh.rank - 1, first, top),
+                                       (mesh.rank + 1, last, bot))
+           if 0 <= peer < mesh.size
+           for op in (dist.P2POp(dist.isend, send, peer, mesh.group),
+                      dist.P2POp(dist.irecv, recv, peer, mesh.group))]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    out = kst.stencil5_pipelined(x_loc, nx=u.shape[0], ny=nx,
+                                 coeffs=co).view(-1, nx)
+    for w in works:
+        w.wait()
+    out[0] += co[1] * top.to(u.device)
+    out[-1] += co[2] * bot.to(u.device)
+    return out.view(-1)
+
+
 def _plant(fault):
     """Plant one fault in this rank's mesh path (``--mesh-faults``):
     ``halo`` zeroes the rows K8 receives from its neighbours; ``reduce``
@@ -1533,14 +1717,21 @@ def _plant(fault):
         exchange = kst.halo_exchange
 
         class Zeroed:
+            """Zeroes the received rows where K8's kernel reads them (the
+            exchange's buffers, on the card or pinned)."""
+
             def __init__(self, handle):
                 self.handle = handle
 
             def wait(self):
-                return tuple(torch.zeros_like(t) for t in self.handle.wait())
+                rows = self.handle.wait()
+                for t in rows:
+                    t.zero_()
+                return rows
 
-        def zeroed(first, last, mesh=None, async_op=False):
-            handle = Zeroed(exchange(first, last, mesh=mesh, async_op=True))
+        def zeroed(first, last, mesh=None, async_op=False, **kw):
+            handle = Zeroed(exchange(first, last, mesh=mesh, async_op=True,
+                                     **kw))
             return handle if async_op else handle.wait()
 
         kst.halo_exchange = zeroed
@@ -1623,10 +1814,46 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
                     f"{tag}: K8 against {label}: max abs err "
                     f"{float(e.max()):.3e} exceeds rtol=2e-6, "
                     f"atol={atol:.3e}")
+        # bit for bit against the single-device K1 matvec: every row in
+        # K1's per-point arithmetic, in each order and each route of the
+        # received rows (the kept one above; any other within the atol)
+        rec["k8_bitwise"] = {}
+        for name, kw in _k8_variants(backend).items():
+            yv = y if kw.items() <= _k8_kept().items() else \
+                parallel.gather_vector(
+                    kst.stencil5_sharded(x_loc, nx=nx, ny=nx, coeffs=co,
+                                         mesh=mesh, **kw), mesh)
+            rec["k8_bitwise"][name] = bool(torch.equal(yv, want))
+            ev = (yv - want).abs()
+            if not bool(torch.all(ev <= atol + 2e-6 * want.abs())):
+                raise AssertionError(f"{tag}: K8 ({name}) against the "
+                                     f"single-device K1 matvec: max abs err "
+                                     f"{float(ev.max()):.3e}")
         print(f"{tag}: K8 ({nx // P}x{nx} rows per rank): max_abs_err "
               f"against the plain stencil in float64 "
               f"{rec['k8_max_abs_err']:.3e}, against the single-device K1 "
-              f"matvec {float(err.max()):.3e} (atol={atol:.3e})", flush=True)
+              f"matvec {float(err.max()):.3e} (atol={atol:.3e}); bit for "
+              f"bit K1's: {rec['k8_bitwise']}", flush=True)
+        if P > 1:
+            # the planted halo fault of --mesh-faults reaches the rows K8's
+            # kernel reads: the rows next to a neighbour change, no other
+            exchange = kst.halo_exchange
+            _plant("halo")
+            try:
+                yz = parallel.gather_vector(kst.stencil5_sharded(
+                    x_loc, nx=nx, ny=nx, coeffs=co, mesh=mesh), mesh)
+            finally:
+                kst.halo_exchange = exchange
+            moved = torch.nonzero((yz != want).view(nx, nx).any(1))
+            edges = sorted(r * (nx // P) + d for r in range(1, P)
+                           for d in (-1, 0))
+            if moved.flatten().tolist() != edges:
+                raise AssertionError(f"{tag}: the planted halo fault moved "
+                                     f"K8's rows {moved.flatten().tolist()}"
+                                     f", not the block edges {edges}")
+            print(f"{tag}: the planted halo fault moves K8's rows {edges} "
+                  "and no other", flush=True)
+            del yz
         del y, want, want64, plain32, err, err64
 
         # K4-K6 on the rank's columns, held to float64; K9 against the
@@ -1707,6 +1934,22 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
                 k9_plain, b9_ms, b9_by),
         }
         rec["times"] = {}
+        # K8 in each order and route, and as the earlier composition:
+        # device ms per shard and host ms per call
+        rec["k8_variants"] = {}
+        comps = {name: (lambda kw=kw: kst.stencil5_sharded(
+            x_loc, nx=nx, ny=nx, coeffs=co, mesh=mesh, **kw))
+            for name, kw in _k8_variants(backend).items()}
+        comps["earlier composition"] = lambda: _k8_composition(
+            x_loc, nx, co, mesh)
+        for name, fn in comps.items():
+            ms, src = _mesh_device_ms(fn, b8_ms)
+            v = rec["k8_variants"][name] = dict(
+                ms=ms, host_ms=_host_ms(fn), timed_by=src,
+                device_ms_by_event=_device_split(fn))
+            print(f"{tag}: timing K8 {name} per shard device_ms={ms:.5f} "
+                  f"({src}) host_ms={v['host_ms']:.4f} bound={b8_ms:.5f}; "
+                  f"by event {v['device_ms_by_event']}", flush=True)
         for name, (kern, pl, b_ms, b_by) in timings.items():
             ms, src = _mesh_device_ms(kern, b_ms)
             plain_ms, plain_src = _mesh_device_ms(pl, b_ms)
@@ -1723,6 +1966,9 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
             (3 * rows * n_loc + 5 * n_loc) * 4, 8 * rows * n_loc)[0]
         u = x_loc.view(-1, nx)
         rec["host_ms"] = {
+            "stencil5_sharded (kept)": rec["k8_variants"][next(
+                name for name, kw in _k8_variants(backend).items()
+                if kw.items() <= _k8_kept().items())]["host_ms"],
             "all_reduce_sum (26 float32)": _host_ms(
                 lambda: parallel.all_reduce_sum(c_in, mesh)),
             f"halo_exchange (2 rows of {nx} float32)": _host_ms(
@@ -3032,8 +3278,8 @@ LIBRARY = {
 }
 
 
-#: the sharded kernels: the TPU function each replaces, the wrapper that
-#: composes it and the CUDA source of the kernels it launches per shard
+#: the sharded kernels: the TPU function each replaces, the wrapper (K9's
+#: composes K4-K6) and the CUDA source of the kernels it launches per shard
 MESH_KERNELS = {
     "stencil5_sharded": ("krypy_tpu/kernels/stencil.py:561", "stencil.py",
                          "stencil5.cu", "k8"),
@@ -3042,19 +3288,24 @@ MESH_KERNELS = {
 }
 
 
-def _mesh_rows(worlds):
+def _mesh_rows(worlds, halo):
     """The K8 and K9 rows of the ``kernels`` line: launches summed over
     the main path of rank 0 of every world, the largest error of any
     rank, and rank 0's per-shard times in the widest world (the other
-    worlds' beside them)."""
+    worlds' beside them); K8's with its kernel alone (``halo``, the
+    stencil phase's :func:`halo_check`)."""
     widest = worlds[MESH_WORLDS[-1]][0]
     rows = []
     for name, (src, py, cu, key) in MESH_KERNELS.items():
         t = widest["times"][name]
+        k8 = key == "k8"
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"krypy_tpu_torch/kernels/{py}",
-            "kernel_source": f"krypy_tpu_torch/kernels/csrc/{cu}",
+            # K8 is a kernel of its own (K1's tiles reading halo rows), K9
+            # a composition in its wrapper
+            "source": f"krypy_tpu_torch/kernels/{'csrc/' + cu if k8 else py}",
+            "wrapper" if k8 else "kernel_source":
+                f"krypy_tpu_torch/kernels/{py if k8 else 'csrc/' + cu}",
             "replaces": src,
             "launches": sum(s["launches"][name]
                             for ranks in worlds.values()
@@ -3073,6 +3324,22 @@ def _mesh_rows(worlds):
             "ms_by_world": {f"{b} P={P}": ranks[0]["times"][name]["ms"]
                             for (b, P), ranks in worlds.items()},
         })
+        if k8:
+            # every order and route, and the earlier composition timed in the
+            # same run (the earlier design), on rank 0 of each world; the
+            # gathered output against the single-device K1, bit for bit
+            rows[-1]["kept"] = _k8_kept()
+            rows[-1]["variants_by_world"] = {
+                f"{b} P={P}": ranks[0]["k8_variants"]
+                for (b, P), ranks in worlds.items()}
+            rows[-1]["max_abs_err_kernel_alone"] = halo["max_abs_err"]
+            rows[-1][f"kernel_alone_ms_{MESH_NX // 4}x{MESH_NX}"] = \
+                halo["times"]
+            rows[-1]["staging_ms"] = halo["staging"]
+            rows[-1]["bitwise_k1_by_world"] = {
+                f"{b} P={P}": {v: all(r["k8_bitwise"][v] for r in ranks)
+                               for v in ranks[0]["k8_bitwise"]}
+                for (b, P), ranks in worlds.items()}
         if key == "k9":
             # K4 + K5 + K6: the floor of the composition's three sweeps
             rows[-1]["three_sweep_floor_ms_by_world"] = {
@@ -3096,13 +3363,13 @@ def main(argv=None):
                          "prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
-                             "config5"),
+                             "config5", "mesh"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
                          "the device times of K1's matvec, K4 and K7 by "
-                         "phase; or config 5 with K1's forward-mode "
-                         "rule); "
+                         "phase; config 5 with K1's forward-mode "
+                         "rule; or the mesh phase); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -3149,8 +3416,8 @@ def main(argv=None):
         return
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
-         "baseline": baseline_phase,
-         "kernels": kernels_phase}[args.only](device)
+         "baseline": baseline_phase, "kernels": kernels_phase,
+         "mesh": mesh_phase}[args.only](device)
         return
     report = stencil_phase(device)
     report["coarse"] = coarse_phase(device)
@@ -3283,7 +3550,7 @@ def main(argv=None):
         "ms_by_grid": {f"{nx}x{ny}": v
                        for (nx, ny), v in c5_jvp["times"].items()},
     })
-    rows += _mesh_rows(worlds)
+    rows += _mesh_rows(worlds, report["stencil5_halo"])
     print(json.dumps({"walls_s": {
         label: record[label] for record in (c2_rec, c3_rec)
         for label in record if str(label).startswith("config")}}),

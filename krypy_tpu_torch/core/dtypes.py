@@ -57,19 +57,19 @@ def shape_vec(x):
     return x.reshape(x.shape[0], 1)
 
 
-def shape_vecs(*args):
+def shape_vecs(*args, device="cuda"):
     """Bring all array arguments into column shape ``(n, 1)``.
 
     Returns ``(flat_vecs, args)`` where ``flat_vecs`` is True iff every
     array argument came in flat ``(n,)`` form, so that solvers can return
     results in the caller's shape convention.  numpy arrays become
-    tensors on the CPU; tensors keep their device.
+    tensors on ``device`` (:func:`asarray`); tensors keep their device.
     """
     out = []
     flat_vecs = True
     for arg in args:
         if arg is not None and hasattr(arg, "shape") and hasattr(arg, "ndim"):
-            arg = asarray(arg, device="cpu")
+            arg = asarray(arg, device=device)
             if arg.ndim == 1:
                 arg = shape_vec(arg)
             else:

@@ -18,6 +18,7 @@ from .stencil import (
     laplacian_2d_pipelined,
     stencil5_affine,
     stencil5_coarse,
+    stencil5_halo,
     stencil5_jacobi2,
     stencil5_pipelined,
     stencil5_resrestrict_rows,
@@ -34,6 +35,7 @@ __all__ = [
     "laplacian_2d_kernel",
     "laplacian_2d",
     "stencil5_sharded",
+    "stencil5_halo",
     "project_prefix",
     "apply_project",
     "update_prefix",

@@ -32,10 +32,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: argtypes of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
-    # u, g, out, nx, ny, nrows, ncols, 7 constants, strip, step_rows,
-    # strips, steps, stream
-    "krypy_stencil5_affine": [_P, _P, _P] + [_I] * 4 + [_F] * 7 + [_I] * 4
+    # u, g, top, bot, out, nx, ny, nrows, ncols, 7 constants, two row
+    # segments (begin, end), strip, step_rows, strips, steps, stream
+    "krypy_stencil5_affine": [_P] * 5 + [_I] * 4 + [_F] * 7 + [_I] * 8
     + [_P],
+    # dst, dpitch, src, spitch, width, height (bytes), stream
+    "krypy_copy_rows": [_P, _L, _P, _L, _L, _L, _P],
     # r, out, nx, ny, nrows, ncols, 6 constants, sweeps, max_smem, stream
     "krypy_stencil5_coarse": [_P, _P] + [_I] * 4 + [_F] * 6 + [_I] * 2
     + [_P],

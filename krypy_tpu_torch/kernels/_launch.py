@@ -48,16 +48,35 @@ def reset_launch_counts():
             counts[k] = 0
 
 
-def launch(name, fn_name, args, device):
+def _call(fn_name, args, device):
     """Call the C entry point ``fn_name`` of the kernel library on the
-    current stream of ``device``; raise if the launch was refused."""
+    current stream of ``device``; its CUDA error code."""
     from . import _build
 
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+        return getattr(lib, fn_name)(*args, stream)
+
+
+def launch(name, fn_name, args, device):
+    """Call the C entry point ``fn_name`` on the current stream of
+    ``device``; raise if the launch was refused."""
+    err = _call(fn_name, args, device)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
+
+
+def copy_rows(dst, dpitch, src, spitch, width, height, device):
+    """One asynchronous copy (``cudaMemcpy2DAsync``) of ``height`` rows of
+    ``width`` bytes from address ``src`` (rows ``spitch`` bytes apart) to
+    ``dst`` (``dpitch`` apart), between device and pinned host memory, on
+    the current stream of ``device``; raises if it was refused.  Not a
+    kernel launch: counted nowhere."""
+    err = _call("krypy_copy_rows", (dst, dpitch, src, spitch, width, height),
+                device)
+    if err != 0:
+        raise RuntimeError(f"copy_rows: cudaMemcpy2DAsync failed with CUDA "
+                           f"error {err}")

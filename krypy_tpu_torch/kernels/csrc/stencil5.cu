@@ -387,25 +387,68 @@ constexpr int kAffineGRing = 16;
 // region except before column 0 (the row above's elements), which the
 // row computation masks: the Dirichlet zero.  One barrier per step of 8
 // rows.
-__global__ void __launch_bounds__(kJacobiThreads)
-    stencil5_affine_kernel(const float* __restrict__ u,
-                           const float* __restrict__ g,
-                           float* __restrict__ out, int nx, int ny,
-                           int nrows, int ncols, Coeffs k, float alpha,
-                           float beta, int steps) {
-  __shared__ __align__(16) float su[kAffineURing][kPitch];
-  __shared__ __align__(16) float sg[kAffineGRing][kPitch];
+//
+// K8's form (kHaloRows).  Replaces the per-shard body of
+// krypy_tpu/kernels/stencil.py:stencil5_sharded: stencil5_pipelined on
+// the rank's row block, then `.at[0].add(cu * top)` and
+// `.at[-1].add(cd * bot)`, which XLA fuses on the TPU and which on the
+// card were four more launches on two rows.  Row -1 of u is read from
+// `top` and row nrows from `bot`, each one row of ncols values (a null
+// pointer is the Dirichlet zero), so the edge rows of a rank's block are
+// computed whole with their true neighbours in the same per-point
+// arithmetic as every other row (the gathered result is the one-device
+// K1 matvec bit for bit), and no fix-up follows.  A halo row is staged
+// like any row of u (at its own 16-byte offset), from device memory or
+// from pinned host memory mapped into the device's address space.  Bound
+// as K1: device memory, the block read and written once, 2 rows more.
+// Only the runs that read row -1 or row nrows take the halo rows' code;
+// the last run, which reads bot, is scheduled second, so a halo row's
+// latency in host memory overlaps the other blocks' work.  Without halos
+// (kHaloRows false) the kernel is K1 as before.
+//
+// A launch computes the output rows [begin, end) of one or two segments
+// (blockIdx.z), each in runs of `steps` steps: K1 and K8 one segment of
+// every row; K8 with its exchange in flight the interior rows [1, nx-1)
+// first and then rows 0 and nx-1 as two one-row segments.
+struct Segments {
+  int begin0, end0, begin1, end1;
+};
+
+// One block's run of K1: the output rows [i0, i_end) of its strip.  With
+// kHaloRows, row -1 of u is top's and row nrows bot's.
+template <bool kHaloRows>
+__device__ __forceinline__ void affine_run(
+    float (*su)[kPitch], float (*sg)[kPitch], const float* __restrict__ u,
+    const float* __restrict__ g, const float* __restrict__ top,
+    const float* __restrict__ bot, float* __restrict__ out, int ny,
+    int nrows, int ncols, Coeffs k, float alpha, float beta, int i0,
+    int i_end) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j0 = blockIdx.x * kStrip;
-  const int i0 = blockIdx.y * steps * kStepRows;
-  const int i_end = min(nx, i0 + steps * kStepRows);  // output rows
   const bool has_g = g != nullptr;
   // ring rows: u from row i0-1, g from i0
   auto urow = [&](int i) { return su[(i - i0 + 1) % kAffineURing]; };
   auto grow = [&](int i) { return sg[(i - i0) % kAffineGRing]; };
+  // where row i of u is read: row `r` of `p`, inside while r < n
+  struct RowSrc {
+    const float* p;
+    int r, n;
+  };
+  auto src_of = [&](int i) {
+    if (kHaloRows) {
+      if (i == -1 && top != nullptr) return RowSrc{top, 0, 1};
+      if (i == nrows && bot != nullptr) return RowSrc{bot, 0, 1};
+    }
+    return RowSrc{u, i, nrows};
+  };
+  auto u_off = [&](int i) {
+    const RowSrc s = src_of(i);
+    return row_offset(s.p, s.r, ny);
+  };
   auto stage_u = [&](int i) {
-    stage_row(urow(i), u, i, j0, row_offset(u, i, ny), ny, nrows, ncols,
-              true);
+    const RowSrc s = src_of(i);
+    stage_row(urow(i), s.p, s.r, j0, row_offset(s.p, s.r, ny), ny, s.n,
+              ncols, true);
   };
   auto stage_g = [&](int i) {
     stage_row(grow(i), g, i, j0, row_offset(g, i, ny), ny, nrows, ncols,
@@ -436,13 +479,11 @@ __global__ void __launch_bounds__(kJacobiThreads)
       const int oo = row_offset(out, i, ny);
       const int j = j0 - oo + 4 * lane;
       const int x = kHalo + 4 * lane - oo;
-      const int xu = x + row_offset(u, i, ny);
+      const int xu = x + u_off(i);
       float rt, unused;
       const float4 cu = ring_at(urow(i), xu, &rt);
-      const float4 cau =
-          ring_at(urow(i - 1), x + row_offset(u, i - 1, ny), &unused);
-      const float4 cad =
-          ring_at(urow(i + 1), x + row_offset(u, i + 1, ny), &unused);
+      const float4 cau = ring_at(urow(i - 1), x + u_off(i - 1), &unused);
+      const float4 cad = ring_at(urow(i + 1), x + u_off(i + 1), &unused);
       const float4 cg =
           has_g ? ring_at(grow(i), x + row_offset(g, i, ny), &unused)
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -478,6 +519,41 @@ __global__ void __launch_bounds__(kJacobiThreads)
     }
     cp_async_wait_all();
     __syncthreads();
+  }
+}
+
+template <bool kHaloRows>
+__global__ void __launch_bounds__(kJacobiThreads)
+    stencil5_affine_kernel(const float* __restrict__ u,
+                           const float* __restrict__ g,
+                           const float* __restrict__ top,
+                           const float* __restrict__ bot,
+                           float* __restrict__ out, int nx, int ny,
+                           int nrows, int ncols, Coeffs k, float alpha,
+                           float beta, Segments seg, int steps) {
+  __shared__ __align__(16) float su[kAffineURing][kPitch];
+  __shared__ __align__(16) float sg[kAffineGRing][kPitch];
+  const int h = steps * kStepRows;
+  const int begin = blockIdx.z ? seg.begin1 : seg.begin0;
+  const int end = blockIdx.z ? seg.end1 : seg.end0;
+  int run = blockIdx.y;
+  if (kHaloRows) {
+    // the segment's last run (which reads bot) goes second, so that the
+    // latency of a halo row in host memory overlaps the other blocks'
+    // work rather than adding to the kernel's tail
+    const int runs = (end - begin + h - 1) / h;
+    if (runs > 2 && run > 0) run = run == 1 ? runs - 1 : run - 1;
+  }
+  const int i0 = begin + run * h;
+  const int i_end = min(end, i0 + h);  // output rows
+  if (i0 >= i_end) return;  // past its segment: the whole block
+  // only a run that reads row -1 or row nrows takes the halo rows' code
+  if (kHaloRows && (i0 == 0 || i_end >= nrows)) {
+    affine_run<true>(su, sg, u, g, top, bot, out, ny, nrows, ncols, k,
+                     alpha, beta, i0, i_end);
+  } else {
+    affine_run<false>(su, sg, u, g, nullptr, nullptr, out, ny, nrows,
+                      ncols, k, alpha, beta, i0, i_end);
   }
 }
 
@@ -582,29 +658,56 @@ dim3 grid_for(int rows, int cols, dim3 block) {
 
 extern "C" {
 
-int krypy_stencil5_affine(const float* u, const float* g, float* out, int nx,
-                          int ny, int nrows, int ncols, float a, float b,
-                          float c, float d, float e, float alpha, float beta,
+int krypy_stencil5_affine(const float* u, const float* g, const float* top,
+                          const float* bot, float* out, int nx, int ny,
+                          int nrows, int ncols, float a, float b, float c,
+                          float d, float e, float alpha, float beta,
+                          int begin0, int end0, int begin1, int end1,
                           int strip, int step_rows, int strips, int steps,
                           void* stream) {
   // The wrapper sizes the grid with its own copy of the geometry
   // (kernels/stencil.py: affine_grid); refuse any other.  Where the
   // output's rows do not all start 16-byte aligned, each row's strips
   // start up to 3 columns early (its aligned frame), so one more strip
-  // may be needed.
+  // may be needed.  Segment 0 must hold rows; segment 1 may be empty.
   const bool aligned =
       ny % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const int want = (ny + (aligned ? 0 : 3) + kStrip - 1) / kStrip;
+  const bool two = end1 > begin1;
   if (strip != kStrip || step_rows != kStepRows || strips != want ||
-      steps < 1) {
+      steps < 1 || begin0 < 0 || end0 <= begin0 || end0 > nx ||
+      (two && (begin1 < 0 || end1 > nx))) {
     return (int)cudaErrorInvalidValue;
   }
-  const int runs = (nx + steps * kStepRows - 1) / (steps * kStepRows);
-  stencil5_affine_kernel<<<dim3(want, runs), kJacobiThreads, 0,
-                           (cudaStream_t)stream>>>(
-      u, g, out, nx, ny, nrows, ncols, Coeffs{a, b, c, d, e}, alpha, beta,
-      steps);
+  const int rows = max(end0 - begin0, two ? end1 - begin1 : 0);
+  const int runs = (rows + steps * kStepRows - 1) / (steps * kStepRows);
+  const dim3 grid(want, runs, two ? 2 : 1);
+  const Segments seg{begin0, end0, begin1, end1};
+  const Coeffs k{a, b, c, d, e};
+  if (top != nullptr || bot != nullptr) {
+    stencil5_affine_kernel<true><<<grid, kJacobiThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        u, g, top, bot, out, nx, ny, nrows, ncols, k, alpha, beta, seg,
+        steps);
+  } else {
+    stencil5_affine_kernel<false><<<grid, kJacobiThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        u, g, nullptr, nullptr, out, nx, ny, nrows, ncols, k, alpha, beta,
+        seg, steps);
+  }
   return (int)cudaGetLastError();
+}
+
+// One staging copy of `height` rows of `width` bytes, `spitch` bytes apart
+// in src and `dpitch` in dst, between any two of device and pinned host
+// memory (the direction from the pointers): K8's halo rows through host
+// memory, both edge rows of a row block in one copy.
+int krypy_copy_rows(void* dst, long long dpitch, const void* src,
+                    long long spitch, long long width, long long height,
+                    void* stream) {
+  return (int)cudaMemcpy2DAsync(dst, (size_t)dpitch, src, (size_t)spitch,
+                                (size_t)width, (size_t)height,
+                                cudaMemcpyDefault, (cudaStream_t)stream);
 }
 
 // Shared memory of the coarse form: two bordered planes of u and r.

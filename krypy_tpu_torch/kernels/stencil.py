@@ -18,8 +18,9 @@ whole buffer), which launch K1 itself: :func:`stencil5_pipelined`,
 operator constructor :func:`laplacian_2d` (K10, the JAX package's older
 manual-copy Laplacian kernel, which its pipelined kernel superseded).
 :func:`stencil5_sharded` (K8) is the matvec of a grid split by rows over
-a mesh: K1 on each rank's row block, a one-row halo exchange with the
-neighbouring ranks and an edge correction.
+a mesh: a one-row halo exchange with the neighbouring ranks, then K8's
+kernel :func:`stencil5_halo`, K1's tiles reading the received rows as the
+block's rows -1 and ``nx/P``, so the edge rows need no correction.
 
 Operands are flat ``(nx*ny,)`` tensors holding a row-major ``(nx, ny)``
 buffer whose top-left ``(nrows, ncols)`` corner is the logical Dirichlet
@@ -53,6 +54,9 @@ __all__ = [
     "laplacian_2d",
     "stencil5_sharded",
     "stencil5_sharded_torch",
+    "stencil5_halo",
+    "stencil5_halo_torch",
+    "halo_segments",
     "stencil5_affine_torch",
     "stencil5_jacobi2_torch",
     "stencil5_resrestrict_rows_torch",
@@ -266,9 +270,9 @@ def _affine(x, g, nx, ny, coeffs, nrows, ncols, alpha, beta, tangent):
         nx, ny, ny % 4 == 0 and out.data_ptr() % 16 == 0)
     _launch(
         "stencil5_affine", "krypy_stencil5_affine",
-        (x.data_ptr(), None if g is None else g.data_ptr(), out.data_ptr(),
-         nx, ny, nrows, ncols, a, b, c, d, e, float(alpha),
-         float(beta) if g is not None else 0.0, JACOBI2_STRIP,
+        (x.data_ptr(), None if g is None else g.data_ptr(), None, None,
+         out.data_ptr(), nx, ny, nrows, ncols, a, b, c, d, e, float(alpha),
+         float(beta) if g is not None else 0.0, 0, nx, 0, 0, JACOBI2_STRIP,
          JACOBI2_STEP_ROWS, strips, steps),
         x.device,
     )
@@ -496,59 +500,160 @@ def laplacian_2d(nx, ny=None, device="cuda"):
     return matvec
 
 
-def _sharded(x, nx, ny, coeffs, mesh, local, kernel):
-    """The row-sharded matvec around a per-shard stencil ``local(x_loc,
-    nx_loc)`` (which applies Dirichlet zeros at the block's first and last
-    rows): post the exchange of the block's edge rows, run ``local`` while
-    it is in flight, then add ``cu * top`` to the first row and ``cd *
-    bottom`` to the last, the neighbours' contributions; the edge ranks
-    receive zeros, the Dirichlet boundary.  The JAX package adds them
-    outside its kernel too (stencil.py:603-604).  The operand is checked
-    before the exchange is posted: for the kernel (``kernel``) as K1
-    checks it, for the plain stencil, which takes any dtype, its length."""
-    P = mesh.size
-    if nx % P != 0:
-        raise ValueError(f"nx={nx} must be divisible by the mesh size {P} "
-                         "for the sharded stencil")
-    nx_loc = nx // P
-    if kernel:
-        _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x)
-    elif x.numel() != nx_loc * ny:
+#: K8's defaults, chosen on the H100 (PERF.md §6, chip_smoke.py's mesh
+#: phase): ``K8_OVERLAP``, the order against the exchange (False: one
+#: launch after the halo rows arrive; True: the interior rows while they
+#: cross, then rows 0 and ``nx_loc - 1``); ``K8_MAPPED``, the route of the
+#: received rows under gloo (False: one copy into a device buffer; True:
+#: the kernel reads the pinned receive buffer in place)
+K8_OVERLAP = False
+K8_MAPPED = True
+
+
+def halo_segments(nrows, overlap):
+    """K8's launches on a block of ``nrows`` rows, each a tuple of the one
+    or two row segments ``(begin, end)`` its kernel computes: one launch
+    of every row, or with ``overlap`` (and more than two rows) the
+    interior rows, which read no halo row, and then rows 0 and ``nrows -
+    1``."""
+    if not overlap or nrows <= 2:
+        return [((0, nrows),)]
+    return [((1, nrows - 1),), ((0, 1), (nrows - 1, nrows))]
+
+
+def stencil5_halo_torch(u, top, bot, coeffs):
+    """Plain version of K8's kernel on a 2-D ``(R, P)`` row block: the
+    plain stencil (:func:`stencil5_affine_torch`) on the rows ``[top; u;
+    bot]``, its middle ``R`` rows.  ``top`` and ``bot`` are ``(P,)`` rows
+    on any device, or None, the Dirichlet zero."""
+    R, P = u.shape
+    zero = torch.zeros((1, P), dtype=u.dtype, device=u.device)
+    top, bot = (zero if t is None else t.reshape(1, P).to(u)
+                for t in (top, bot))
+    ext = torch.cat([top, u, bot], 0)
+    return stencil5_affine_torch(ext, None, coeffs, R + 2, P)[1:-1]
+
+
+def _halo_ptr(t, x, ny):
+    """The address of a halo row for K8's kernel: None for None, else a
+    contiguous float32 row of ``ny`` values on ``x``'s device or in pinned
+    host memory (which the kernel reads in place)."""
+    if t is None:
+        return None
+    if t.dtype != torch.float32 or t.numel() != ny or \
+            not t.is_contiguous():
+        raise ValueError(f"stencil5_halo: a halo row is a contiguous "
+                         f"float32 row of {ny}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.device != x.device and not (t.device.type == "cpu"
+                                     and t.is_pinned()):
+        raise ValueError(f"stencil5_halo: a halo row lies on the operand's "
+                         f"device {x.device} or in pinned host memory, "
+                         f"not on {t.device}")
+    return t.data_ptr()
+
+
+def _halo_launch(x, top, bot, out, nx, ny, coeffs, segments):
+    """One launch of K1's kernel in its halo form on the ``(nx, ny)`` row
+    block ``x``: rows -1 and ``nx`` read from ``top`` and ``bot``, the
+    output rows of ``segments`` (:func:`halo_segments`) written to
+    ``out``."""
+    (b0, e0), (b1, e1) = (segments + ((0, 0),))[:2]
+    strips, _, steps = affine_grid(
+        max(e0 - b0, e1 - b1), ny,
+        ny % 4 == 0 and out.data_ptr() % 16 == 0)
+    _launch(
+        "stencil5_affine", "krypy_stencil5_affine",
+        (x.data_ptr(), None, _halo_ptr(top, x, ny), _halo_ptr(bot, x, ny),
+         out.data_ptr(), nx, ny, nx, ny, *_grouped(coeffs), 0.0, 0.0, b0, e0,
+         b1, e1, JACOBI2_STRIP, JACOBI2_STEP_ROWS, strips, steps),
+        x.device,
+    )
+
+
+def stencil5_halo(x, top=None, bot=None, *, nx, ny, coeffs):
+    """K8's kernel: the 5-point Dirichlet matvec of an ``(nx, ny)`` row
+    block (flat ``x``) whose row above is ``top`` and row below is ``bot``
+    (``(ny,)`` rows; None is the Dirichlet zero).  Every row, the edge
+    rows too, is computed whole in K1's grouped-difference arithmetic with
+    its true neighbours: one launch of K1's kernel in its halo form,
+    counted as a ``stencil5_affine`` launch.  On the card a halo row lies
+    on ``x``'s device or in pinned host memory, which the kernel reads in
+    place.  With both halos None it is K1's matvec of the block, the
+    same bits.  Plain version: :func:`stencil5_halo_torch`."""
+    if not _check("stencil5_halo", nx, ny, nx, ny, x):
+        return stencil5_halo_torch(x.reshape(nx, ny), top, bot,
+                                   coeffs).reshape(-1)
+    out = torch.empty_like(x)
+    _halo_launch(x, top, bot, out, nx, ny, coeffs,
+                 halo_segments(nx, False)[0])
+    return out
+
+
+def _block_rows(nx, x, ny, mesh):
+    """The rank's rows ``nx / P``; raises where P does not divide ``nx``
+    or ``x`` is not a block of that many rows."""
+    if nx % mesh.size != 0:
+        raise ValueError(f"nx={nx} must be divisible by the mesh size "
+                         f"{mesh.size} for the sharded stencil")
+    nx_loc = nx // mesh.size
+    if x.numel() != nx_loc * ny:
         raise ValueError(f"stencil5_sharded: operand has {x.numel()} "
                          f"elements, expected {nx_loc}*{ny}")
-    u = x.reshape(nx_loc, ny)
-    halo = halo_exchange(u[0], u[-1], mesh=mesh, async_op=True)
-    out = local(x, nx_loc).reshape(nx_loc, ny)
-    top, bot = halo.wait()
-    _, cu, cd, _, _ = (float(c) for c in coeffs)
-    out[0] += cu * top
-    out[-1] += cd * bot
-    return out.reshape(-1)
+    return nx_loc
+
+
+def _neighbours(rows, mesh):
+    """The received ``(top, bottom)`` rows, None where the rank has no
+    neighbour (the Dirichlet edge of the first and last rank)."""
+    top, bot = rows
+    return (top if mesh.rank > 0 else None,
+            bot if mesh.rank < mesh.size - 1 else None)
 
 
 def stencil5_sharded_torch(x, *, nx, ny, coeffs, mesh):
-    """Plain version of K8: the plain grouped stencil on the rank's row
-    block, the same exchange and edge correction."""
-    return _sharded(
-        x, nx, ny, coeffs, mesh,
-        lambda xs, n: stencil5_affine_torch(xs.reshape(n, ny), None, coeffs,
-                                            n, ny).reshape(-1), False)
+    """Plain version of K8: the same exchange, then the plain stencil on
+    the rank's rows with the received rows above and below
+    (:func:`stencil5_halo_torch`); any dtype, on any device."""
+    nx_loc = _block_rows(nx, x, ny, mesh)
+    u = x.reshape(nx_loc, ny)
+    top, bot = _neighbours(halo_exchange(u[0], u[-1], mesh=mesh), mesh)
+    return stencil5_halo_torch(u, top, bot, coeffs).reshape(-1)
 
 
-def stencil5_sharded(x, *, nx, ny, coeffs, mesh):
+def stencil5_sharded(x, *, nx, ny, coeffs, mesh, overlap=None,
+                     mapped=None):
     """K8: the 5-point Dirichlet matvec of an ``nx x ny`` grid whose rows
     are split over ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`;
     ``nx`` divisible by its size, else ``ValueError``): ``x`` is the
-    rank's flat ``(nx/P * ny,)`` row block.  K1 runs on the block while
-    the halo rows cross (one :func:`~krypy_tpu_torch.parallel.
-    halo_exchange` per call), then the O(ny) edge correction.
+    rank's flat ``(nx/P * ny,)`` row block.  One
+    :func:`~krypy_tpu_torch.parallel.halo_exchange` per call brings the
+    neighbours' edge rows, and K8's kernel (:func:`stencil5_halo`) computes
+    every row whole with them: no fix-up follows.  ``overlap`` (default
+    ``K8_OVERLAP``) runs the interior rows while the rows cross and then
+    rows 0 and ``nx/P - 1``, two launches; ``mapped`` (default
+    ``K8_MAPPED``) lets the kernel read the rows gloo received in pinned
+    host memory in place instead of copying them to the card first.
+
     Counterpart of ``krypy_tpu.kernels.stencil.stencil5_sharded``; on a
-    CUDA tensor it counts one ``stencil5_sharded`` launch beside K1's
-    own."""
-    out = _sharded(
-        x, nx, ny, coeffs, mesh,
-        lambda xs, n: stencil5_pipelined(xs, nx=n, ny=ny, coeffs=coeffs),
-        True)
-    if x.is_cuda:
-        LAUNCHES["stencil5_sharded"] += 1
+    CUDA tensor it counts one ``stencil5_sharded`` launch per call and
+    each kernel launch as a ``stencil5_affine`` one, and it launches or
+    raises; on a CPU tensor it is :func:`stencil5_sharded_torch`.  The
+    operand is checked before the exchange is posted."""
+    overlap = K8_OVERLAP if overlap is None else overlap
+    mapped = K8_MAPPED if mapped is None else mapped
+    nx_loc = _block_rows(nx, x, ny, mesh)
+    if not _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x):
+        return stencil5_sharded_torch(x, nx=nx, ny=ny, coeffs=coeffs,
+                                      mesh=mesh)
+    u = x.view(nx_loc, ny)
+    out = torch.empty_like(x)
+    launches = halo_segments(nx_loc, overlap and mesh.size > 1)
+    halo = halo_exchange(u[0], u[-1], mesh=mesh, async_op=True,
+                         mapped=mapped)
+    for segments in launches[:-1]:
+        _halo_launch(x, None, None, out, nx_loc, ny, coeffs, segments)
+    top, bot = _neighbours(halo.wait(), mesh)
+    _halo_launch(x, top, bot, out, nx_loc, ny, coeffs, launches[-1])
+    LAUNCHES["stencil5_sharded"] += 1
     return out

@@ -134,6 +134,8 @@ class Mesh:
         self.rank = dist.get_rank(self.group)
         self.backend = dist.get_backend(self.group)
         self.axis_names = ("n",)
+        #: the halo exchanges' buffers, by row width, dtype and device
+        self.halo_buffers = {}
         if device is None:
             local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
             device = torch.device("cuda", local % max(
@@ -288,20 +290,73 @@ def all_reduce_sum(t, mesh=None):
     return out
 
 
+#: elements a halo buffer's rows are rounded up to: every row then starts
+#: on a 16-byte boundary, as K8's kernel stages rows in 16-byte copies
+_HALO_ALIGN = 4
+
+
+class _HaloBuffers:
+    """The buffers of a mesh's halo exchanges of one row width, dtype and
+    device, made once and reused by every such exchange: ``recv`` the two
+    received rows (zeros where no neighbour writes), on the rows' device
+    for NCCL and CPU rows, in pinned host memory for CUDA rows under gloo;
+    for those also ``send`` (pinned: the edge rows staged out) and ``dev``
+    (the received rows copied to the device).  Rows are ``pitch`` elements
+    apart, a multiple of ``_HALO_ALIGN``."""
+
+    def __init__(self, row, staged):
+        n = row.shape[-1]
+        self.n = n
+        self.pitch = -(-n // _HALO_ALIGN) * _HALO_ALIGN
+
+        def rows(**where):
+            return torch.zeros((2, self.pitch), dtype=row.dtype, **where)
+
+        self.recv = rows(pin_memory=True) if staged else rows(
+            device=row.device)
+        self.send = rows(pin_memory=True) if staged else None
+        self.dev = rows(device=row.device) if staged else None
+
+    def stage_out(self, first_row, last_row):
+        """Both edge rows into ``send`` in one copy (two where they are not
+        disjoint rows of one buffer), then wait for it."""
+        from .kernels._launch import copy_rows
+
+        first_row, last_row = first_row.contiguous(), last_row.contiguous()
+        es = first_row.element_size()
+        width, pitch = self.n * es, self.pitch * es
+        gap = last_row.data_ptr() - first_row.data_ptr()
+        device = first_row.device
+        if gap >= width:
+            copy_rows(self.send.data_ptr(), pitch, first_row.data_ptr(), gap,
+                      width, 2, device)
+        else:
+            for k, row in enumerate((first_row, last_row)):
+                copy_rows(self.send[k].data_ptr(), pitch, row.data_ptr(),
+                          width, width, 1, device)
+        torch.cuda.current_stream(device).synchronize()
+
+
 class _Halo:
     """A posted halo exchange; :meth:`wait` returns ``(top, bottom)``."""
 
-    def __init__(self, works, top, bot, device):
-        self._works, self._top, self._bot = works, top, bot
-        self._device = device
+    def __init__(self, works, bufs, mapped):
+        self._works, self._bufs, self._mapped = works, bufs, mapped
 
     def wait(self):
         for w in self._works:
             w.wait()
-        return self._top.to(self._device), self._bot.to(self._device)
+        b = self._bufs
+        rows = b.recv
+        if b.dev is not None and not self._mapped:
+            if self._works:
+                b.dev.copy_(b.recv, non_blocking=True)
+            rows = b.dev
+        return rows[0, :b.n], rows[1, :b.n]
 
 
-def halo_exchange(first_row, last_row, mesh=None, async_op=False):
+def halo_exchange(first_row, last_row, mesh=None, async_op=False, *,
+                  mapped=False):
     """Send this rank's first row to the rank before it and its last row
     to the rank after it; return ``(top, bottom)``, the previous rank's
     last row and the next rank's first row, zeros where there is no
@@ -309,30 +364,39 @@ def halo_exchange(first_row, last_row, mesh=None, async_op=False):
     ``async_op=True`` it returns a handle whose ``wait()`` returns them,
     so that local work can run in between: with NCCL the transfers run on
     NCCL's stream and ``wait()`` orders them before later work on the
-    current stream; with gloo the rows cross through host memory while
-    the card runs what was launched.  Counted in
-    ``COLLECTIVES["halo_exchange"]``."""
+    current stream, with no host wait; with gloo the rows cross through
+    host memory while the card runs what was launched.  Counted in
+    ``COLLECTIVES["halo_exchange"]``.
+
+    The rows returned are views of buffers that the mesh keeps for each
+    row width and reuses in its next exchange (:class:`_HaloBuffers`):
+    copy them to keep them.  CUDA rows under gloo take one staging copy
+    each way: both edge rows out to pinned host memory in one copy, and
+    the received rows back to the device in one copy, or, with
+    ``mapped=True``, none: the rows returned are then the pinned receive
+    buffer itself, which a kernel reads in place (K8's)."""
     mesh = active_mesh() if mesh is None else mesh
-    device = first_row.device
-    if mesh.backend != "nccl" and first_row.is_cuda:
-        rows = torch.empty((2,) + tuple(first_row.shape),
-                           dtype=first_row.dtype, pin_memory=True)
-        rows[0].copy_(first_row)
-        rows[1].copy_(last_row)
-        first_row, last_row = rows[0], rows[1]
-    top = torch.zeros_like(first_row)
-    bot = torch.zeros_like(last_row)
+    key = (first_row.shape[-1], first_row.dtype, first_row.device)
+    bufs = mesh.halo_buffers.get(key)
+    if bufs is None:
+        bufs = mesh.halo_buffers[key] = _HaloBuffers(
+            first_row, mesh.backend != "nccl" and first_row.is_cuda)
+    peers = [(mesh.rank - 1, 0), (mesh.rank + 1, 1)]
+    peers = [(p, k) for p, k in peers if 0 <= p < mesh.size]
+    sends = (first_row, last_row)
+    if bufs.send is not None and peers:
+        bufs.stage_out(first_row, last_row)
+        sends = (bufs.send[0, :bufs.n], bufs.send[1, :bufs.n])
     ops = []
-    for peer, send, recv in ((mesh.rank - 1, first_row, top),
-                             (mesh.rank + 1, last_row, bot)):
-        if 0 <= peer < mesh.size:
-            peer = dist.get_global_rank(mesh.group, peer)
-            ops += [dist.P2POp(dist.isend, send.contiguous(), peer,
-                               mesh.group),
-                    dist.P2POp(dist.irecv, recv, peer, mesh.group)]
+    for peer, k in peers:
+        peer = dist.get_global_rank(mesh.group, peer)
+        ops += [dist.P2POp(dist.isend, sends[k].contiguous(), peer,
+                           mesh.group),
+                dist.P2POp(dist.irecv, bufs.recv[k, :bufs.n], peer,
+                           mesh.group)]
     works = dist.batch_isend_irecv(ops) if ops else []
     COLLECTIVES["halo_exchange"] += 1
-    handle = _Halo(works, top, bot, device)
+    handle = _Halo(works, bufs, mapped)
     return handle if async_op else handle.wait()
 
 

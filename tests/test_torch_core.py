@@ -225,10 +225,34 @@ def test_dtypes_match_jax():
     assert dtypes.find_common_dtype() == torch.float64
     assert dtypes.find_common_dtype(torch.ones(2, dtype=torch.float32),
                                     np.float64) == torch.float64
-    flat, (a, b) = dtypes.shape_vecs(torch.ones(4), np.ones(4))
+    flat, (a, b) = dtypes.shape_vecs(torch.ones(4), np.ones(4),
+                                     device="cpu")
     assert flat and tuple(a.shape) == (4, 1) and tuple(b.shape) == (4, 1)
     flat, _ = dtypes.shape_vecs(torch.ones(4), torch.ones((4, 2)))
     assert not flat
+
+
+def test_shape_vecs_places_numpy_on_device():
+    """``shape_vecs`` puts numpy arguments on ``device`` (default
+    ``"cuda"``, as ``asarray``; on the CPU here ``device="cpu"``) and
+    leaves tensors where they are; None and non-arrays pass through, as
+    in the JAX package's ``shape_vecs``."""
+    from krypy_tpu.core import dtypes as jd
+
+    t = torch.ones(3, dtype=torch.float64)
+    flat, (a, b, c, d) = dtypes.shape_vecs(np.arange(3.0), t, None, 2.0,
+                                           device="cpu")
+    jflat, (ja, _, jc, jd_) = jd.shape_vecs(np.arange(3.0), np.ones(3), None,
+                                            2.0)
+    assert flat == jflat
+    assert a.device.type == "cpu" and a.dtype == torch.float64
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    assert b.data_ptr() == t.data_ptr() and tuple(b.shape) == (3, 1)
+    assert c is None and jc is None and d == jd_ == 2.0
+    import inspect
+
+    assert inspect.signature(dtypes.shape_vecs).parameters[
+        "device"].default == "cuda"
 
 
 def test_errors_mirror_jax():

@@ -21,7 +21,10 @@ The sharded kernels K8 and K9 run on rank processes that share the card
 (a one-rank NCCL world and a two-rank gloo world; NCCL takes no two
 ranks on one device), against their plain versions in float64 and
 against the single-device K1 and K4 -> K5 -> K6: K8 within the stencil
-tolerance, K9 within :func:`krypy_tpu_torch.kernels.parity.cgs2_tolerances`.
+tolerance and, in each order against the exchange and each route of the
+received rows, bit for bit K1's matvec (every row in K1's per-point
+arithmetic), K9 within
+:func:`krypy_tpu_torch.kernels.parity.cgs2_tolerances`.
 
 The prefix-sweep kernels K4-K6 sum in another order than their plain
 versions (cuBLAS): each output is held to its float64 value by
@@ -829,6 +832,13 @@ def sharded_kernel_cases(mesh):
         k9_ok = k9_ok and bool(
             torch.all((c[:rows] - ref_c[:rows]).double().abs() <= t_c)
             and torch.all((w2 - ref_w2).double().abs() <= t_w))
+    # K8 in both orders against the exchange and both routes of the rows
+    # gloo receives: the single-device K1 matvec bit for bit
+    k8_bitwise = [
+        bool(torch.equal(parallel.gather_vector(kernels.stencil5_sharded(
+            x[blk].contiguous(), nx=nx, ny=nx, coeffs=co, mesh=mesh,
+            overlap=overlap, mapped=mapped), mesh), want))
+        for overlap in (False, True) for mapped in (False, True)]
     # GMRES with ortho="cgs2_fused" where N does not divide over the mesh:
     # K9 on blocks of unequal length, once per iteration, against the
     # two-pass ortho="cgs2" (the JAX package's fused_force_jnp there)
@@ -846,6 +856,7 @@ def sharded_kernel_cases(mesh):
     uneven_same = int(fused.niter) == int(two_pass.niter) and bool(
         torch.all((fused.x - two_pass.x).abs() <= 1e-5))
     return {"k8_ok": np.bool_(bool(k8_ok)), "k9_ok": np.bool_(k9_ok),
+            "k8_bitwise": np.array(k8_bitwise),
             "k8_err": np.float64(err.max()),
             "launches": np.array([launches["stencil5_sharded"],
                                   launches["stencil5_affine"],
@@ -869,6 +880,7 @@ def test_sharded_kernels_match_one_device(cuda_device, tmp_path, backend,
                       device=str(cuda_device), backend=backend)
     for r in ranks:
         assert r["k8_ok"] and r["k9_ok"], (r["k8_err"], backend, P)
+        assert r["k8_bitwise"].all(), r["k8_bitwise"]
         assert list(r["launches"]) == [1, 1, 1, 1]
         assert r["c"].tobytes() == ranks[0]["c"].tobytes()
         # where N does not divide over the mesh, K9 runs on the unequal
@@ -876,6 +888,107 @@ def test_sharded_kernels_match_one_device(cuda_device, tmp_path, backend,
         k9, same, status, niter = r["uneven"]
         assert status == F.CONVERGED and same
         assert k9 == niter > 0
+
+
+#: K8's kernel on one row block (rows, width, operand offset in floats):
+#: a 4-rank block of the mesh phase's 4096^2, an odd width, rows that
+#: start off 16-byte alignment, one and two rows
+HALO_SHAPES = [(1024, 4096, 0), (4096, 4096, 0), (1023, 4095, 0),
+               (64, 4095, 1), (9, 121, 3), (1, 130, 0), (2, 7, 2)]
+
+
+def _halo_rows(rng, ny, where, device):
+    """Two random halo rows of width ``ny``: on the card (``"device"``),
+    at an odd offset there (``"offset"``: each row 1 float past a 16-byte
+    boundary), or in pinned host memory (``"pinned"``, read in place)."""
+    vals = rng.standard_normal((2, ny), dtype=np.float32)
+    if where == "pinned":
+        rows = torch.from_numpy(vals).pin_memory()
+        return rows[0], rows[1]
+    if where == "offset":
+        buf = torch.zeros(2 * ny + 8, device=device)
+        top, bot = buf[1:1 + ny], buf[ny + 5:2 * ny + 5]
+        top.copy_(torch.from_numpy(vals[0]))
+        bot.copy_(torch.from_numpy(vals[1]))
+        return top, bot
+    return tuple(torch.from_numpy(v).to(device) for v in vals)
+
+
+@pytest.mark.parametrize("where", ["device", "offset", "pinned"])
+@pytest.mark.parametrize("halos", ["both", "top", "bottom"])
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_halo_form_matches_plain(cuda_device, shape, halos, where):
+    """K8's kernel (``stencil5_halo``) with random halo rows against its
+    plain version, float32, the stencil tolerance; one launch counted as
+    ``stencil5_affine``; a repeated call the same bits; and split as K8
+    splits it with its exchange in flight (the interior rows, then rows 0
+    and nx-1 as two segments of one launch) the same bits again."""
+    nx, ny, off = shape
+    rng = np.random.default_rng(nx * ny + off + len(halos) + len(where))
+    x = interop.from_numpy(rng.standard_normal(nx * ny + off).astype(
+        np.float32), cuda_device)[off:]
+    top, bot = _halo_rows(rng, ny, where, cuda_device)
+    top = top if halos != "bottom" else None
+    bot = bot if halos != "top" else None
+    co = cd_coeffs(nx)
+    before = kernels.launch_counts()["stencil5_affine"]
+    got = kst.stencil5_halo(x, top, bot, nx=nx, ny=ny, coeffs=co)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["stencil5_affine"] == before + 1
+    assert torch.equal(got, kst.stencil5_halo(x, top, bot, nx=nx, ny=ny,
+                                              coeffs=co))
+    split = torch.empty_like(x)
+    for k, segments in enumerate(kst.halo_segments(nx, True)):
+        kst._halo_launch(x, *((None, None) if k == 0 and nx > 2 else
+                              (top, bot)), split, nx, ny, co, segments)
+    torch.cuda.synchronize()
+    assert torch.equal(split, got)
+
+    def plain(v, dtype):
+        return kst.stencil5_halo_torch(
+            v.view(nx, ny).to(dtype),
+            *(None if t is None else t.to(cuda_device, dtype)
+              for t in (top, bot)), co).reshape(-1)
+
+    want, want64 = plain(x, torch.float32), plain(x, torch.float64)
+    np.testing.assert_allclose(interop.to_numpy(got), interop.to_numpy(want),
+                               rtol=2e-6, atol=fma_atol(want, want64))
+
+
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_halo_form_without_halos_is_k1(cuda_device, shape):
+    """With null halo rows K8's kernel is K1's matvec of the block, the
+    same bits; and the rows [a, b) of a grid with its rows a-1 and b as
+    halo rows are the single-device K1 matvec's rows there, bit for bit
+    (every row in the same per-point arithmetic)."""
+    nx, ny, off = shape
+    rng = np.random.default_rng(nx + ny + off)
+    x = interop.from_numpy(rng.standard_normal(nx * ny + off).astype(
+        np.float32), cuda_device)[off:]
+    co = cd_coeffs(nx)
+    k1 = kst.stencil5_affine(x, nx=nx, ny=ny, coeffs=co)
+    assert torch.equal(kst.stencil5_halo(x, nx=nx, ny=ny, coeffs=co), k1)
+    if nx > 2:
+        u = x.view(nx, ny)
+        a, b = 1, nx - 1
+        block = u[a:b].contiguous().view(-1)
+        got = kst.stencil5_halo(block, u[a - 1].clone(), u[b].clone(),
+                                nx=b - a, ny=ny, coeffs=co)
+        assert torch.equal(got.view(b - a, ny), k1.view(nx, ny)[a:b])
+
+
+def test_shape_vecs_puts_numpy_on_the_card(cuda_device):
+    """``shape_vecs`` puts a numpy argument on the card by default, as the
+    JAX package's puts it on the default device; a tensor keeps its
+    device, and ``device="cpu"`` keeps numpy on the CPU."""
+    from krypy_tpu_torch.core import dtypes
+
+    t = torch.ones(3)
+    flat, (a, b) = dtypes.shape_vecs(np.arange(3.0), t)
+    assert flat and a.is_cuda and tuple(a.shape) == (3, 1)
+    assert b.device.type == "cpu"
+    _, (c,) = dtypes.shape_vecs(np.arange(3.0), device="cpu")
+    assert c.device.type == "cpu"
 
 
 def test_sharded_kernels_on_cuda_raise_without_the_library(

@@ -186,6 +186,9 @@ def rank_cases(mesh):
             out[f"k8_{tag}"] = gather(kst.stencil5_sharded(
                 x, nx=nx, ny=ny, coeffs=_coeffs(name, nx, ny), mesh=mesh),
                 mesh)
+            out[f"k8f32_{tag}"] = gather(kst.stencil5_sharded(
+                x.float(), nx=nx, ny=ny, coeffs=_coeffs(name, nx, ny),
+                mesh=mesh), mesh)
             for impl in ("torch", "cuda"):
                 op = _operator(name, nx, ny, impl, mesh)
                 out[f"op_{impl}_{tag}"] = gather(op(x), mesh)
@@ -378,6 +381,25 @@ def test_stencil5_sharded_matches_jax(worlds, nx, ny, name, P):
     for impl in ("torch", "cuda"):
         _close(r0[f"op_{impl}_{tag}"], want)
         _close(r0[f"diag_{impl}_{tag}"], diag, 0.0)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("name", OPERATORS)
+@pytest.mark.parametrize("nx,ny", K8_SHAPES)
+def test_plain_stencil5_sharded_is_one_device_bitwise(worlds, nx, ny, name,
+                                                      P):
+    """The plain K8 in float32, gathered from every rank, equals the
+    single-device plain stencil of the whole grid bit for bit: each edge
+    row is computed whole with the received neighbour rows, in the
+    grouped-difference arithmetic of every other row (no correction added
+    after it)."""
+    x = torch.from_numpy(np.random.RandomState(7).randn(nx * ny)).float()
+    want = kst.stencil5_affine_torch(x.view(nx, ny), None,
+                                     _coeffs(name, nx, ny), nx, ny)
+    for r in worlds[P]:
+        got = r[f"k8f32_{name}_{nx}x{ny}"]
+        assert got.dtype == np.float32
+        assert np.array_equal(got, want.numpy().reshape(-1))
 
 
 @pytest.mark.parametrize("P", WORLDS)

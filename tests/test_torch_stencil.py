@@ -294,3 +294,104 @@ def test_affine_grid_covers_every_output_once(nx, ny):
                 inside = (col >= 0) & (col < ny)
                 cover[col[inside]] += 1
         assert np.all(cover == 1)
+
+
+#: K8's kernel on one row block: (rows, width) and which halo rows exist
+HALO_SHAPES = [(8, 16), (5, 13), (1, 7), (32, 130)]
+HALOS = {"both": (True, True), "top": (True, False),
+         "bottom": (False, True)}
+
+
+@pytest.mark.parametrize("halos", sorted(HALOS))
+@pytest.mark.parametrize("nx,ny", HALO_SHAPES)
+def test_halo_form_matches_jax_composition(nx, ny, halos):
+    """K8's kernel (its plain version, :func:`stencil5_halo_torch`) on one
+    row block with seeded random halo rows, against the JAX package's K8
+    composition on that block: ``stencil5_pipelined`` interpreted, then
+    ``cu * top`` added to the first row and ``cd * bot`` to the last
+    (krypy_tpu/kernels/stencil.py:597-604); float64 to 1e-11.  A missing
+    halo row is the Dirichlet zero (None here, no addition there)."""
+    rng = np.random.default_rng(nx * ny + len(halos))
+    u = rng.standard_normal((nx, ny))
+    top, bot = (rng.standard_normal(ny) if has else None
+                for has in HALOS[halos])
+    _, cu, cd, _, _ = COEFFS
+    want = jst.stencil5_pipelined(jnp.asarray(u.reshape(-1)), nx=nx, ny=ny,
+                                  coeffs=COEFFS, interpret=True
+                                  ).reshape(nx, ny)
+    if top is not None:
+        want = want.at[0].add(cu * jnp.asarray(top))
+    if bot is not None:
+        want = want.at[-1].add(cd * jnp.asarray(bot))
+    rows = [None if t is None else torch.from_numpy(t) for t in (top, bot)]
+    got = tst.stencil5_halo_torch(torch.from_numpy(u), *rows, COEFFS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-11,
+                               atol=1e-11)
+    # the wrapper on a CPU tensor is the plain version, no launch counted
+    tst.reset_launch_counts()
+    flat = tst.stencil5_halo(torch.from_numpy(u.reshape(-1)), *rows, nx=nx,
+                             ny=ny, coeffs=COEFFS)
+    assert torch.equal(flat, got.reshape(-1))
+    assert tst.launch_counts() == {k: 0 for k in tst.LAUNCHES}
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("nx,ny", HALO_SHAPES)
+def test_halo_form_without_halos_is_k1(nx, ny, dt):
+    """With both halo rows None, K8's kernel is K1's matvec of the block:
+    its plain version gives the bits of K1's plain version; and K8's
+    halo rows enter exactly as a block's own rows do: the rows ``[a, b)``
+    of a grid with rows ``a - 1`` and ``b`` as halos give the grid's
+    stencil on those rows, bit for bit."""
+    rng = np.random.default_rng(7 * nx + ny)
+    grid = torch.from_numpy(rng.standard_normal((nx + 2, ny)).astype(
+        DTYPES[dt]))
+    u = grid[1:-1]
+    want = tst.stencil5_affine_torch(u, None, COEFFS, nx, ny)
+    assert torch.equal(tst.stencil5_halo_torch(u, None, None, COEFFS), want)
+    whole = tst.stencil5_affine_torch(grid, None, COEFFS, nx + 2, ny)
+    for a, b in ((1, nx + 1), (2, nx), (1, 2)):
+        if a < b:
+            got = tst.stencil5_halo_torch(grid[a:b], grid[a - 1], grid[b],
+                                          COEFFS)
+            assert torch.equal(got, whole[a:b])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("nrows", [1, 2, 3, 8, 1024, 1025])
+def test_halo_segments_cover_every_row_once(nrows, overlap):
+    """K8's launches (``halo_segments``): every row of the block in
+    exactly one segment of one launch; with ``overlap`` and more than two
+    rows the first launch reads no halo row (rows 1 .. nrows-2, whose
+    neighbours are the block's own) and the second holds rows 0 and
+    nrows-1; at most two segments a launch, the one or two launches as
+    the C entry takes them (each segment non-empty)."""
+    launches = tst.halo_segments(nrows, overlap)
+    cover = np.zeros(nrows, dtype=np.int64)
+    for segments in launches:
+        assert 1 <= len(segments) <= 2
+        for b, e in segments:
+            assert 0 <= b < e <= nrows
+            cover[b:e] += 1
+    assert np.all(cover == 1)
+    if overlap and nrows > 2:
+        assert launches == [((1, nrows - 1),), ((0, 1), (nrows - 1, nrows))]
+    else:
+        assert launches == [((0, nrows),)]
+
+
+def test_halo_wrapper_rejects_bad_rows():
+    """The halo rows are checked before a launch: the plain version on the
+    CPU takes any row of the width, and the kernel's address check
+    refuses a row of another width, dtype or device."""
+    x = torch.zeros(4 * 8, dtype=torch.float32)
+    good, short = torch.ones(8), torch.ones(7)
+    assert tst._halo_ptr(None, x, 8) is None
+    assert tst._halo_ptr(good, x, 8) == good.data_ptr()
+    for bad in (short, good.double(), torch.ones(16)[::2]):
+        with pytest.raises(ValueError):
+            tst._halo_ptr(bad, x, 8)
+    with pytest.raises(ValueError):
+        tst._halo_ptr(good, torch.zeros(32, device="meta"), 8)
+    with pytest.raises(RuntimeError):
+        tst.stencil5_halo(x, short, None, nx=4, ny=8, coeffs=COEFFS)

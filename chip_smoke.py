@@ -12,7 +12,7 @@ share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
-                                  mesh}]
+                                  mesh,onereduce}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -154,6 +154,24 @@ before printing its last line):
    the device busy share of one profiled sequence of the kernel lane;
    one JSON line per grid and config;
    ``--only config5`` runs just it;
+11b. the one-reduce phase (``--only onereduce``): the ``"cuda"`` row of
+   ``functional.policy`` measured (a 1 GiB float32 device copy; an NCCL
+   all-reduce of one element on a one-rank world with its host read);
+   the north star at 4095^2 in its ``cgs2_1r`` LEFT and bfloat16 x
+   ``cgs2_1r`` RIGHT forms (benchmarks/northstar.py's
+   ``NORTHSTAR_ORTHO``/``BASIS``/``PRECOND``) on both lanes, warm, then
+   counted: converged to 1e-8, the cycles of the ``cgs2_fused`` kernel
+   lane run here and inner iterations per cycle within 3 of it (bf16:
+   between its own lanes), K1-K3 launched as the matvec identity of
+   ``_ns_launch_identity`` says (one more matvec per GMRES call for the
+   lag), then 3 interleaved solves per lane and the busy share; every
+   classic / one-reduce pair of benchmarks/onereduce_bench.py that the
+   port has (``OR_PAIRS``) solved to 1e-6 at 1023^2 (V-cycle
+   preconditioned; the bfloat16 pair to 1e-2) within 3 iterations of its
+   classic lane (+1 for the lag) and an explicit residual within 10 x
+   tol, then slope-timed at tol 0, K = 20 and 40, median of 3, at 1023^2
+   and 4095^2 on both lanes, and the H100's extra-sweep ratios beside
+   the JAX package's; one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -173,8 +191,13 @@ before printing its last line):
    right-hand side: with b = ones the Poisson system is symmetric about
    its middle row, and a rank-local inner
    product would not change CG's ratios on 2 ranks), two
-   ``RecyclingGmres(6, "sm")`` solves, launch and collective
-   counts zeroed just before each and read just after.  Gated against
+   ``RecyclingGmres(6, "sm")`` solves, the restarted GMRES with
+   ``cgs2_1r`` and the CG with ``variant="1r"`` (ONE all-reduce per
+   iteration plus the fixed per-solve ones of ``MESH_1R_FIXED``), and a
+   GMRES(25) cycle with ``ortho="auto"`` (its pick, read off its
+   all-reduces, against ``policy.fused_sharded_wins`` for the shard),
+   launch and collective counts zeroed just before each and read just
+   after.  Gated against
    one device: iteration and matvec counts equal, residual histories
    within ``MESH_RTOL`` and the same bits on every rank, K8 once per
    matvec, K9 once per GMRES iteration, three all-reduces per GMRES
@@ -198,7 +221,9 @@ and in float64) and prints no result line.
 ``--mesh-faults`` runs only the mesh phase's main path, on one device and
 on a gloo world of 2 ranks, sound and with each planted fault (a zeroed
 halo, an unreduced inner product), and fails unless ``MESH_RTOL`` lies
-between the sound readings and the faults'; it prints no result line.
+between the sound readings and the faults' (the unreduced inner product
+reaches the one-reduce solves through their initial norms and must be
+caught there); it prints no result line.
 ``--only stencil`` (``ortho``, ``baseline``, ``mesh``) runs only the
 stencil phase (the prefix-sweep phase, the baseline phase, the mesh
 phase) and prints no result line;
@@ -216,6 +241,7 @@ the Ritz hand-off); the V-cycle's host time is the default run's
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1527,7 +1553,13 @@ MESH_CG_SEED = 12
 #: 3.0e-7, CG 1.1e-5, recycling 2.0e-5 on the H100); the faults that
 #: ``--mesh-faults`` plants (a zeroed halo, an unreduced inner product)
 #: must land above them
-MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4}
+MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4,
+             "gmres_1r": 3e-6, "cg_1r": 2e-4, "gmres_auto": 3e-6}
+#: all-reduces of the one-reduce solves on the mesh beyond one per
+#: iteration: per GMRES cycle the global N, the two initial norms, the
+#: peeled first product and the final explicit residual; per CG solve the
+#: two initial norms, the initial delta and the final explicit residual
+MESH_1R_FIXED = {"gmres_1r": 5, "cg_1r": 4}
 #: the faults ``--mesh-faults`` plants, one world each
 MESH_FAULTS = ("halo", "reduce")
 
@@ -1569,8 +1601,11 @@ def _mesh_solves(device, mesh=None):
     CG on ``poisson_2d(impl="cuda")`` for 100 iterations on a float32
     right-hand side drawn from ``MESH_CG_SEED``, and two
     ``RecyclingGmres(6, "sm")`` solves (``ortho="cgs2"``), the second
-    deflated.  The launch and collective counts are set to 0 just before
-    each solve and read just after.  Returns one record per solve."""
+    deflated; then the one-reduce lane: the restarted GMRES with
+    ``ortho="cgs2_1r"``, the CG with ``variant="1r"``, and one GMRES(25)
+    cycle with ``ortho="auto"``.  The launch and collective counts are set
+    to 0 just before each solve and read just after.  Returns one record
+    per solve."""
     import torch
     from krypy_tpu_torch import functional as F, kernels, ops, parallel, suite
 
@@ -1594,6 +1629,12 @@ def _mesh_solves(device, mesh=None):
                             tol=MESH_TOL, maxiter=MESH_CG_ITERS)],
         "recycling": lambda: [rec.solve(cd, b, ortho="cgs2", **gm)
                               for _ in range(2)],
+        "gmres_1r": lambda: [F.restarted_gmres(
+            cd, b, max_restarts=MESH_CYCLES - 1, ortho="cgs2_1r", **gm)],
+        "cg_1r": lambda: [F.cg(lap, b_cg, M=ops.jacobi_preconditioner(lap),
+                               tol=MESH_TOL, maxiter=MESH_CG_ITERS,
+                               variant="1r")],
+        "gmres_auto": lambda: [F.gmres(cd, b, ortho="auto", **gm)],
     }
     out = {}
     for name, run in runs.items():
@@ -1605,7 +1646,8 @@ def _mesh_solves(device, mesh=None):
         out[name] = {
             "launches": kernels.launch_counts(),
             "collectives": parallel.collective_counts(),
-            "resnorms": [r.resnorms[: len(r.resnorms) if name == "gmres"
+            "resnorms": [r.resnorms[: len(r.resnorms)
+                                    if name in ("gmres", "gmres_1r")
                                     else int(r.niter) + 1].tolist()
                          for r in results],
             "status": [int(r.status) for r in results],
@@ -2036,9 +2078,38 @@ def _check_mesh_world(backend, P, ranks, ref):
     exchange per matvec, and a deflated second recycled solve."""
     from krypy_tpu_torch import suite
 
+    from krypy_tpu_torch.functional import policy
+
     tag = f"mesh {backend} P={P}"
     r0 = ranks[0]["solves"]
+    # ortho="auto": the scheme it picked, read off its all-reduces (one per
+    # iteration for cgs2_1r, three for cgs2_fused), against the price
+    # model's answer for this shard (one rank: the one-device rule)
+    auto = r0["gmres_auto"]
+    n_auto = len(auto["resnorms"][0]) - 1
+    picked = {n_auto + MESH_1R_FIXED["gmres_1r"]: "cgs2_1r",
+              3 * n_auto + 4: "cgs2_fused"}.get(
+        auto["collectives"]["all_reduce_sum"])
+    want = "cgs2_fused" if P == 1 or policy.fused_sharded_wins(
+        MESH_RESTART + 1, MESH_NX ** 2 // P, 4, 2, MESH_DEVICE) \
+        else "cgs2_1r"
+    print(f"{tag} gmres_auto: ortho='auto' picked {picked} "
+          f"({auto['collectives']['all_reduce_sum']} all-reduces in "
+          f"{n_auto} iterations); policy.fused_sharded_wins for "
+          f"{MESH_RESTART + 1} rows of {MESH_NX ** 2 // P} float32 per shard "
+          f"(sync {policy.sync_s(MESH_DEVICE):.3e} s, "
+          f"{policy.hbm_bytes_per_s(MESH_DEVICE):.3e} B/s) -> {want}",
+          flush=True)
+    if picked != want:
+        raise AssertionError(f"{tag} gmres_auto: picked {picked}, the "
+                             f"price model says {want}")
     for name, one in ref.items():
+        if name == "gmres_auto" and picked == "cgs2_1r":
+            # held to one device's first cycle of the same scheme
+            one = dict(one, resnorms=[ref["gmres_1r"]["resnorms"][0][
+                : MESH_RESTART + 1]], launches=dict(
+                    one["launches"], stencil5_affine=one["launches"][
+                        "stencil5_affine"] + 1))
         if name == "recycling" and r0[name]["deflated_width"] != \
                 suite.N_VECTORS:
             raise AssertionError(f"{tag}: the second recycled solve did not "
@@ -2084,6 +2155,15 @@ def _check_mesh_world(backend, P, ranks, ref):
                     f"{iters} iterations of {MESH_CYCLES} cycles: expected "
                     f"one K9 and three all-reduces per iteration plus "
                     f"{per_cycle} per cycle")
+        if name in MESH_1R_FIXED:
+            fixed = MESH_1R_FIXED[name] * (MESH_CYCLES if name == "gmres_1r"
+                                           else 1)
+            if coll["all_reduce_sum"] != iters + fixed or \
+                    launches.get("cgs2_fused_sharded", 0):
+                raise AssertionError(
+                    f"{tag} {name}: {coll['all_reduce_sum']} all-reduces in "
+                    f"{iters} iterations: expected ONE per iteration plus "
+                    f"{fixed} per solve")
 
 
 def mesh_phase(device):
@@ -2194,6 +2274,10 @@ def mesh_fault_phase(device):
               for plant, r in readings.items()}
     blind = [name for name in one
              if not any(name in caught[p] for p in MESH_FAULTS)]
+    # the rank-local inner product reaches the one-reduce solves through
+    # their initial norms (their per-iteration product is a row product):
+    # it must be caught there too
+    blind += [name for name in MESH_1R_FIXED if name not in caught["reduce"]]
     print(f"mesh faults caught by solve: {caught}", flush=True)
     if caught["none"] or not all(caught[p] for p in MESH_FAULTS) or blind:
         raise AssertionError(
@@ -3248,6 +3332,461 @@ def level_ranking(report, ns_counts):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the one-reduce lane (the onereduce phase)
+# ---------------------------------------------------------------------------
+
+#: the north star's two one-reduce forms: (label, ortho, basis, precond)
+OR_NORTHSTAR = (("cgs2_1r left", "cgs2_1r", "f32", "left"),
+                ("bf16 x cgs2_1r right", "cgs2_1r", "bf16", "right"))
+#: slope timing: the two fixed iteration counts and the repeats of each
+OR_KS, OR_REPS = (20, 40), 3
+#: the slope grids: onereduce_bench.py's 1023^2 (a float32 vector is 4.2
+#: MB, inside the 50 MB L2: launches are timed) and the north star's
+#: 4095^2 (67 MB: traffic shows)
+OR_GRIDS = (NX, NS_NX)
+#: deflation width of the deflated pairs
+OR_DEFL = 4
+#: the pairs onereduce_bench.py has and the port has: (name, solver,
+#: classic scheme, one-reduce scheme, options); all on the unpadded
+#: Poisson operator of onereduce_bench.py, Jacobi ``M`` where named
+OR_PAIRS = (
+    ("cg M", "cg", "classic", "1r", {"M": "jacobi"}),
+    ("minres M", "minres", "classic", "1r", {"M": "jacobi"}),
+    ("gmres", "gmres", "cgs2", "cgs2_1r", {}),
+    ("gmres M", "gmres", "cgs2", "cgs2_1r", {"M": "jacobi"}),
+    ("gmres bf16", "gmres", "cgs2", "cgs2_1r", {"basis_dtype": "bf16"}),
+    ("deflated_gmres d=4", "deflated_gmres", "cgs2", "cgs2_1r", {}),
+    ("deflated_cg d=4", "deflated_cg", "classic", "1r", {}),
+)
+#: the convergence check of each one-reduce lane at 1023^2: tolerance,
+#: and the iterations it may take beyond its classic lane (cgs2_1r's lag
+#: adds one)
+OR_CHECK_TOL, OR_CHECK_SLACK = 1e-6, 3
+#: the bfloat16 basis cannot reach 1e-6: its floor is eps(bf16) kappa
+#: (bf16 rounding of the basis rows, whatever the system's dtype), so its
+#: pair is checked at 1e-2
+OR_CHECK_TOL_BF16 = 1e-2
+#: the convergence check's preconditioner: the unpadded V-cycle (K1 at
+#: every level) in place of none or Jacobi, so that each check runs tens
+#: of iterations, not thousands
+OR_CHECK_VCYCLE = dict(coarsest=31, coarse_sweeps=60)
+#: the policy constants' measurements: the copy's size (1 GiB of float32)
+#: and repeats, the all-reduces timed
+OR_COPY_ELEMS, OR_COPY_REPS, OR_SYNC_CALLS = 2 ** 28, 20, 200
+
+
+def policy_constants(device):
+    """The ``"cuda"`` row of ``functional.policy``'s table, measured:
+    ``HBM_BYTES_PER_S`` as a device copy of a 1 GiB float32 tensor (bytes
+    read plus written over the median of 20 copies timed by CUDA events),
+    ``SYNC_S`` as one NCCL all-reduce of a one-element tensor on a
+    one-rank world plus the host read a solver loop makes per iteration
+    (median of 200 synchronised calls, host clock): a one-card floor."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from krypy_tpu_torch import parallel
+
+    x = torch.empty(OR_COPY_ELEMS, dtype=torch.float32, device=device)
+    x.normal_()
+    y = torch.empty_like(x)
+    ms = _time_ms(lambda: y.copy_(x), samples=OR_COPY_REPS, per_sample=1)
+    hbm = 2 * x.numel() * 4 / (ms / 1e3)
+    del x, y
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    parallel.init_distributed(f"tcp://localhost:{port}", 1, 0, "nccl",
+                              timeout=MESH_DIST_TIMEOUT)
+    try:
+        mesh = parallel.make_mesh(device=device)
+        t = torch.ones(1, device=device)
+        times = []
+        for _ in range(OR_SYNC_CALLS + 10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parallel.all_reduce_sum(t, mesh).item()
+            times.append(time.perf_counter() - t0)
+        sync = statistics.median(times[10:])
+    finally:
+        dist.destroy_process_group()
+    parallel.reset_collective_counts()
+    print(f"onereduce policy constants: HBM_BYTES_PER_S={hbm:.6e} "
+          f"(copy of 1 GiB float32, median {ms:.6f} ms) SYNC_S={sync:.6e} "
+          f"(NCCL all-reduce of one element on one rank + host read, "
+          f"median of {OR_SYNC_CALLS}; a one-card floor)", flush=True)
+    return {"HBM_BYTES_PER_S": hbm, "SYNC_S": sync, "copy_ms": ms}
+
+
+def _ns_launch_identity(label, counts, info, lag):
+    """The north star's launches against its GMRES iterations, LEFT
+    preconditioned: every f32 operator application of a GMRES call (the
+    initial residual, one per iteration and, for ``cgs2_1r``, the lag's
+    one more, the explicit residual of its last iteration) comes with one
+    V-cycle, its restart control (the true float32 residual) with none,
+    and the call adds one V-cycle (``Ml b``).  So per call ``niter + 3 +
+    lag`` K1 matvecs and as many V-cycles, each V-cycle one K2 and one K3
+    per kernel level and one K1 per kernel level plus the coarse form."""
+    nlev = len(KERNEL_LEVELS)
+    calls = [n for cyc in info["gmres_niters"] for n in cyc]
+    mv = sum(n + 3 + lag for n in calls)
+    want = {"stencil5_affine": mv + (nlev + 1) * mv,
+            "stencil5_jacobi2": nlev * mv,
+            "stencil5_resrestrict_rows": nlev * mv,
+            "stencil5_coarse": mv}
+    got = {k: counts[k] for k in want}
+    print(f"northstar {label}: GMRES calls {info['gmres_niters']} -> "
+          f"{mv} float32 matvecs and V-cycles ({len(calls)} calls x (niter "
+          f"+ 3 + {lag})); launches {got} against {want}", flush=True)
+    if got != want:
+        raise AssertionError(f"northstar {label}: launches {got} do not "
+                             f"match the matvec identity {want}")
+
+
+def _or_northstar(device):
+    """(a) and (b): the north star at 4095^2 in its two one-reduce forms
+    on the kernel and plain lanes, against the cgs2_fused kernel lane of
+    the same run.  Every solve here runs without the refinement's hidden
+    warm-up solve (the kernels are built).  Each lane's first solve is
+    gated and timed; a
+    kernel lane's second solve is counted, launch counts zeroed just
+    before it and read just after (for bf16 x cgs2_1r under the profiler,
+    which gives its busy share over the first solve's wall); the
+    ``cgs2_fused`` and ``cgs2_1r`` kernel lanes are then timed over
+    ``NS_ROUNDS`` interleaved solves, and cgs2_1r's busy share taken (its
+    device seconds read both ways, raw events and event tree, as a check
+    of ``_device_seconds``).
+    The plain lanes (1.1 and 9 s a solve) are timed by their gated solve
+    alone.  Returns ``(records, counts)``."""
+    import torch
+    from krypy_tpu_torch import kernels
+    from krypy_tpu_torch.northstar import make_northstar
+
+    nx = NS_NX
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    lanes = {"cgs2_fused cuda": ("cuda", "cgs2_fused", "f32", "left")}
+    for label, ortho, basis, precond in OR_NORTHSTAR:
+        for impl in ("cuda", "torch"):
+            lanes[f"{label} {impl}"] = (impl, ortho, basis, precond)
+    runs, counts = {}, {}
+    for lane, (impl, ortho, basis, precond) in lanes.items():
+        t0 = time.perf_counter()
+        solve, cd64 = make_northstar(nx, impl, ortho, device, basis=basis,
+                                     precond=precond)
+        # no hidden warm-up solve in this phase, on any call
+        solve = functools.partial(solve, warm=False)
+        t_made = time.perf_counter()
+        kernels.reset_launch_counts()
+        res, info = solve(b)
+        first_wall, busy = info["wall_s"], None
+        if impl == "cuda":
+            # the counted solve follows the first launches
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if basis == "bf16":
+                res, info, busy = _profiled_solve(solve, b)
+            else:
+                res, info = solve(b)
+        counts[lane] = kernels.launch_counts()
+        rel = float(torch.linalg.vector_norm(b - cd64(res.x))
+                    / torch.linalg.vector_norm(b))
+        runs[lane] = dict(solve=solve, info=info, rel=rel, wall=first_wall,
+                          busy=busy)
+        print(f"northstar {lane}: cycles={info['cycles']} inner_iters="
+              f"{info['inner_iters']} matvecs={info['matvecs']} gmres "
+              f"{info['gmres_niters']} rel={rel:.3e} first solve's wall_s="
+              f"{first_wall:.6f} (set-up {t_made - t0:.1f} s, lane "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        _check_solution(res.x, nx * nx, rel, res.resnorms.cpu().numpy())
+        if impl == "torch" and any(counts[lane].values()):
+            raise AssertionError(f"northstar {lane}: the plain lane "
+                                 f"launched kernels {counts[lane]}")
+
+    def per_cycle(lane):
+        return [sum(n + 2 for n in cyc)
+                for cyc in runs[lane]["info"]["gmres_niters"]]
+
+    fused = per_cycle("cgs2_fused cuda")
+    for label, ortho, basis, precond in OR_NORTHSTAR:
+        c, t = per_cycle(f"{label} cuda"), per_cycle(f"{label} torch")
+        # (a) both lanes against the cgs2_fused lane, (b) its lanes against
+        # each other: equal cycles, inner iterations per cycle within 3
+        for got, ref in ([(c, fused), (t, fused)] if basis == "f32"
+                         else [(c, t)]):
+            if len(got) != len(ref) or any(abs(p - q) > 3
+                                           for p, q in zip(got, ref)):
+                raise AssertionError(f"northstar {label}: inner iterations "
+                                     f"per cycle {got} against {ref}")
+        if precond == "left":
+            _ns_launch_identity(label, counts[f"{label} cuda"],
+                                runs[f"{label} cuda"]["info"],
+                                lag=int(ortho == "cgs2_1r"))
+        print(f"northstar {label}: inner iterations per cycle kernel lane "
+              f"{c}, plain lane {t}, cgs2_fused kernel lane {fused}",
+              flush=True)
+
+    timed = ("cgs2_fused cuda", f"{OR_NORTHSTAR[0][0]} cuda")
+    walls = {lane: [] for lane in timed}
+    for k in range(NS_ROUNDS):
+        for lane in (timed if k % 2 == 0 else timed[::-1]):
+            walls[lane].append(runs[lane]["solve"](b)[1]["wall_s"])
+    records = {}
+    for lane, run in runs.items():
+        info = run["info"]
+        ts = walls.get(lane, [run["wall"]])
+        med = statistics.median(ts)
+        records[lane] = dict(
+            median=med, min=min(ts), max=max(ts), solves=len(ts),
+            cycles=info["cycles"], inner_iters=info["inner_iters"],
+            matvecs=info["matvecs"], rel=run["rel"])
+        busy = run["busy"]
+        if lane == timed[1]:
+            busy = _profiled_solve(run["solve"], b, check=True)[2]
+        if busy is not None:
+            print(f"busy northstar {lane}: device {busy:.6f} s per solve, "
+                  f"{100 * busy / med:.1f}% of the median wall {med:.6f} s",
+                  flush=True)
+        if busy is not None:
+            records[lane].update(busy_s=busy, busy_share=busy / med)
+        print(f"timing northstar {lane}: wall_s median={med:.6f} "
+              f"min={min(ts):.6f} max={max(ts):.6f} all={ts}", flush=True)
+    return records, counts
+
+
+def _device_seconds(prof):
+    """The summed duration of a profile's device events (kernels and
+    copies), read off the profiler's raw events: what ``_device_events``
+    sums, without building the event tree, which takes tens of seconds
+    for a solve of ~10^4 launches."""
+    from torch.autograd import DeviceType
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+
+
+def _profiled_solve(solve, b, check=False):
+    """One solve under torch.profiler: ``(result, info, device seconds of
+    its kernels and copies)``; with ``check`` also the same sum over
+    ``_device_events``, printed beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, info = solve(b)
+        torch.cuda.synchronize()
+    busy = _device_seconds(prof)
+    if check:
+        tree = sum(e.time_range.elapsed_us()
+                   for e in _device_events(prof)) / 1e6
+        print(f"device seconds of one solve: raw events {busy:.6f}, event "
+              f"tree {tree:.6f}", flush=True)
+    return res, info, busy
+
+
+def _or_problem(nx, impl, device, seed=3):
+    """onereduce_bench.py's problem: the unpadded Poisson operator (K1 on
+    the kernel lane), its Jacobi preconditioner, a float32 right-hand side
+    and a float32 ``(N, OR_DEFL)`` deflation basis, both drawn on the card
+    from ``seed``."""
+    import torch
+    from krypy_tpu_torch import ops
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = torch.randn(nx * nx, generator=gen, device=device)
+    U = torch.randn(OR_DEFL, nx * nx, generator=gen, device=device).T
+    return A, ops.jacobi_preconditioner(A), b, U
+
+
+def _or_solver(pair, scheme, A, Mj, U):
+    """``solve(b, maxiter, tol, **extra) -> SolveResult`` of one lane of a
+    pair (``scheme`` its classic or one-reduce scheme)."""
+    import torch
+    from krypy_tpu_torch import functional as F
+
+    _, solver, _, _, opts = pair
+    kw = {"ortho" if "gmres" in solver else "variant": scheme}
+    if opts.get("M") == "jacobi":
+        kw["M"] = Mj
+    if opts.get("basis_dtype") == "bf16":
+        kw["basis_dtype"] = torch.bfloat16
+    fn = getattr(F, solver)
+    if solver.startswith("deflated"):
+        return lambda b, maxiter, tol, **extra: fn(
+            A, b, U, maxiter=maxiter, tol=tol, **kw, **extra)
+    return lambda b, maxiter, tol, **extra: fn(
+        A, b, maxiter=maxiter, tol=tol, **kw, **extra)
+
+
+def _or_slopes(device):
+    """(c): every pair, both schemes, both lanes, both grids: the median
+    of ``OR_REPS`` solves at tol 0 of each of ``OR_KS`` iterations, and
+    the slope in us per iteration.  Returns ``{(grid, lane, pair,
+    scheme): us}``."""
+    import torch
+
+    slopes = {}
+    for nx in OR_GRIDS:
+        for impl in ("cuda", "torch"):
+            A, Mj, b, U = _or_problem(nx, impl, device)
+            for pair in OR_PAIRS:
+                for scheme in pair[2:4]:
+                    solve = _or_solver(pair, scheme, A, Mj, U)
+                    solve(b, OR_KS[0], 0.0)  # first launches
+                    t = {}
+                    for K in OR_KS:
+                        ts = []
+                        for _ in range(OR_REPS):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            res = solve(b, K, 0.0)
+                            torch.cuda.synchronize()
+                            ts.append(time.perf_counter() - t0)
+                            if int(res.niter) != K:
+                                raise AssertionError(
+                                    f"onereduce {pair[0]} {scheme}: "
+                                    f"{int(res.niter)} iterations at tol 0,"
+                                    f" maxiter {K}")
+                        t[K] = statistics.median(ts)
+                    us = 1e6 * (t[OR_KS[1]] - t[OR_KS[0]]) / (
+                        OR_KS[1] - OR_KS[0])
+                    slopes[nx, impl, pair[0], scheme] = us
+                    print(f"onereduce slope {nx}^2 lane={impl} {pair[0]} "
+                          f"{scheme}: {us:.2f} us/iteration (median s "
+                          f"{t[OR_KS[0]]:.6f} at K={OR_KS[0]}, "
+                          f"{t[OR_KS[1]]:.6f} at K={OR_KS[1]})", flush=True)
+            del A, Mj, b, U
+            torch.cuda.empty_cache()
+    return slopes
+
+
+def _or_checks(device):
+    """(c)'s convergence gates at 1023^2, in float64 (the float32 floor of
+    this operator is ~2e-5: the first float32 check, CG with the V-cycle,
+    stalled there): each pair's one-reduce lane solves to
+    ``OR_CHECK_TOL`` within ``OR_CHECK_SLACK`` iterations of its classic
+    lane (one more for cgs2_1r's lag), and its final explicit relative
+    residual, in the solver's own norm, is at most 10 x tol.  The
+    operators are the kernel lane's, whose float64 legs run the plain
+    versions.  Preconditioned
+    by the unpadded V-cycle (``OR_CHECK_VCYCLE``): as ``M`` where the pair
+    takes Jacobi ``M`` and for CG and MINRES, on the right for the
+    bfloat16 pair (at ``OR_CHECK_TOL_BF16``), on the left otherwise;
+    deflated CG orthonormalizes its basis in the Euclidean product, the
+    V-cycle's inverse being out of reach."""
+    import torch
+    from krypy_tpu_torch import ops
+
+    nx = NX
+    A, Mj, b, U = _or_problem(nx, "cuda", device, seed=5)
+    b, U = b.double(), U.double()
+    A64 = ops.poisson_2d(nx, device=device)
+    V = ops.multigrid_poisson_preconditioner(nx, impl="cuda", device=device,
+                                             **OR_CHECK_VCYCLE)
+    b64 = b
+    out = {}
+    for pair in OR_PAIRS:
+        name, solver, classic, one, opts = pair
+        tol = OR_CHECK_TOL_BF16 if "basis_dtype" in opts else OR_CHECK_TOL
+        if "basis_dtype" in opts:
+            extra = dict(Mr=V)
+        elif solver == "deflated_cg":
+            extra = dict(M=V, ip_defl=lambda x, y: torch.vdot(x, y))
+        elif solver in ("cg", "minres") or "M" in opts:
+            extra = dict(M=V)
+        else:
+            extra = dict(Ml=V)
+
+        def norm(r):
+            """The solver's norm of a residual: ``||Ml r||``, ``<r, M
+            r>^(1/2)`` or ``||r||``."""
+            if "Ml" in extra:
+                return torch.linalg.vector_norm(V(r))
+            if "M" in extra:
+                return torch.sqrt(torch.dot(r, V(r)))
+            return torch.linalg.vector_norm(r)
+
+        runs = {}
+        for scheme in (classic, one):
+            solve = _or_solver(
+                (name, solver, classic, one,
+                 {k: v for k, v in opts.items() if k != "M"}),
+                scheme, A, Mj, U)
+            res = solve(b, 1000, tol, **extra)
+            rel = float(norm(b64 - A64(res.x)) / norm(b64))
+            runs[scheme] = (int(res.niter), int(res.status), rel)
+        (n_c, s_c, rel_c), (n_1, s_1, rel_1) = runs[classic], runs[one]
+        slack = OR_CHECK_SLACK + int(one == "cgs2_1r")
+        print(f"onereduce check {name} at {nx}^2, tol {tol:g}, "
+              f"{sorted(extra)}: {classic} {n_c} iterations status {s_c} "
+              f"explicit {rel_c:.3e}; {one} {n_1} iterations status {s_1} "
+              f"explicit {rel_1:.3e}", flush=True)
+        if s_1 != 0 or abs(n_1 - n_c) > slack or not rel_1 <= 10 * tol:
+            raise AssertionError(
+                f"onereduce check {name}: {one} {n_1} iterations, status "
+                f"{s_1}, explicit {rel_1:.3e}, against {classic} {n_c} "
+                f"(slack {slack}, explicit limit {10 * tol:g})")
+        out[name] = runs
+    return out
+
+
+def _extra_sweeps(slopes, hbm):
+    """The H100's extra-sweep ratios of the one-reduce rearrangements:
+    (one-reduce - classic us per iteration) over one vector sweep's time
+    at 4095^2 on the kernel lane, for the entries of
+    ``policy.ONE_REDUCE_EXTRA_SWEEPS`` that a pair measures."""
+    from krypy_tpu_torch.functional import policy
+
+    sweep_us = 1e6 * NS_NX ** 2 * 4 / hbm
+    out = {}
+    for key, pair in (("cg", "cg M"), ("minres", "minres M"),
+                      ("deflated_cg", "deflated_cg d=4")):
+        one = slopes[NS_NX, "cuda", pair, "1r"]
+        classic = slopes[NS_NX, "cuda", pair, "classic"]
+        out[key] = dict(h100=(one - classic) / sweep_us,
+                        jax=policy.ONE_REDUCE_EXTRA_SWEEPS[key])
+    print(f"onereduce extra sweeps at {NS_NX}^2 (one sweep "
+          f"{sweep_us:.2f} us): {out}", flush=True)
+    return out
+
+
+def onereduce_phase(device):
+    """The one-reduce lane (``--only onereduce``): the policy constants,
+    (a) and (b) the north star in its cgs2_1r and bfloat16 x cgs2_1r
+    forms, (c) the slope timing of the pairs and their convergence
+    gates.  (d), the one-reduce solves on the mesh, runs in the mesh
+    phase.  Prints one JSON line and returns it."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        print(f"onereduce {name}: {parts[name]:.1f} s", flush=True)
+        return out
+
+    const = part("policy", policy_constants, device)
+    ns, ns_counts = part("northstar", _or_northstar, device)
+    checks = part("checks", _or_checks, device)
+    slopes = part("slopes", _or_slopes, device)
+    ratios = _extra_sweeps(slopes, const["HBM_BYTES_PER_S"])
+    record = {"onereduce": {
+        "policy": const, "northstar": ns, "northstar_launches": ns_counts,
+        "checks": {k: {s: list(v) for s, v in r.items()}
+                   for k, r in checks.items()},
+        "slopes_us": {f"{g}^2 {lane} {p} {s}": us
+                      for (g, lane, p, s), us in slopes.items()},
+        "extra_sweeps": ratios, "part_s": parts,
+        "phase_s": time.perf_counter() - t0}}
+    print(json.dumps(record), flush=True)
+    return record["onereduce"]
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -3363,13 +3902,15 @@ def main(argv=None):
                          "prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
-                             "config5", "mesh"),
+                             "config5", "mesh", "onereduce"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
                          "the device times of K1's matvec, K4 and K7 by "
                          "phase; config 5 with K1's forward-mode "
-                         "rule; or the mesh phase); "
+                         "rule; the mesh phase; or the one-reduce lane: "
+                         "the policy constants, the north star's "
+                         "cgs2_1r forms, the pairs' slopes and checks); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -3417,7 +3958,7 @@ def main(argv=None):
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase, "kernels": kernels_phase,
-         "mesh": mesh_phase}[args.only](device)
+         "mesh": mesh_phase, "onereduce": onereduce_phase}[args.only](device)
         return
     report = stencil_phase(device)
     report["coarse"] = coarse_phase(device)
@@ -3446,6 +3987,7 @@ def main(argv=None):
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
     c5_jvp, c5_full, _ = config5_phase(device, smi)
+    onered = onereduce_phase(device)
     worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
@@ -3530,6 +4072,10 @@ def main(argv=None):
         if name == "stencil5_affine":
             rows[-1][f"launches_config5@{C5_FULL}"] = \
                 c5_full["launches"]["stencil5_affine"]
+        # the north star's one-reduce forms on the kernel lane
+        for label, *_ in OR_NORTHSTAR:
+            rows[-1][f"launches_northstar {label}@{NS_NX}"] = \
+                onered["northstar_launches"][f"{label} cuda"][name]
     # K1's forward-mode rule: the tangent's launch of config 5's
     # Jacobian actions, timed as the jvp of the matvec at config 5's grid
     t = c5_jvp["times"][C5_FULL, C5_FULL]

@@ -20,7 +20,11 @@ every level), and BASELINE config 5 (``suite.config5_nls_newton_recycling``:
 ``functional.newton_krylov`` over ``torch.func.jvp`` with K1's
 forward-mode rule, ``functional.AutoRecyclingGmres``,
 ``ops.nls_residual_2d``, the ``spectral`` module and the ``core``
-subpackage: dtypes, operators, inner products, QR, rotations, timers).
+subpackage: dtypes, operators, inner products, QR, rotations, timers),
+and the one-reduce lane (``variant="1r"`` of CG and MINRES, every
+``ortho`` of GMRES with ``cgs2_1r``, ``ip``, the bfloat16 basis,
+``functional.FusedDeflation`` and the mesh price model
+``functional.policy``).
 """
 
 from . import config  # noqa: F401  (full-f32 matmul defaults at import)

@@ -1,10 +1,12 @@
 """Solver cores of the PyTorch port (counterpart of
 :mod:`krypy_tpu.functional`; ported so far: ``cg``, ``minres``,
-``gmres``, ``restarted_gmres``, ``refine_to`` and the deflation module:
-``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the Ritz
-extraction, ``RecyclingGmres`` and ``AutoRecyclingGmres``, and
-``newton_krylov``)."""
+``gmres`` (every ``ortho`` scheme, ``ip``, ``basis_dtype``,
+``FusedDeflation``), ``restarted_gmres``, ``refine_to``, the deflation
+module: ``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the
+Ritz extraction, ``RecyclingGmres`` and ``AutoRecyclingGmres``,
+``newton_krylov``, and the mesh price model ``policy``)."""
 
+from . import policy
 from .cg import cg
 from .common import (
     BREAKDOWN,
@@ -25,7 +27,7 @@ from .deflation import (
     ritz_pairs,
     weighted_qr,
 )
-from .gmres import gmres, restarted_gmres
+from .gmres import FusedDeflation, gmres, restarted_gmres
 from .minres import minres
 from .newton import NewtonResult, newton_krylov
 from .refine import refine_to
@@ -35,6 +37,8 @@ __all__ = [
     "minres",
     "gmres",
     "restarted_gmres",
+    "FusedDeflation",
+    "policy",
     "refine_to",
     "deflated_gmres",
     "deflated_cg",

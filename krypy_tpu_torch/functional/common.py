@@ -48,7 +48,14 @@ def as_matvec(op):
     if isinstance(op, torch.Tensor):
         if op.ndim != 2:
             raise ValueError("matrix operator must be 2-D")
-        return lambda x: op @ x
+
+        def mv(x):
+            # jnp's promotion: a float32 matrix against a float64 vector
+            # computes in float64
+            dt = torch.promote_types(op.dtype, x.dtype)
+            return op.to(dt) @ x.to(dt)
+
+        return mv
     if callable(op):
         return op
     raise TypeError(f"cannot interpret operator of type {type(op)}")
@@ -126,23 +133,8 @@ def make_inner(ip):
 
         return pair, rows
 
-    if isinstance(ip, torch.Tensor) or hasattr(ip, "shape"):
-        if mesh is not None and not isinstance(ip, torch.Tensor) and \
-                getattr(ip, "mesh", None) is not mesh:
-            raise NotImplementedError(
-                "an inner-product matrix on a mesh must be rank-local (an "
-                "operator built with mesh= the active mesh, or a 2-D "
-                "tensor on the rank's block; ROADMAP.md queue A, slice 5)")
-        Bmv = as_matvec(ip)
-
-        def local(y):
-            if mesh is not None and isinstance(ip, torch.Tensor) and \
-                    ip.shape != (y.shape[0], y.shape[0]):
-                raise NotImplementedError(
-                    f"inner-product matrix of shape {tuple(ip.shape)} on "
-                    f"a rank block of {y.shape[0]}: a mesh takes a "
-                    "rank-local B only")
-            return Bmv(y)
+    if is_matrix_ip(ip):
+        local = _local_matvec(ip, mesh)
 
         def pair(x, y):
             return mesh_sum(torch.vdot(*promote(x, local(y))))
@@ -169,6 +161,107 @@ def make_inner(ip):
         return pair, rows
 
     raise TypeError(f"cannot interpret inner product of type {type(ip)}")
+
+
+def is_matrix_ip(ip):
+    """Is ``ip`` an inner-product matrix ``B`` (a 2-D tensor or an
+    operator exposing ``.shape``), as opposed to ``None`` or a scalar
+    callable?"""
+    return isinstance(ip, torch.Tensor) or hasattr(ip, "shape")
+
+
+def is_scalar_ip(ip):
+    """Is ``ip`` a scalar-callable inner product ``ip(x, y)``, which the
+    one-reduce fusions cannot batch into one contraction?"""
+    return ip is not None and not is_matrix_ip(ip)
+
+
+def _local_matvec(ip, mesh):
+    """The matvec of an inner-product matrix ``B``; under a mesh ``B``
+    must be rank-local (an operator built with ``mesh=`` that mesh, or a
+    2-D tensor on the rank's block), else ``NotImplementedError``."""
+    if mesh is not None and not isinstance(ip, torch.Tensor) and \
+            getattr(ip, "mesh", None) is not mesh:
+        raise NotImplementedError(
+            "an inner-product matrix on a mesh must be rank-local (an "
+            "operator built with mesh= the active mesh, or a 2-D "
+            "tensor on the rank's block; ROADMAP.md queue A, slice 5)")
+    Bmv = as_matvec(ip)
+
+    def local(y):
+        if mesh is not None and isinstance(ip, torch.Tensor) and \
+                ip.shape != (y.shape[0], y.shape[0]):
+            raise NotImplementedError(
+                f"inner-product matrix of shape {tuple(ip.shape)} on "
+                f"a rank block of {y.shape[0]}: a mesh takes a "
+                "rank-local B only")
+        return Bmv(y)
+
+    return local
+
+
+def ip_matvec(ip):
+    """``B``'s local matvec for the one-reduce fusions, which apply ``B``
+    themselves and reduce once (``None`` for the Euclidean product); a
+    scalar callable raises ``TypeError``."""
+    if ip is None:
+        return None
+    if not is_matrix_ip(ip):
+        raise TypeError(
+            "one-reduce fusion needs the Euclidean or operator-weighted "
+            f"inner product, got {type(ip)}")
+    return _local_matvec(ip, active_mesh())
+
+
+def make_gram(ip):
+    """Build a fused cross-Gram form for the one-reduce rearrangements.
+
+    ``gram(L, R) -> (k, l)`` computes :math:`G_{ij} = \\langle L_i,
+    R_j\\rangle` for bundles of vectors ``L`` (``k`` of them) and ``R``
+    (``l``), each a 2-D tensor of rows or a sequence of vectors: local
+    products and a single all-reduce under an active mesh, however many
+    scalars are read off ``G``.  Nothing is stacked: where one bundle is
+    a 2-D tensor (a persistent buffer) each vector of the other meets it
+    in one matrix-vector product, else each pair in one dot product.
+    ``ip`` is ``None`` or a matrix ``B`` (applied to each vector of
+    ``R``, locally); a scalar callable raises ``TypeError``, as in the
+    JAX package (the one-reduce variants raise ``ValueError`` before they
+    get here)."""
+    Bmv = ip_matvec(ip)
+
+    def gram(L, R):
+        if Bmv is not None:
+            R = [Bmv(r) for r in R]
+        if isinstance(R, torch.Tensor):
+            G = torch.stack([torch.mv(*promote(R, l.conj())) for l in L])
+        elif isinstance(L, torch.Tensor):
+            G = torch.stack([torch.mv(*promote(L.conj(), r)) for r in R],
+                            dim=1)
+        else:
+            G = torch.stack([torch.stack([torch.vdot(*promote(l, r))
+                                          for r in R]) for l in L])
+        return mesh_sum(G)
+
+    return gram
+
+
+def twice_solver(G):
+    """``cap -> G^{-1} cap`` applied twice (Stewart's "twice is
+    enough": ``q1 = G^{-1} cap``, ``q2 = G^{-1} (cap - G q1)``, returns
+    ``q1 + q2``), through ONE LU factorization of the small ``G``, taken
+    now; neither the factorization nor the solves read anything back to
+    the host."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(G)
+
+    def solve(c):
+        return torch.linalg.lu_solve(LU, piv, c[:, None])[:, 0]
+
+    def coeffs(cap):
+        cap = cap.to(G.dtype)
+        q1 = solve(cap)
+        return q1 + solve(cap - G @ q1)
+
+    return coeffs
 
 
 def norm_from_pair(pair, x, y=None):

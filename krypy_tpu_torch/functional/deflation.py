@@ -52,14 +52,19 @@ import torch
 
 from .. import spectral
 from ..errors import AssumptionError
+from ..parallel import active_mesh_size
+from . import policy
 from .common import (
     apply,
     as_matvec,
+    global_length,
+    is_scalar_ip,
     make_inner,
     mesh_sum,
     promote,
     safe_div,
 )
+from .gmres import FusedDeflation
 from .gmres import gmres as _gmres
 
 __all__ = [
@@ -247,10 +252,14 @@ def deflated_gmres(
 
     :param U: deflation basis, shape ``(N, d)``.
     :param ortho: as in :func:`~krypy_tpu_torch.functional.gmres.gmres`;
-      the schemes that compose with the capture hook are ``"cgs"``,
-      ``"cgs2"``, ``"cgs_pallas"`` and ``"cgs2_pallas"`` (K7).
-      ``"auto"`` resolves to ``"cgs2"``; ``"cgs2_1r"`` (the fused
-      one-reduce deflated scheme) raises ``NotImplementedError``.
+      the other schemes take the capture hook, while ``"cgs2_1r"``
+      folds the capture and the oblique projection
+      INTO the one-reduce product
+      (:class:`~krypy_tpu_torch.functional.gmres.FusedDeflation`): one
+      all-reduce per deflated iteration on a mesh, against the hook
+      path's ~6.  ``"auto"`` resolves to ``"cgs2_1r"`` on a mesh of more
+      than one rank (no ``M``, ``ip`` not a scalar callable), to
+      ``"cgs2"`` otherwise.
     :return: :class:`~krypy_tpu_torch.functional.common.SolveResult` (plus
       the internal small matrices, with ``E``, ``Uo`` and ``AU`` added, if
       ``return_internal``).
@@ -275,31 +284,34 @@ def deflated_gmres(
         )
 
     if ortho == "auto":
-        # the kernels that plain gmres's auto rule picks do not compose
-        # with the capture hook
-        ortho = "cgs2"
-    if ortho == "cgs2_1r":
-        raise NotImplementedError(
-            "deflated_gmres ortho='cgs2_1r' (fused_deflation) is not "
-            "ported yet (ROADMAP.md queue A, item 7)")
+        # on a mesh the fused one-reduce scheme (one sync point per
+        # iteration); on one device cgs2 (the kernels plain gmres's auto
+        # rule picks do not compose with the capture hook)
+        ortho = ("cgs2_1r" if active_mesh_size() > 1 and M is None
+                 and not is_scalar_ip(ip) else "cgs2")
 
     UoT = defl.Uo.T
     proj_complement = _proj_complement(defl, rows)
+    correct = _correction(defl, rows, A_mv, Ml_mv, bv)
+    if ortho == "cgs2_1r":
+        # projection and capture folded into the one-reduce product
+        hooks = dict(fused_deflation=FusedDeflation(UoT=UoT, W2T=defl.W2.T))
+    else:
+        def op_with_capture(v):
+            Av = apply(Ml_mv, A_mv(apply(Mr_mv, v)))
+            cap = rows(UoT, Av)               # <Uo, MlAMr v>
+            return proj_complement(Av), cap
 
-    def op_with_capture(v):
-        Av = apply(Ml_mv, A_mv(apply(Mr_mv, v)))
-        cap = rows(UoT, Av)               # <Uo, MlAMr v>
-        return proj_complement(Av), cap
+        hooks = dict(operator_with_capture=op_with_capture, capture_width=d)
 
     out = _gmres(
         A, b, M=M, Ml=Ml, Mr=Mr, ip=ip, x0=x0, tol=tol,
         maxiter=maxiter, ortho=ortho,
         explicit_residual=explicit_residual,
-        operator_with_capture=op_with_capture,
-        capture_width=d,
         projected_r0=proj_complement,
-        correct_xk=_correction(defl, rows, A_mv, Ml_mv, bv),
+        correct_xk=correct,
         return_internal=return_internal,
+        **hooks,
     )
     if return_internal:
         result, internals = out
@@ -332,15 +344,29 @@ def _make_deflation_hooks(A, U, *, M, Minv, Ml, Mr, ip, ip_defl):
     return defl, op, proj_complement
 
 
-def _deflated_short_recurrence(core, A, b, U, kwargs):
+def _deflated_short_recurrence(core, A, b, U, kwargs, solver_name):
     """Common body of the deflated short-recurrence solvers
     (reference: DeflatedCg / DeflatedMinres, krypy/deflation.py:236-273):
     projected operator, projected initial residual, corrected iterates.
-    Classic variant only: ``variant="auto"`` resolves to it, the fused
-    one-reduce form (``variant="1r"``) is the core's to refuse."""
-    if kwargs.get("variant") == "auto":
-        kwargs["variant"] = "classic"
+
+    With ``variant="1r"`` (or an ``"auto"`` that resolves to it on a mesh)
+    the oblique projection is FOLDED into the solver's one-reduce product
+    (``fused_deflation``) instead of riding the operator hook: one
+    all-reduce per deflated iteration, against the hook path's 4
+    (classic: 2 recurrence reductions + 2 projection applications).
+    ``"auto"`` is priced by
+    :func:`~krypy_tpu_torch.functional.policy.prefer_one_reduce` with
+    the three sync points the fused form saves."""
     ip = kwargs.get("ip")
+    if kwargs.get("variant") == "auto":
+        P = active_mesh_size()
+        bv = b.reshape(-1)
+        kwargs["variant"] = "1r" if P > 1 and not is_scalar_ip(ip) and \
+            policy.prefer_one_reduce(
+                f"deflated_{solver_name}", global_length(bv) // P,
+                bv.element_size(), syncs_saved=3,
+                device=bv.device) else "classic"
+    use_fused = kwargs.get("variant") == "1r" and not is_scalar_ip(ip)
     defl, op, proj = _make_deflation_hooks(
         A, U,
         M=kwargs.get("M"), Minv=kwargs.pop("Minv", None),
@@ -353,11 +379,16 @@ def _deflated_short_recurrence(core, A, b, U, kwargs):
     _, rows = make_inner(ip)
     correct = _correction(defl, rows, as_matvec(A),
                           as_matvec(kwargs.get("Ml")), b.reshape(-1))
+    if use_fused:
+        hook = dict(fused_deflation=FusedDeflation(
+            UoT=defl.Uo.T, W2T=defl.W2.T, G=defl.G))
+    else:
+        hook = dict(operator_override=op)
     return core(
         A, b,
-        operator_override=op,
         projected_r0=proj,
         correct_xk=correct,
+        **hook,
         **kwargs,
     )
 
@@ -366,20 +397,24 @@ def deflated_cg(A, b, U, **kwargs):
     """Deflated preconditioned CG (reference: krypy/deflation.py
     DeflatedCg).  Accepts the parameters of
     :func:`krypy_tpu_torch.functional.cg.cg` plus the deflation basis U
-    (and ``Minv``, ``ip_defl`` as :func:`deflated_gmres`)."""
+    (and ``Minv``, ``ip_defl`` as :func:`deflated_gmres`).
+    ``variant="1r"`` folds the oblique projection into the one-reduce
+    cross-Gram: ONE all-reduce per deflated iteration."""
     from .cg import cg as _cg
 
-    return _deflated_short_recurrence(_cg, A, b, U, kwargs)
+    return _deflated_short_recurrence(_cg, A, b, U, kwargs, "cg")
 
 
 def deflated_minres(A, b, U, **kwargs):
     """Deflated preconditioned MINRES (reference: krypy/deflation.py
     DeflatedMinres).  Accepts the parameters of
     :func:`krypy_tpu_torch.functional.minres.minres` plus the deflation
-    basis U (and ``Minv``, ``ip_defl`` as :func:`deflated_gmres`)."""
+    basis U (and ``Minv``, ``ip_defl`` as :func:`deflated_gmres`).
+    ``variant="1r"`` folds the oblique projection into the one-reduce
+    cross-Gram, as :func:`deflated_cg`."""
     from .minres import minres as _minres
 
-    return _deflated_short_recurrence(_minres, A, b, U, kwargs)
+    return _deflated_short_recurrence(_minres, A, b, U, kwargs, "minres")
 
 
 def _augmented_galerkin(internals):

@@ -1,5 +1,4 @@
-"""Preconditioned MINRES (counterpart of :mod:`krypy_tpu.functional.minres`,
-classic variant).
+"""Preconditioned MINRES (counterpart of :mod:`krypy_tpu.functional.minres`).
 
 Lanczos three-term recurrence, incremental QR by two lagged Givens
 rotations and a three-column solution recurrence: O(1) memory in the
@@ -13,6 +12,19 @@ With ``M`` the Lanczos basis is kept as two bases, ``V = M P``.
 Under an active mesh (:mod:`krypy_tpu_torch.parallel`) the vectors are
 the rank's blocks and each inner product is a local partial and one
 all-reduce (:func:`~krypy_tpu_torch.functional.common.make_inner`).
+
+``variant="1r"`` is the single-reduction Lanczos rearrangement: the 2x2
+cross-Gram of the current basis vector and the unorthogonalized ``w`` --
+``nu = ||v||_M^2``, ``alpha' = <v, w>_M`` and ``sigma = ||w||_M^2`` --
+comes out of local products summed by ONE all-reduce on a mesh
+(:func:`~krypy_tpu_torch.functional.common.make_gram`), and the new
+subdiagonal follows by the Pythagorean identity ``beta^2 = sigma -
+alpha'^2 / nu``.  ``nu`` is measured, not assumed 1: the naive form
+feeds its own rounding back through the next normalization and breaks
+the recurrence within tens of iterations.  With ``M`` the scheme applies
+``M`` twice per iteration (local work, no extra sync point).  With
+``fused_deflation`` the oblique projection of the candidate rides the
+same product: one all-reduce per deflated iteration.
 """
 
 import numpy as np
@@ -29,15 +41,18 @@ from .common import (
     cast_matvec,
     givens,
     global_length,
+    is_scalar_ip,
+    make_gram,
     make_inner,
     norm_from_pair,
     safe_div,
     system_dtype,
+    twice_solver,
 )
+from ..parallel import active_mesh_size
+from .cg import check_fused_deflation, resolve_variant
 
 __all__ = ["minres"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue A, A3)"
 
 
 def minres(
@@ -73,29 +88,40 @@ def minres(
       residual has not improved below 99% of its best value for this many
       consecutive iterations (the iterate is the last one, as in the JAX
       package).
+    :param variant: ``"classic"``, ``"1r"`` (the single-reduction
+      rearrangement; ``ip`` ``None`` or a matrix) or ``"auto"``, as in
+      :func:`~krypy_tpu_torch.functional.cg.cg`.
+    :param fused_deflation: a ``FusedDeflation`` ``(UoT, W2T, G)``, as in
+      :func:`~krypy_tpu_torch.functional.cg.cg`.
     :return: :class:`~krypy_tpu_torch.functional.common.SolveResult`;
       ``status`` is CONVERGED, MAXITER, or BREAKDOWN when the Krylov space
       became invariant short of the tolerance.
-
-    ``variant="auto"`` is the classic recurrence; ``variant="1r"`` and
-    ``fused_deflation`` raise ``NotImplementedError``.
     """
-    if variant == "1r":
-        raise NotImplementedError(f"minres variant='1r' {_NOT_PORTED}")
-    if variant not in ("classic", "auto"):
-        raise ValueError(f"unknown minres variant {variant!r}")
-    if fused_deflation is not None:
-        raise NotImplementedError(f"minres fused_deflation= {_NOT_PORTED}")
-
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]
-    m = global_length(bv) if maxiter is None else int(maxiter)
-    dev = bv.device
-
-    pair, _ = make_inner(ip)
-    with_M = M is not None
     dtype = system_dtype(bv, x0)
+    dev = bv.device
+    pair, _ = make_inner(ip)
+    n_global = N
+    if maxiter is None or (variant == "auto" and active_mesh_size() > 1):
+        n_global = global_length(bv)
+    m = n_global if maxiter is None else int(maxiter)
+    variant = resolve_variant("minres", variant, ip, n_global, dtype, dev)
+    if variant not in ("classic", "1r"):
+        raise ValueError(f"unknown minres variant {variant!r}")
+    one_reduce = variant == "1r"
+    if one_reduce and is_scalar_ip(ip):
+        raise ValueError(
+            "variant='1r' supports the Euclidean or operator-weighted "
+            "inner product only (the one-reduce fusion batches nu, alpha "
+            "and the squared norm through one cross-Gram contraction, "
+            "which a scalar callable ip cannot express)")
+    gram = make_gram(ip) if one_reduce else None
+    check_fused_deflation(fused_deflation, one_reduce, operator_override,
+                          "operator_override")
+
+    with_M = M is not None
     bv = bv.to(dtype)
     A_mv, M_mv, Ml_mv, Mr_mv = (
         cast_matvec(as_matvec(f), dtype) for f in (A, M, Ml, Mr)
@@ -120,6 +146,22 @@ def minres(
         if operator_override is not None:
             return operator_override(v)
         return apply(Ml_mv, A_mv(apply(Mr_mv, v)))
+
+    # fused deflation: the (2, N) x (N, 2 + 2d) cross-Gram against the
+    # persistent right operand [v, M w | M W2 | Uo] yields the Lanczos
+    # scalars, their projection corrections and (by conjugation) the
+    # projection coefficients <Uo, w>; the sigma correction's quadratic
+    # term takes K = <W2, M W2>, "twice is enough" the stored G
+    d_defl = 0
+    if fused_deflation is not None:
+        UoT = fused_deflation.UoT.to(dtype)
+        W2T = fused_deflation.W2T.to(dtype)
+        proj_coeffs = twice_solver(fused_deflation.G.to(dtype))
+        d_defl = UoT.shape[0]
+        MW2T = torch.stack([M_mv(r) for r in W2T]) if with_M else W2T
+        K = gram(W2T, MW2T)  # (d, d), one reduction before the loop
+        Rb = torch.cat([torch.zeros((2, N), dtype=dtype, device=dev),
+                        MW2T, UoT])
 
     def residual_norm(x):
         Mlr = apply(Ml_mv, bv - A_mv(x))
@@ -173,13 +215,48 @@ def minres(
         # Lanczos step on the dual basis
         w = MlAMr(v_cur)
         w = w - beta * (p_old if with_M else v_old)
-        alpha = pair(v_cur, w).real
-        w = w - alpha * (p_cur if with_M else v_cur)
-        if with_M:
-            Mw = apply(M_mv, w)
-            beta_new = norm_from_pair(pair, w, Mw)
+        if one_reduce:
+            # the 2x2 cross-Gram in ONE product: rows [dual, w] against
+            # columns [v, M w] give nu (measured), alpha' and sigma
+            Mw1 = apply(M_mv, w) if with_M else w
+            d = p_cur if with_M else v_cur
+            if d_defl:
+                Rb[0], Rb[1] = v_cur, Mw1
+                G = gram([d, w], Rb)
+                nu = torch.clamp(G[0, 0].real, min=0.0)
+                q = proj_coeffs(G[1, 2 + d_defl:].conj())
+                alpha_raw = (G[0, 1] - G[0, 2:2 + d_defl] @ q).real
+                sigma = torch.clamp(
+                    G[1, 1].real - 2.0 * (G[1, 2:2 + d_defl] @ q).real
+                    + torch.vdot(q, K @ q).real, min=0.0)
+                alpha = safe_div(alpha_raw, nu)
+                # the exact total projection of the post-alpha candidate:
+                # the Gram measured <Uo, d> too, so d's leak into the
+                # deflation space is cancelled at no extra sync
+                q_tot = q - alpha.to(dtype) * proj_coeffs(
+                    G[0, 2 + d_defl:].conj())
+                w = w - alpha * d - q_tot @ W2T
+            else:
+                G = gram([d, w], [v_cur, Mw1])
+                nu = torch.clamp(G[0, 0].real, min=0.0)
+                alpha_raw = G[0, 1].real
+                sigma = torch.clamp(G[1, 1].real, min=0.0)
+                alpha = safe_div(alpha_raw, nu)
+                w = w - alpha * d
+            beta_new = torch.sqrt(torch.clamp(sigma - alpha * alpha_raw,
+                                              min=0.0))
+            if with_M:
+                # a FRESH M apply: M w by the recurrence Mw1 - alpha v
+                # lets the v = M p invariant's rounding compound
+                Mw = apply(M_mv, w)
         else:
-            beta_new = norm_from_pair(pair, w)
+            alpha = pair(v_cur, w).real
+            w = w - alpha * (p_cur if with_M else v_cur)
+            if with_M:
+                Mw = apply(M_mv, w)
+                beta_new = norm_from_pair(pair, w, Mw)
+            else:
+                beta_new = norm_from_pair(pair, w)
 
         hsq = hsq + beta ** 2 + alpha ** 2 + beta_new ** 2
         inv_t = beta_new <= brk * torch.sqrt(hsq)

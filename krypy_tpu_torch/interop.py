@@ -16,7 +16,9 @@ manufactured source ``g`` (:func:`nls_to_numpy`); an
 ``AutoRecyclingGmres`` crosses as its timing table ``_tau``, its last
 solve's internals and its records of chosen widths
 (:func:`auto_state_to_numpy`, :func:`auto_state_from_numpy`), since it
-chooses widths from measured walls, which two runs do not share.
+chooses widths from measured walls, which two runs do not share.  The
+data of a fused one-reduce deflation crosses as its numpy rows
+(:func:`fused_deflation_from_numpy`).
 
 On a mesh the numpy value of a sharded JAX array crosses as the rank's
 block (:func:`shard_from_numpy`, the layout of
@@ -32,7 +34,7 @@ from . import parallel
 __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
            "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
            "gather_to_numpy", "nls_to_numpy", "auto_state_to_numpy",
-           "auto_state_from_numpy"]
+           "auto_state_from_numpy", "fused_deflation_from_numpy"]
 
 
 def from_numpy(arr, device):
@@ -142,3 +144,18 @@ def auto_state_from_numpy(rec, state, device, keys=("tau", "internals")):
         rec.selected_widths = list(state["selected_widths"])
         rec.predicted_steps = list(state["predicted_steps"])
     return rec
+
+
+def fused_deflation_from_numpy(UoT, W2T, G=None, *, device):
+    """A :class:`~krypy_tpu_torch.functional.gmres.FusedDeflation` from
+    the numpy values of its fields (the JAX package's ``FusedDeflation``
+    carries the same three: ``(d, N)`` rows ``UoT`` and ``W2T``, the
+    ``(d, d)`` coupling Gram ``G`` or None), as contiguous tensors on
+    ``device``, same dtypes."""
+    from .functional.gmres import FusedDeflation
+
+    def rows(a):
+        return from_numpy(np.ascontiguousarray(np.asarray(a)), device)
+
+    return FusedDeflation(UoT=rows(UoT), W2T=rows(W2T),
+                          G=None if G is None else rows(G))

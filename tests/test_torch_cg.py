@@ -228,11 +228,17 @@ def test_cg_progress_prints_what_jax_prints(capsys):
 
 
 def test_cg_unported_options_raise():
+    """The options that raised before the one-reduce lane was ported now
+    run (``variant="1r"``: the JAX package's solve, count and iterate) or
+    raise the JAX package's ``ValueError`` (``fused_deflation`` without
+    ``variant="1r"``); the others raise as they did."""
     A, b = ops.poisson_2d(7, device="cpu"), torch.ones(49, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        F.cg(A, b, variant="1r")
-    with pytest.raises(NotImplementedError):
-        F.cg(A, b, fused_deflation=object())
+    Aj, bj = jops.poisson_2d(7), jnp.ones(49)
+    _compare(JF.cg(Aj, bj, variant="1r", tol=1e-10),
+             F.cg(A, b, variant="1r", tol=1e-10))
+    for fn, args in ((JF.cg, (Aj, bj)), (F.cg, (A, b))):
+        with pytest.raises(ValueError, match="fused_deflation requires"):
+            fn(*args, fused_deflation=object())
     with pytest.raises(ValueError):
         F.cg(A, b, variant="pipelined")
     with pytest.raises(TypeError):

@@ -1237,3 +1237,67 @@ def test_config5_newton_step_on_kernel_lane(cuda_device):
     assert tk == jk > int(rk.inner_history[0])
     assert all(v == 0 for k, v in ck.items() if k != "stencil5_affine")
     assert all(v == 0 for v in cp.values()) and tp == 0
+
+
+@pytest.mark.parametrize("lane", ["cg_1r", "gmres_cgs2_1r",
+                                  "gmres_cgs2_1r_M", "gmres_bmgs2"])
+def test_one_reduce_lane_on_the_card(cuda_device, lane):
+    """The one-reduce lane in float64 on the card against the same solve
+    on the CPU: equal counts and status, residual histories and iterates
+    to 1e-12 relative (the final explicit residual, at the round-off
+    floor, to 1e-13 absolute)."""
+    nx = 31
+    b = np.random.default_rng(0).standard_normal(nx * nx)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        A = ops.poisson_2d(nx, device=dev)
+        bb = interop.from_numpy(b, dev)
+        if lane == "cg_1r":
+            res = F.cg(A, bb, M=ops.jacobi_preconditioner(A), tol=1e-8,
+                       maxiter=300, variant="1r")
+        else:
+            kw = dict(M=ops.jacobi_preconditioner(A)) \
+                if lane.endswith("_M") else {}
+            res = F.gmres(A, bb, tol=1e-8, maxiter=60,
+                          ortho=lane.split("_", 1)[1].removesuffix("_M"),
+                          **kw)
+        runs.append(res)
+    rc, rh = runs
+    assert int(rc.niter) == int(rh.niter) and int(rc.status) == \
+        int(rh.status)
+    np.testing.assert_allclose(interop.to_numpy(rc.resnorms),
+                               interop.to_numpy(rh.resnorms), rtol=1e-12,
+                               atol=1e-13)
+    xc, xh = interop.to_numpy(rc.x), interop.to_numpy(rh.x)
+    assert np.linalg.norm(xc - xh) <= 1e-12 * np.linalg.norm(xh)
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_1r"])
+def test_bf16_basis_on_the_card(cuda_device, ortho):
+    """A bfloat16 basis on the card (its products upcast to float32, no
+    reduced-precision bfloat16 reduction) against the CPU port on
+    tests/test_bf16_basis.py's kappa = 50 system: all 40 iterations, the
+    true residual below 5e-2 on both, within a factor 2 of each other,
+    the float32 basis strictly better on the card."""
+    d = np.linspace(1.0, 50.0, 512)
+    b = np.random.default_rng(0).standard_normal(512).astype(np.float32)
+    assert not torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+
+    def true_rel(x):
+        x = interop.to_numpy(x).astype(np.float64)
+        return np.linalg.norm(b - d * x) / np.linalg.norm(b)
+
+    rels = []
+    for dev in (cuda_device, torch.device("cpu")):
+        D = torch.tensor(d, dtype=torch.float32, device=dev)
+        res, ints = F.gmres(lambda v: D * v, interop.from_numpy(b, dev),
+                            tol=0.0, maxiter=40, ortho=ortho,
+                            basis_dtype=torch.bfloat16, return_internal=True)
+        assert ints["V"].dtype == torch.bfloat16 and int(res.niter) == 40
+        rels.append(true_rel(res.x))
+    D = torch.tensor(d, dtype=torch.float32, device=cuda_device)
+    full = F.gmres(lambda v: D * v, interop.from_numpy(b, cuda_device),
+                   tol=0.0, maxiter=40, ortho=ortho)
+    assert max(rels) < 5e-2 and 0.5 < rels[0] / rels[1] < 2.0
+    assert true_rel(full.x) < rels[0]

@@ -184,11 +184,22 @@ def test_build_deflation_matches_jax(kind):
             defl.build_deflation(At, _t(U), M=kt["M"])
 
 
-@pytest.mark.parametrize("ortho", ["cgs2", "cgs", "cgs2_pallas", "auto"])
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs", "cgs2_pallas", "auto",
+                                   "cgs2_1r"])
 @pytest.mark.parametrize("kind", ["none", "MlMr", "M"])
 def test_deflated_gmres_matches_jax(kind, ortho):
+    """``cgs2_1r`` folds the capture and the projection into the
+    one-reduce product (``FusedDeflation``) in both packages; with ``M``
+    both raise the JAX package's ``ValueError``."""
     At, Aj, b, U = _problem()
     kt, kj = _precond(kind)
+    if ortho == "cgs2_1r" and kind == "M":
+        for fn, args, kw in ((F.deflated_gmres, (At, _t(b), _t(U)), kt),
+                             (JF.deflated_gmres, (Aj, jnp.asarray(b),
+                                                  jnp.asarray(U)), kj)):
+            with pytest.raises(ValueError, match="dual basis"):
+                fn(*args, ortho=ortho, maxiter=5, **kw)
+        return
     # with a right preconditioner the reference corrects the iterate in
     # x-space with a basis that lives in y-space (x = Mr y): its explicit
     # residual stalls near 0.6 here while the recurrence goes on to 1e-10
@@ -233,8 +244,11 @@ def test_deflated_gmres_beats_plain_and_handles_empty_basis():
     empty = F.deflated_gmres(At, _t(b), _t(low[:, :0]), tol=1e-10,
                              maxiter=120)
     assert torch.equal(empty.x, plain.x)
-    with pytest.raises(NotImplementedError, match="cgs2_1r"):
-        F.deflated_gmres(At, _t(b), _t(low), ortho="cgs2_1r")
+    # the fused one-reduce form: the exact low eigenvectors deflated
+    fused = F.deflated_gmres(At, _t(b), _t(low), tol=1e-10, maxiter=120,
+                             ortho="cgs2_1r")
+    assert int(fused.status) == F.CONVERGED
+    assert abs(int(fused.niter) - int(deflated.niter)) <= 1
     with pytest.raises(ValueError):
         F.deflated_gmres(At, _t(b), _t(low), ortho="cgs2_fused",
                          M=lambda v: v, Minv=lambda v: v)
@@ -266,8 +280,11 @@ def test_deflated_cg_matches_jax(kind):
     assert torch.equal(auto.x, rt.x)
     empty = F.deflated_cg(At, _t(b), _t(U[:, :0]), **kw)
     assert torch.equal(empty.x, F.cg(At, _t(b), **kw).x)
-    with pytest.raises(NotImplementedError):
-        F.deflated_cg(At, _t(b), _t(U), variant="1r")
+    # the fused one-reduce form, against the JAX package's
+    r1t = F.deflated_cg(At, _t(b), _t(U), variant="1r", **kw, **kt)
+    r1j = JF.deflated_cg(Aj, jnp.asarray(b), jnp.asarray(U), variant="1r",
+                         **kw, **kj)
+    _compare(r1j, r1t)
     # the exact low eigenvectors deflated: fewer iterations than plain CG
     lam, vec = np.linalg.eigh(np.asarray(
         [interop.to_numpy(At(_t(e))) for e in np.eye(n)]))
@@ -428,6 +445,44 @@ def test_recycling_gmres_on_the_diagonal_sequence_matches_jax():
     assert _angle(Ut, Uj) <= 1e-8
 
 
+def test_recycling_gmres_cgs2_1r_matches_jax():
+    """The diagonal sequence above with ``ortho="cgs2_1r"``: the plain
+    first solve and the deflated ones in the fused one-reduce form, as
+    __graft_entry__.py's dry run runs them.  Counts, status and the
+    recycled subspace as above; histories ``rtol=1e-8`` beside the
+    absolute round-off floor of an explicit residual of this system,
+    ``eps |A| |x| / |b|`` (3e-11: the eigenvalue 1e-6 makes |x| ~ 1e6),
+    the JAX package's own first-solve final entry moving by 1e-12 when an
+    ulp is added to ``b``."""
+    n = 200
+    base = np.linspace(1, 2, n)
+    base[:4] = [1e-6, 1e-3, 5e-3, 2e-2]
+    rt = F.RecyclingGmres(n_vectors=3, which="sm", hermitian=True)
+    rj = JF.RecyclingGmres(n_vectors=3, which="sm", hermitian=True)
+    bt, bj = torch.ones(n, dtype=torch.float64), jnp.ones(n)
+    iters = []
+    for i in range(4):
+        d = base * (1.0 + 0.01 * i)
+        got = rt.solve(ops.diagonal(_t(d)), bt, tol=1e-6, maxiter=n,
+                       ortho="cgs2_1r")
+        want = rj.solve(jops.diagonal(jnp.asarray(d)), bj, tol=1e-6,
+                        maxiter=n, ortho="cgs2_1r")
+        assert int(got.niter) == int(want.niter)
+        assert int(got.status) == int(want.status) == F.CONVERGED
+        floor = np.finfo(np.float64).eps * d.max() * np.linalg.norm(
+            1.0 / d) / np.sqrt(n)
+        live = ~np.isnan(np.asarray(want.resnorms))
+        np.testing.assert_allclose(interop.to_numpy(got.resnorms)[live],
+                                   np.asarray(want.resnorms)[live],
+                                   rtol=1e-8, atol=floor)
+        xj = np.asarray(want.x)
+        assert np.linalg.norm(interop.to_numpy(got.x) - xj) <= \
+            1e-10 * np.linalg.norm(xj)
+        iters.append(int(got.niter))
+    assert iters[0] > iters[1]
+    assert _angle(interop.to_numpy(rt._U), np.asarray(rj._U)) <= 1e-8
+
+
 def test_recycling_gmres_nonsymmetric_with_preconditioner():
     """hermitian=False on a nonsymmetric operator with a left
     preconditioner, and the warm-up, which changes no result."""
@@ -453,21 +508,23 @@ def test_recycling_gmres_nonsymmetric_with_preconditioner():
 
 @pytest.mark.parametrize("name", ["deflated_minres", "AutoRecyclingGmres"])
 def test_unported_names_raise(name):
-    """What of these names is not ported raises: ``deflated_minres``'s
-    one-reduce variant (the classic solver runs:
-    tests/test_torch_minres.py).  ``AutoRecyclingGmres`` is ported
-    (tests/test_torch_auto_recycling.py): it raises where the JAX
-    driver does, on candidate widths outside ``[0, max_vectors]``."""
+    """Both names are ported: ``deflated_minres``'s one-reduce variant
+    runs (against the JAX package's, on a small system), and
+    ``AutoRecyclingGmres`` (tests/test_torch_auto_recycling.py) raises
+    where the JAX driver does, on candidate widths outside ``[0,
+    max_vectors]``."""
     if name == "AutoRecyclingGmres":
         assert issubclass(F.AutoRecyclingGmres, F.RecyclingGmres)
         with pytest.raises(ValueError, match="widths"):
             F.AutoRecyclingGmres(max_vectors=3, widths=(0, 7))
         return
-    fn = getattr(F, name)
-    args, kw = (torch.eye(2), torch.ones(2), torch.ones(2, 1)), dict(
-        variant="1r")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(*args, **kw)
+    A = np.diag([1.0, -2.0, 3.0, 4.0])
+    b, U = np.ones(4), np.eye(4, 1)
+    rt = getattr(F, name)(_t(A), _t(b), _t(U), variant="1r", tol=1e-12)
+    rj = getattr(JF, name)(jnp.asarray(A), jnp.asarray(b), jnp.asarray(U),
+                           variant="1r", tol=1e-12)
+    assert int(rt.status) == int(rj.status) == F.CONVERGED
+    _compare(rj, rt)
 
 
 def test_functional_exports_the_jax_names():
@@ -478,6 +535,15 @@ def test_functional_exports_the_jax_names():
                  "make_inner"):
         assert name in F.__all__ and name in JF.__all__
         assert hasattr(F, name)
+    # the JAX package keeps these two in their modules, unexported
+    import importlib
+
+    assert F.FusedDeflation._fields == importlib.import_module(
+        "krypy_tpu.functional.gmres").FusedDeflation._fields
+    assert F.policy.__name__.endswith(
+        importlib.import_module("krypy_tpu.functional.policy").__name__[
+            len("krypy_tpu"):])
+    assert {"FusedDeflation", "policy"} <= set(F.__all__)
 
 
 def test_float32_system_with_float64_jacobi_matches_jax():

@@ -10,7 +10,13 @@ side runs its Pallas kernels in interpret mode, as it does off the TPU).
 Also the options of the deflation slice: the ``cgs``/``cgs_pallas``/
 ``cgs2_pallas`` schemes (K7's plain version against the Pallas kernel
 interpreted), the dual basis of ``M``, ``return_internal`` and the three
-deflation hooks.
+deflation hooks; and of the one-reduce slice: every other scheme
+(``mgs``, ``dmgs``, ``bmgs``, ``bmgs2``, ``cgs2_1r``), ``ip`` (a matrix
+and a scalar callable), ``basis_dtype=torch.bfloat16`` on float32
+systems (tests/test_bf16_basis.py's bounds: the true residual of a
+kappa = 50 solve below 5e-2, the float32 basis strictly better, and the
+JAX package's within a factor 2) and ``restarted_gmres`` with
+``cgs2_1r``.
 
 Tolerances: iteration counts and status equal; residual histories
 ``rtol=1e-8`` plus ``atol=1e-14``, because the final entries are explicit
@@ -89,7 +95,11 @@ def _compare(rj, rt):
     assert np.linalg.norm(xt - xj) <= 1e-10 * np.linalg.norm(xj)
 
 
-@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_fused"])
+ORTHOS = ("cgs2", "cgs2_fused", "cgs", "mgs", "dmgs", "bmgs", "bmgs2",
+          "cgs2_1r")
+
+
+@pytest.mark.parametrize("ortho", ORTHOS)
 @pytest.mark.parametrize("name", PROBLEMS)
 def test_gmres_matches_jax(name, ortho):
     """Also ``exact_solution``'s error norms, one per iteration."""
@@ -106,7 +116,7 @@ def test_explicit_residual_matches_jax():
     _compare(rj, rt)
 
 
-@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_fused"])
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_fused", "cgs2_1r"])
 @pytest.mark.parametrize("compiled", [False, True])
 def test_restarted_gmres_matches_jax(compiled, ortho):
     """GMRES(6) restarted on the left-preconditioned padded problem: the
@@ -215,7 +225,8 @@ def _m_problem():
     return At, Aj, b, kt, kj
 
 
-@pytest.mark.parametrize("ortho", ["cgs2", "cgs", "cgs2_pallas", "auto"])
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs", "cgs2_pallas", "auto",
+                                   "dmgs", "bmgs2", "cgs2_1r"])
 def test_gmres_dual_basis_matches_jax(ortho):
     """``M`` keeps two bases, ``V = M P``: the projections subtract along
     ``P`` (K7 with ``basis=P``), the norms are M-norms; ``return_internal``
@@ -326,15 +337,36 @@ def test_kernel_schemes_reject_ip_and_fused_rejects_M():
 
 @pytest.mark.parametrize("ortho", ["cgs2_fused", "auto"])
 def test_fused_rule_on_a_mesh(ortho):
-    """On a mesh ``cgs2_fused`` and ``auto`` run K9, which takes the
-    ranks' blocks whether or not N divides over the mesh (where it does
-    not, the JAX package runs its two-pass ``fused_force_jnp``); ``M``
-    still raises."""
+    """On a mesh ``cgs2_fused`` runs K9, which takes the ranks' blocks
+    whether or not N divides over the mesh (where it does not, the JAX
+    package runs its two-pass ``fused_force_jnp``); ``M`` still raises.
+    ``auto`` prices K9's saved sweep against its two extra all-reduces
+    (``policy.fused_sharded_wins``): ``cgs2_fused`` on a bandwidth-bound
+    shard, ``cgs2_1r`` on a latency-bound one, ``cgs2_1r`` with ``M``,
+    an ``ip`` matrix or ``basis_dtype`` (the JAX package's rule; the
+    choice on real meshes against the JAX package:
+    tests/test_torch_parallel.py)."""
     from types import SimpleNamespace
 
+    from krypy_tpu_torch.functional import policy
+
     mesh, cuda = SimpleNamespace(size=2), torch.device("cuda")
-    assert _resolve_ortho(ortho, torch.float32, cuda, 26,
-                          mesh=mesh) == "cgs2_fused"
+    for n_local in (1_000, 8_388_608):
+        want = ("cgs2_fused" if ortho == "cgs2_fused"
+                or policy.fused_sharded_wins(26, n_local, 4, 2, cuda)
+                else "cgs2_1r")
+        assert _resolve_ortho(ortho, torch.float32, cuda, 26, mesh=mesh,
+                              n_local=n_local) == want
+    if ortho == "auto":
+        assert want == "cgs2_fused"  # the large shard
+        for kw in (dict(with_M=True), dict(ip=torch.eye(2)),
+                   dict(mixed=True)):
+            assert _resolve_ortho("auto", torch.float32, cuda, 26,
+                                  mesh=mesh, n_local=8_388_608,
+                                  **kw) == "cgs2_1r"
+        # a scalar ip takes the one-device rule, which it sends to cgs2
+        assert _resolve_ortho("auto", torch.float32, cuda, 26, mesh=mesh,
+                              ip=lambda x, y: x @ y) == "cgs2"
     with pytest.raises(ValueError, match="dual-basis"):
         _resolve_ortho("cgs2_fused", torch.float32, cuda, 26, with_M=True,
                        mesh=mesh)
@@ -350,10 +382,119 @@ _UNPORTED = [
                          ids=[k + ("=" + v if isinstance(v, str) else "")
                               for d in _UNPORTED for k, v in d.items()])
 def test_unported_options_raise(kw):
-    A = torch.eye(2, dtype=torch.float64)
-    b = torch.ones(2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.gmres(A, b, **kw)
+    """The options that raised before the one-reduce lane was ported:
+    each runs now and matches the JAX package's solve, or raises the JAX
+    package's error (``fused_deflation`` with ``ortho="cgs2"``)."""
+    A = np.diag([1.0, 3.0])
+    b = np.ones(2)
+    kj = {k: (jnp.eye(2) if k == "ip" else jnp.bfloat16
+              if k == "basis_dtype" else v) for k, v in kw.items()}
+    try:
+        rj = JF.gmres(jnp.asarray(A), jnp.asarray(b), tol=1e-10, **kj)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e)[:30]):
+            F.gmres(torch.tensor(A), torch.tensor(b), tol=1e-10, **kw)
+        assert "fused_deflation" in kw
+        return
+    rt = F.gmres(torch.tensor(A), torch.tensor(b), tol=1e-10, **kw)
+    assert int(rt.niter) == int(rj.niter) == 2
+    # the bfloat16 basis breaks down at its floor, 1e-3, in both packages
+    assert int(rt.status) == int(rj.status) == (
+        F.BREAKDOWN if "basis_dtype" in kw else F.CONVERGED)
+    np.testing.assert_allclose(interop.to_numpy(rt.x), np.asarray(rj.x),
+                               rtol=1e-2 if "basis_dtype" in kw else 1e-12)
+
+
+@pytest.mark.parametrize("ip", ["matrix", "callable"])
+@pytest.mark.parametrize("ortho", ["cgs", "cgs2", "mgs", "dmgs", "bmgs",
+                                   "bmgs2"])
+def test_gmres_inner_product_matches_jax(ortho, ip):
+    """``ip`` with the plain schemes: a diagonal weight as a matrix and
+    as a scalar callable ``<x, B y>``, on the unpadded problem; the
+    matrix with ``cgs2_1r`` too (the one-reduce product applies ``B``);
+    a scalar callable there raises the JAX package's ``ValueError``."""
+    (At, _), (Aj, _), b, _ = _problem("unpadded")
+    d = np.random.default_rng(3).uniform(0.5, 2.0, NX * NX)
+    dj, dt = jnp.asarray(d), interop.from_numpy(d, "cpu")
+    if ip == "matrix":
+        ipj, ipt = jnp.diag(dj), torch.diag(dt)
+    else:
+        def ipj(x, y):
+            return jnp.vdot(x, dj * y)
+
+        def ipt(x, y):
+            return torch.vdot(x, dt * y)
+    kw = dict(tol=1e-10, maxiter=30 if ip == "callable" else 60)
+    for o in (ortho, "cgs2_1r") if ortho == "cgs2" else (ortho,):
+        if o == "cgs2_1r" and ip == "callable":
+            for fn, A_, bb, p in ((JF.gmres, Aj, jnp.asarray(b), ipj),
+                                  (F.gmres, At, interop.from_numpy(b, "cpu"),
+                                   ipt)):
+                with pytest.raises(ValueError, match="scalar callable"):
+                    fn(A_, bb, ip=p, ortho=o, **kw)
+            continue
+        rj = JF.gmres(Aj, jnp.asarray(b), ip=ipj, ortho=o, **kw)
+        rt = F.gmres(At, interop.from_numpy(b, "cpu"), ip=ipt, ortho=o, **kw)
+        _compare(rj, rt)
+
+
+def _bf16_system():
+    """tests/test_bf16_basis.py's system: diag(linspace(1, 50, 512)) with
+    a float32 random rhs."""
+    d = np.linspace(1.0, 50.0, 512)
+    b = np.random.default_rng(0).standard_normal(512).astype(np.float32)
+    return d, b
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_1r", "bmgs2"])
+def test_bf16_basis_matches_jax(ortho):
+    """A bfloat16 basis on a float32 system, 40 iterations at tol 0: the
+    true float64 residual below tests/test_bf16_basis.py's 5e-2 floor
+    bound, the float32 basis strictly better, the JAX package's residual
+    within a factor of 2 (the bfloat16 rounding of two products summed in
+    another order moves it), the basis stored narrow and every iteration
+    run."""
+    d, b = _bf16_system()
+    Dj, Dt = jnp.asarray(d, jnp.float32), torch.tensor(d, dtype=torch.float32)
+
+    def true_rel(x):
+        x = np.asarray(x, np.float64)
+        return np.linalg.norm(b - d * x) / np.linalg.norm(b)
+
+    kw = dict(tol=0.0, maxiter=40, ortho=ortho)
+    rj = JF.gmres(lambda v: Dj * v, jnp.asarray(b),
+                  basis_dtype=jnp.bfloat16, **kw)
+    rt, it = F.gmres(lambda v: Dt * v, torch.tensor(b),
+                     basis_dtype=torch.bfloat16, return_internal=True, **kw)
+    r32 = F.gmres(lambda v: Dt * v, torch.tensor(b), **kw)
+    assert it["V"].dtype == torch.bfloat16 and rt.x.dtype == torch.float32
+    assert int(rt.niter) == int(rj.niter) == 40
+    rel, rel_j = true_rel(interop.to_numpy(rt.x)), true_rel(rj.x)
+    assert rel < 5e-2 and true_rel(interop.to_numpy(r32.x)) < rel
+    assert 0.5 < rel / rel_j < 2.0
+
+
+def test_bf16_basis_errors_match_jax():
+    """tests/test_bf16_basis.py's guards, and the one-reduce scheme's
+    with ``M``: the same ``ValueError`` in both packages."""
+    d, b = _bf16_system()
+    cases = [dict(ip="eye"), dict(ortho="mgs"), dict(ortho="cgs2_pallas"),
+             dict(ortho="cgs2_1r", M=True), dict(complex=True)]
+    for case in cases:
+        msgs = []
+        for lib, t, bf in ((JF, jnp.asarray, jnp.bfloat16),
+                           (F, torch.tensor, torch.bfloat16)):
+            kw = dict(maxiter=4, basis_dtype=bf,
+                      ortho=case.get("ortho", "cgs2"))
+            bb = t(b.astype(np.complex64) if case.get("complex") else b)
+            if case.get("ip"):
+                kw["ip"] = t(np.eye(512, dtype=np.float32))
+            if case.get("M"):
+                kw["M"] = lambda v: v
+            with pytest.raises(ValueError) as err:
+                lib.gmres(lambda v: v, bb, **kw)
+            msgs.append(str(err.value)[:25])
+        assert msgs[0] == msgs[1], case
 
 
 def test_unknown_ortho_raises():

@@ -290,12 +290,18 @@ def test_deflated_minres_matches_jax(precond):
 
 
 def test_minres_options_that_raise():
+    """``variant="1r"`` runs now (against the JAX package's solve),
+    ``fused_deflation`` without it raises the JAX package's
+    ``ValueError``, an unknown variant raises, and ``"auto"`` off a mesh
+    is the classic recurrence."""
     A, b = ops.poisson_2d(7, device="cpu"), torch.ones(49,
                                                        dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A3"):
-        F.minres(A, b, variant="1r")
-    with pytest.raises(NotImplementedError, match="A3"):
-        F.minres(A, b, fused_deflation=object())
+    Aj, bj = jops.poisson_2d(7), jnp.ones(49)
+    _compare(JF.minres(Aj, bj, variant="1r", tol=1e-10),
+             F.minres(A, b, variant="1r", tol=1e-10))
+    for fn, args in ((JF.minres, (Aj, bj)), (F.minres, (A, b))):
+        with pytest.raises(ValueError, match="fused_deflation requires"):
+            fn(*args, fused_deflation=object())
     with pytest.raises(ValueError):
         F.minres(A, b, variant="pipelined")
     assert int(F.minres(A, b, variant="auto", tol=1e-8).status) == \

@@ -12,7 +12,9 @@ kernels in interpret mode.
 Float32 reductions are summed in another order in the two frameworks, so
 the inner iteration counts may move: matvecs (northstar.py's count,
 inner iterations + cycles + 1) within 2; the refinement cycle count may
-not move, and both solves must reach the float64 target.
+not move, and both solves must reach the float64 target.  The same holds
+for the one-reduce forms: ``cgs2_1r`` with the V-cycle on the left, and
+with a bfloat16 basis and the V-cycle on the right.
 """
 
 import numpy as np
@@ -30,7 +32,7 @@ from krypy_tpu_torch.northstar import make_northstar
 torch.set_num_threads(1)
 
 
-def _jax_northstar(nx, impl, ortho):
+def _jax_northstar(nx, impl, ortho, basis="f32", precond="left"):
     h = 1.0 / (nx + 1)
     h2 = h * h
     h2_f32 = jnp.float32(h2)
@@ -51,8 +53,11 @@ def _jax_northstar(nx, impl, ortho):
 
         def body(c):
             i, x, bx, best, done, nit = c
+            pk = {"Mr": Ml} if precond == "right" else {"Ml": Ml}
             res = JF.gmres(cd32, rs, x0=x, tol=1e-3, maxiter=25,
-                           ortho=ortho, Ml=Ml)
+                           ortho=ortho,
+                           basis_dtype=jnp.bfloat16 if basis == "bf16"
+                           else None, **pk)
             rel = jnp.linalg.norm(rs - cd32(res.x)) / rs_norm
             better = rel < best
             return (i + 1, res.x, jnp.where(better, res.x, bx),
@@ -74,16 +79,23 @@ def _jax_northstar(nx, impl, ortho):
     return res, info, info["inner_iters"] + info["cycles"] + 1, rel
 
 
-@pytest.mark.parametrize("nx,jax_impl,impl,ortho", [
+@pytest.mark.parametrize("nx,jax_impl,impl,ortho,basis,precond", [
     # the kernel lane: K1-K3 in the V-cycle and the matvec, K4-K6 in the
     # orthogonalization (plain versions on the CPU; JAX interpreted)
-    (255, "pallas", "cuda", "cgs2_fused"),
+    (255, "pallas", "cuda", "cgs2_fused", "f32", "left"),
     # the plain lane the card compares the kernel lane with
-    (63, "jnp", "torch", "cgs2"),
+    (63, "jnp", "torch", "cgs2", "f32", "left"),
+    # the one-reduce forms (northstar.py's NORTHSTAR_ORTHO=cgs2_1r, and
+    # with NORTHSTAR_BASIS=bf16 NORTHSTAR_PRECOND=right)
+    (255, "pallas", "cuda", "cgs2_1r", "f32", "left"),
+    (63, "pallas", "cuda", "cgs2_1r", "f32", "left"),
+    (63, "pallas", "cuda", "cgs2_1r", "bf16", "right"),
 ])
-def test_northstar_matches_jax(nx, jax_impl, impl, ortho):
-    rj, ij, mv_j, rel_j = _jax_northstar(nx, jax_impl, ortho)
-    solve, cd64 = make_northstar(nx, impl, ortho, "cpu")
+def test_northstar_matches_jax(nx, jax_impl, impl, ortho, basis, precond):
+    rj, ij, mv_j, rel_j = _jax_northstar(nx, jax_impl, ortho, basis,
+                                         precond)
+    solve, cd64 = make_northstar(nx, impl, ortho, "cpu", basis=basis,
+                                 precond=precond)
     b = torch.ones(nx * nx, dtype=torch.float64)
     rt, it = solve(b)
     rel_t = float(torch.linalg.vector_norm(b - cd64(rt.x))

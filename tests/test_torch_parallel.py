@@ -52,9 +52,25 @@ K9_CASE = (9, 1024, 8)
 GM_NX, GM_MAXITER, GM_TOL = 16, 100, 1e-10
 #: GMRES iterations of the two runs whose difference counts collectives
 COUNT_ITERS = (5, 9)
-#: the GMRES schemes on the mesh: K9, the plain two passes, and K7's
-#: sharded form (K4, an all-reduce, K6 per pass)
-GM_ORTHOS = ("cgs2_fused", "cgs2", "cgs2_pallas")
+#: the GMRES schemes on the mesh: K9, the plain two passes, K7's
+#: sharded form (K4, an all-reduce, K6 per pass) and the one-reduce scheme
+GM_ORTHOS = ("cgs2_fused", "cgs2", "cgs2_pallas", "cgs2_1r")
+#: all-reduces per iteration and per solve of a GMRES solve stopped at
+#: maxiter (the global N, the two initial norms, the final explicit
+#: residual; the one-reduce scheme's peeled first product), and halo
+#: exchanges per solve (the initial and final residuals; its peeled
+#: matvec)
+GM_COUNTS = {"cgs2_1r": (1, 5, 3)}
+GM_COUNTS_DEFAULT = (3, 4, 2)
+#: the short recurrences' one-reduce variant on the mesh, and their fixed
+#: all-reduces and halo exchanges per solve: the two initial norms, the
+#: final explicit residual, and CG's initial delta (its first matvec too)
+SR_COUNTS = {"cg": (4, 3), "minres": (3, 2)}
+#: the ``auto`` cases: (solver, grid, maxiter); on the CPU table of the
+#: price model GMRES on the 16^2 problem picks cgs2_1r and on 32^2
+#: cgs2_fused, CG and MINRES on 32^2 pick 1r and CG on 64^2 classic
+AUTO_CASES = (("gmres", GM_NX, GM_MAXITER), ("gmres", 32, GM_MAXITER),
+              ("cg", 32, 200), ("minres", 32, 200), ("cg", 64, 400))
 #: a length that divides over neither world: K9 runs on blocks of
 #: unequal length there, the JAX package its two-pass ``fused_force_jnp``
 UNEVEN_N = 61
@@ -147,6 +163,17 @@ def _gmres_problem(mesh):
                                     device=mesh.device)
     b = np.random.RandomState(5).randn(nx * nx)
     return A, ops.jacobi_preconditioner(A), parallel.shard_vector(b, mesh)
+
+
+def _auto_problem(solver, nx, mesh):
+    """An ``auto`` case's operator and right-hand side on ``mesh``:
+    convection-diffusion for GMRES (the GMRES parity problem at
+    ``GM_NX``), Poisson for CG and MINRES."""
+    make = ops.convection_diffusion_2d if solver == "gmres" \
+        else ops.poisson_2d
+    A = make(nx, impl="cuda", mesh=mesh, device=mesh.device)
+    rhs = np.random.RandomState(5 if solver == "gmres" else 8).randn(nx * nx)
+    return A, parallel.shard_vector(rhs, mesh)
 
 
 def _uneven_matrix(P):
@@ -269,6 +296,21 @@ def rank_cases(mesh):
         _result(out, "cg", F.cg(A, b, tol=1e-10, maxiter=200), mesh)
         _result(out, "minres", F.minres(A, b, tol=1e-10, maxiter=200),
                 mesh)
+        # the one-reduce variants, and the collectives they make
+        for name in SR_COUNTS:
+            solver = getattr(F, name)
+            parallel.reset_collective_counts()
+            res = solver(A, b, tol=1e-10, maxiter=200, variant="1r")
+            _result(out, f"{name}_1r", res, mesh)
+            counts = parallel.collective_counts()
+            out[f"{name}_1r_counts"] = np.array(
+                [counts["all_reduce_sum"], counts["halo_exchange"]])
+            for k in COUNT_ITERS:
+                parallel.reset_collective_counts()
+                solver(A, b, tol=1e-30, maxiter=k, variant="1r")
+                counts = parallel.collective_counts()
+                out[f"count_{name}_1r_{k}"] = np.array(
+                    [counts["all_reduce_sum"], counts["halo_exchange"]])
         # an inner-product matrix: rank-local (the operator on the mesh,
         # a block of the identity), or not
         eye = torch.eye(b.shape[0], dtype=torch.float64)
@@ -279,6 +321,23 @@ def rank_cases(mesh):
             maxiter=2)))
         out["err_ip_callable"] = np.array(_error(lambda: F.cg(
             A, b, ip=lambda u, v: torch.vdot(u, v), maxiter=2)))
+
+    # ortho="auto" and variant="auto": the scheme each picked, read off the
+    # all-reduces it made
+    for solver, n, maxiter in AUTO_CASES:
+        A_auto, b_auto = _auto_problem(solver, n, mesh)
+        kw = dict(Ml=ops.jacobi_preconditioner(A_auto)) \
+            if solver == "gmres" else {}
+        with mesh:
+            parallel.reset_collective_counts()
+            res = getattr(F, solver)(
+                A_auto, b_auto, tol=1e-10, maxiter=maxiter,
+                **{"ortho" if solver == "gmres" else "variant": "auto"},
+                **kw)
+        tag = f"auto_{solver}_{n}"
+        _result(out, tag, res, mesh)
+        out[f"{tag}_reduces"] = np.int64(
+            parallel.collective_counts()["all_reduce_sum"])
 
     # the rest of the mesh API on the same system
     whole = np.random.RandomState(8).randn(nx * nx)
@@ -524,19 +583,122 @@ def test_gmres_cgs2_fused_on_indivisible_mesh_matches_jax(worlds, P):
 def test_gmres_collectives_per_iteration(worlds, ortho, P):
     """Three all-reduces per GMRES iteration (K9's two plus the norm, as
     tests/test_collectives.py pins for the JAX loop body; ``cgs2``'s and
-    ``cgs2_pallas``'s two passes plus the norm) and one halo exchange per
-    matvec.  A solve of k
-    iterations that stops at ``maxiter``: 3 k + 4 all-reduces (the global
-    N, the two initial norms, the final explicit residual) and k + 2
-    exchanges (the initial and final residuals)."""
+    ``cgs2_pallas``'s two passes plus the norm), ONE for ``cgs2_1r`` (as
+    tests/test_collectives.py pins it), and one halo exchange per
+    matvec.  A solve of k iterations that stops at ``maxiter``: 3 k + 4
+    all-reduces (the global N, the two initial norms, the final explicit
+    residual) and k + 2 exchanges (the initial and final residuals);
+    ``cgs2_1r`` k + 5 and k + 3, its peeled first product and matvec
+    added."""
+    per, fixed, halo = GM_COUNTS.get(ortho, GM_COUNTS_DEFAULT)
     k1, k2 = COUNT_ITERS
     for r in worlds[P]:
         c1, c2 = r[f"count_{ortho}_{k1}"], r[f"count_{ortho}_{k2}"]
-        assert list((c2 - c1) // (k2 - k1)) == [3, 1]
+        assert list((c2 - c1) // (k2 - k1)) == [per, 1]
         assert list((c2 - c1) % (k2 - k1)) == [0, 0]
-        assert list(c1) == [3 * k1 + 4, k1 + 2]
+        assert list(c1) == [per * k1 + fixed, k1 + halo]
         n = int(r[f"gmres_{ortho}_niter"])
-        assert list(r[f"gmres_{ortho}_counts"]) == [3 * n + 4, n + 2]
+        assert list(r[f"gmres_{ortho}_counts"]) == [per * n + fixed,
+                                                    n + halo]
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("name", list(SR_COUNTS))
+def test_one_reduce_short_recurrences_on_mesh(worlds, name, P):
+    """CG and MINRES with ``variant="1r"`` through K8 against the JAX
+    package's under ``with mesh:``, every rank's history the same bits,
+    and ONE all-reduce per iteration (tests/test_collectives.py pins it
+    on the JAX loop body) and one halo exchange per matvec; fixed per
+    solve: the two initial norms and the final explicit residual, and
+    CG's initial ``delta`` and its matvec."""
+    import jax
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, parallel as jp
+
+    nx = 32
+    mesh = _jmesh(P)
+    b = jp.shard_vector(
+        jnp.asarray(np.random.RandomState(8).randn(nx * nx)), mesh)
+    A = _jax_operator("poisson", nx, nx, mesh)
+    with mesh:
+        res = jax.jit(lambda v: getattr(JF, name)(
+            A, v, tol=1e-10, maxiter=200, variant="1r"))(b)
+    ranks = worlds[P]
+    _compare(ranks[0], f"{name}_1r", res)
+    assert int(res.status) == F.CONVERGED
+    key = f"{name}_1r_resnorms"
+    assert all(r[key].tobytes() == ranks[0][key].tobytes() for r in ranks)
+    fixed, halo = SR_COUNTS[name]
+    k1, k2 = COUNT_ITERS
+    for r in ranks:
+        n = int(r[f"{name}_1r_niter"])
+        assert list(r[f"{name}_1r_counts"]) == [n + fixed, n + halo]
+        for k in COUNT_ITERS:
+            assert list(r[f"count_{name}_1r_{k}"]) == [k + fixed, k + halo]
+
+
+def _jax_auto(solver, nx, maxiter, P, pick):
+    """The JAX package's ``auto`` solve on ``make_mesh(P)`` and whether
+    it picked ``pick``: its compiled auto solve is the same program as
+    the one of the scheme it resolved to, so its iterate equals that
+    scheme's bit for bit (and differs from the other's).  Returns
+    ``(picked pick, auto result)``."""
+    import jax
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, ops as jops, parallel as jp
+
+    mesh = _jmesh(P)
+    make = jops.convection_diffusion_2d if solver == "gmres" \
+        else jops.poisson_2d
+    A = make(nx, nx, impl="pallas", mesh=mesh)
+    b = jp.shard_vector(jnp.asarray(np.random.RandomState(
+        5 if solver == "gmres" else 8).randn(nx * nx)), mesh)
+    key = "ortho" if solver == "gmres" else "variant"
+    kw = dict(Ml=jops.jacobi_preconditioner(A)) if solver == "gmres" else {}
+    runs = {}
+    for choice in ("auto", pick):
+        with mesh:
+            runs[choice] = jax.jit(lambda v: getattr(JF, solver)(
+                A, v, tol=1e-10, maxiter=maxiter, **{key: choice},
+                **kw))(b)
+    same = np.array_equal(np.asarray(runs[pick].x),
+                          np.asarray(runs["auto"].x))
+    return same, runs["auto"]
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("solver,nx,maxiter", AUTO_CASES)
+def test_auto_on_mesh_picks_as_jax(worlds, solver, nx, maxiter, P):
+    """``ortho="auto"`` (GMRES) and ``variant="auto"`` (CG, MINRES) on
+    the mesh pick the scheme the JAX package picks on ``make_mesh(P)``
+    for the same shard sizes (both price it with the CPU row of the
+    model, :mod:`krypy_tpu_torch.functional.policy`), and the solve
+    matches the JAX package's.  The port's pick is read off the
+    all-reduces the solve made: GMRES ``cgs2_1r`` k + 5 against
+    ``cgs2_fused``'s 3 k + 4, CG ``1r`` k + 5 against classic's 2 k + 4,
+    MINRES ``1r`` k + 4 against 2 k + 4 (the short recurrences' ``auto``
+    reduces the global N once more)."""
+    tag = f"auto_{solver}_{nx}"
+    picks = set()
+    for r in worlds[P]:
+        n, reduces = int(r[f"{tag}_niter"]), int(r[f"{tag}_reduces"])
+        # the short recurrences' auto also reduces the global N
+        one_reduce = {"gmres": n + 5, "cg": n + 5, "minres": n + 4}[solver]
+        other = {"gmres": 3 * n + 4, "cg": 2 * n + 4,
+                 "minres": 2 * n + 4}[solver]
+        assert reduces in (one_reduce, other)
+        picks.add(("cgs2_1r" if solver == "gmres" else "1r")
+                  if reduces == one_reduce else
+                  ("cgs2_fused" if solver == "gmres" else "classic"))
+    assert len(picks) == 1
+    got = picks.pop()
+    # the grid spans both answers
+    assert got == {(GM_NX, "gmres"): "cgs2_1r", (32, "gmres"): "cgs2_fused",
+                   (32, "cg"): "1r", (32, "minres"): "1r",
+                   (64, "cg"): "classic"}[nx, solver]
+    same, res = _jax_auto(solver, nx, maxiter, P, got)
+    assert same, f"the JAX package's auto did not pick {got}"
+    _compare(worlds[P][0], tag, res)
 
 
 @pytest.mark.parametrize("P", WORLDS)

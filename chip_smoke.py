@@ -12,7 +12,7 @@ share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
-                                  mesh,onereduce}]
+                                  mesh,onereduce,compat}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -172,6 +172,40 @@ before printing its last line):
    tol, then slope-timed at tol 0, K = 20 and 40, median of 3, at 1023^2
    and 4095^2 on both lanes, and the H100's extra-sweep ratios beside
    the JAX package's; one JSON line;
+11c. the compat phase (``--only compat``), KryPy's own API
+   (``linsys``, ``deflation``, the one-call functions) on the card: (a)
+   ``cg``/``minres``/``gmres`` on the README system from numpy, plain
+   and deflated with ``U = e_1``, against BASELINE.md rows 3-6 to 1e-11,
+   the solution a CUDA tensor of ``b``'s shape; (b) config 2 at 4095^2
+   in float32, ``linsys.Cg`` and ``linsys.Minres`` on ``LinearSystem(A,
+   b, M=M, ip_B=W)`` (``W`` the weights as a DiagonalLinearOperator,
+   tol 1e-4, maxiter 200): iterations within 3 of the functional inner
+   solve, the residual recomputed in float64 in the solve's own norm
+   within 10 x tol, a CG run with ``explicit_residual=True`` whose
+   history agrees with the updated one (1e-3 relative on the entries at
+   or above 10 x tol), and the operation-count identity: the
+   applications of A and M equal ``operations(k)``'s and K1's launches
+   are the float32 applications of A plus those of M times one
+   V-cycle's (measured alone; the iterate and the explicit residual are
+   float64 as in the JAX lane and take the plain stencil); (c) config 3 at
+   4095^2, ``RestartedGmres(GMRES(30), 10 restarts, tol 1e-4)`` with
+   ``Ml``, ``M``, ``Mr``: iterations within 3 and the cycles of the
+   functional ``restarted_gmres`` (``cgs2_pallas``), the recomputed
+   residual, the applications of A and Ml against the model summed over
+   the cycles (A once more per restart, for its initial residual), K1's
+   launches from them, and the first cycle with ``store_arnoldi``
+   (``dmgs``; ``mgs`` recorded) within 1e-4 in Arnoldi residual over
+   ``||H||`` and orthonormality; bench.py's padded Poisson at 1023^2
+   through ``linsys.Cg`` (tol 1e-4, bench.py's inner tolerance):
+   iterations within 1 of the functional ``cg``, K1-K3 and the coarse
+   form launched (at tol 1e-5 both counts recorded); (d)
+   convection-diffusion at 1023^2 with the V-cycle as ``Ml``:
+   ``DeflatedGmres`` (``dmgs``, ``store_arnoldi``), ``Ritz(mode=
+   "harmonic")``'s four values smallest in magnitude with their Gram
+   residual norms against ``get_explicit_resnorms`` (1e-3 relative), the
+   deflated solve with their vectors taking no more iterations; each
+   timed beside the functional lane (3 interleaved solves, host wall,
+   the busy share of one profiled solve); one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -204,7 +238,8 @@ before printing its last line):
    iteration, one halo exchange per matvec, the second recycled solve
    deflated.  Any rank's failure or the world's deadline fails the run.
    The times are per shard on ONE card: no multi-GPU speed-up;
-13. output: a JSON line of configs 2 and 3's walls, a JSON line of
+13. output: a JSON line of configs 2 and 3's walls (and the compat
+   phase's), a JSON line of
    per-kernel results (K1's forward-mode tangent as a row of its own,
    ``stencil5_affine_jvp``, with config 5's launches; ``timed_by`` says,
    for
@@ -3787,6 +3822,580 @@ def onereduce_phase(device):
     return record["onereduce"]
 
 
+# ---------------------------------------------------------------------------
+# the reference-compatible lane (linsys, deflation, the one-call functions)
+# ---------------------------------------------------------------------------
+
+#: BASELINE.md rows 3-5: Σ|x|, ||x||_2, max|x| of cg/gmres/minres on the
+#: README system with a custom inner product (tests/test_convenience.py)
+COMPAT_GOLDEN = {
+    "cg": (1004.1873775173957, 1000.0003174916551, 999.9999999997555),
+    "gmres": (1004.1873724888546, 1000.0003124630923, 999.999994971191),
+    "minres": (1004.187372488912, 1000.0003124632159, 999.9999949713145),
+}
+#: BASELINE.md row 6: the same, deflated with U = e_1
+COMPAT_GOLDEN_DEFLATED = {
+    "cg": (1004.1873775173271, 1000.0003174918709, 1000.0),
+    "minres": (1004.1873774950692, 1000.0003174918709, 1000.0),
+    "gmres": (1004.1873774950692, 1000.0003174918709, 1000.0),
+}
+COMPAT_GOLDEN_RTOL = 1e-11
+#: the float32 solves of configs 2 and 3: tolerance, budget, and how far
+#: the compatibility lane's iterations may lie from the functional lane's
+COMPAT_TOL = 1e-4
+COMPAT_MAXITER = 200
+COMPAT_ITER_SLACK = 3
+#: the recomputed (float64) residual, in the solve's own norm, within
+#: this many times the tolerance
+COMPAT_TRUE_FACTOR = 10.0
+#: explicit against updated residual norms: relative, on the entries at
+#: or above ``COMPAT_EXPLICIT_FROM`` (ten times the tolerance); below it
+#: the float32 recurrence meets the float32 floor of W^{-1} Lap at 4095^2
+#: (ROADMAP.md queue C, config 2), and the gap is recorded
+COMPAT_EXPLICIT_RTOL = 1e-3
+COMPAT_EXPLICIT_FROM = 10 * COMPAT_TOL
+#: config 3's first cycle with store_arnoldi: the Arnoldi residual over
+#: ||H|| and ||I - <V, P>||
+COMPAT_ARNOLDI_TOL = 1e-4
+#: config 3's restart length and restarts
+COMPAT_RESTART = 30
+COMPAT_RESTARTS = 10
+#: bench.py's padded Poisson through linsys.Cg: the gated tolerance
+#: (bench.py's inner one), the iteration slack, and a tighter tolerance
+#: recorded ungated: below the float32 floor the functional lane stops on
+#: its float32 updated residual, which has left the true one, while the
+#: compatibility lane re-seats its recurrence on the float64 explicit
+#: residual and diverges to NaN, as the JAX package's lane does (ROADMAP.md
+#: queue C)
+COMPAT_POISSON_TOL = 1e-4
+COMPAT_POISSON_SLACK = 1
+COMPAT_POISSON_RECORDED_TOL = 1e-5
+#: (d): the deflated GMRES and its Ritz vectors at 1023^2
+COMPAT_DEFL_NX = NX
+COMPAT_DEFL_TOL = 1e-5
+COMPAT_DEFL_MAXITER = 60
+COMPAT_DEFL_VECTORS = 4
+COMPAT_RITZ_RTOL = 1e-3
+#: interleaved timed solves per lane
+COMPAT_ROUNDS = 3
+
+
+def _counted(fn, counts, key):
+    """``fn`` adding one to ``counts[key]`` per call (per vector), and to
+    ``counts[key + "32"]`` where the vector is float32 (the Krylov
+    vectors; the JAX lane's iterate and explicit residual are float64,
+    whose applications take the plain stencil)."""
+    import torch
+
+    def call(x):
+        counts[key] += 1
+        counts[key + "32"] += x.dtype == torch.float32
+        return fn(x)
+    return call
+
+
+def _synced_wall(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _compat_timing(label, lanes, record):
+    """``COMPAT_ROUNDS`` solves per lane (host wall, synchronised),
+    interleaved with the order alternating, then one profiled solve per
+    lane for its device busy share; into ``record[label]``."""
+    walls = {lane: [] for lane in lanes}
+    for k in range(COMPAT_ROUNDS):
+        for lane in (list(lanes) if k % 2 == 0 else list(reversed(lanes))):
+            walls[lane].append(_synced_wall(lanes[lane])[1])
+    rec = {}
+    for lane, ts in walls.items():
+        med = statistics.median(ts)
+        busy = _busy_share(f"compat {label} lane={lane}",
+                           lambda _b, f=lanes[lane]: f(), None, med)
+        rec[lane] = {"median": med, "min": min(ts), "max": max(ts),
+                     "all": ts, "busy_s": busy, "busy_share": busy / med}
+        print(f"timing compat {label} lane={lane} wall_s median={med:.6f} "
+              f"min={min(ts):.6f} max={max(ts):.6f} busy_share="
+              f"{busy / med:.3f}", flush=True)
+    record[label] = rec
+
+
+def _functionals(x):
+    x = x.detach().cpu().double().numpy().reshape(-1)
+    return (float(np.sum(np.abs(x))), float(np.sqrt(np.dot(x, x))),
+            float(np.max(np.abs(x))))
+
+
+def _compat_goldens(device):
+    """(a) the one-call functions on the README system, numpy in, on the
+    card: the goldens of BASELINE.md rows 3-6 to ``COMPAT_GOLDEN_RTOL``."""
+    import torch
+    import krypy_tpu_torch as kt
+
+    A = np.diag([1.0e-3] + list(range(2, 101)))
+    b = np.ones(100)
+    U = np.zeros(100)
+    U[0] = 1.0
+    out = {}
+    for table, kw in ((COMPAT_GOLDEN, {"inner_product": torch.dot}),
+                      (COMPAT_GOLDEN_DEFLATED, {"U": U})):
+        for name, ref in table.items():
+            sol, solver = getattr(kt, name)(A, b, **kw)
+            if sol is None or not sol.is_cuda or tuple(sol.shape) != b.shape:
+                raise AssertionError(f"compat golden {name}: solution "
+                                     f"{None if sol is None else sol.shape}"
+                                     f" on {getattr(sol, 'device', None)}")
+            got = _functionals(sol)
+            rel = max(abs(g - r) / r for g, r in zip(got, ref))
+            tag = f"{name}{' deflated' if 'U' in kw else ''}"
+            out[tag] = {"functionals": got, "max_rel": rel,
+                        "iterations": len(solver.resnorms) - 1}
+            print(f"compat golden {tag}: {got} max rel {rel:.3e}",
+                  flush=True)
+            if not rel <= COMPAT_GOLDEN_RTOL:
+                raise AssertionError(f"compat golden {tag}: {got} against "
+                                     f"{ref}, rel {rel:.3e}")
+    return out
+
+
+def _explicit_agrees(updated, explicit):
+    """The relative gaps of the explicit history from the updated one;
+    raises unless those of the entries at or above
+    ``COMPAT_EXPLICIT_FROM`` are within ``COMPAT_EXPLICIT_RTOL`` and the
+    lengths within one."""
+    u, e = np.asarray(updated), np.asarray(explicit)
+    n = min(len(u), len(e))
+    rel = np.abs(u[:n] - e[:n]) / np.abs(e[:n])
+    gated = u[:n] >= COMPAT_EXPLICIT_FROM
+    worst = float(np.max(rel[gated])) if gated.any() else 0.0
+    print(f"compat explicit residual: {len(e) - 1} iterations against "
+          f"{len(u) - 1}, relative gaps {rel.tolist()}", flush=True)
+    if abs(len(u) - len(e)) > 1 or worst > COMPAT_EXPLICIT_RTOL:
+        raise AssertionError(
+            f"compat explicit residual: {len(e) - 1} iterations against "
+            f"{len(u) - 1}, relative gap {worst:.3e} at or above "
+            f"{COMPAT_EXPLICIT_FROM} (gaps {rel.tolist()})")
+    return {"rel_gaps": rel.tolist(), "max_rel_gated": worst,
+            "iterations": [len(u) - 1, len(e) - 1]}
+
+
+def _converged(what, resnorms, tol):
+    """The last relative residual of a compatibility-lane solve is finite
+    and at most ``tol`` (the lane's loop takes a NaN residual for
+    convergence, ``nan > tol`` being False, in both packages)."""
+    last = resnorms[-1]
+    if not (math.isfinite(last) and last <= tol):
+        raise AssertionError(f"compat {what}: final relative residual "
+                             f"{last} against tol {tol}")
+
+
+def _functional_iterations(res):
+    """The iterations a functional solve took to the tolerance: the first
+    step whose relative residual met it, else the step of the smallest
+    residual (the best iterate, which CG's stagnation window returns
+    after ``stagnation_window`` more steps; config 2's float32 inner
+    solve at 4095^2 sits at its float32 floor above the tolerance)."""
+    hist = res.resnorms[: int(res.niter) + 1].double().cpu().numpy()
+    met = np.flatnonzero(hist <= COMPAT_TOL)
+    return int(met[0]) if met.size else int(np.argmin(hist))
+
+
+def _check_launch_identity(what, launches, counts, per_apply):
+    """K1's launches: one per float32 application of the operator and
+    ``per_apply[key]`` per float32 application of each preconditioner
+    key."""
+    want = counts["A32"] + sum(counts[k + "32"] * per
+                               for k, per in per_apply.items())
+    if launches["stencil5_affine"] != want:
+        raise AssertionError(
+            f"compat {what}: {launches['stencil5_affine']} K1 launches, "
+            f"{counts} applications x {per_apply} per application give "
+            f"{want}")
+
+
+def _compat_config2(device, record):
+    """(b) BASELINE config 2 through KryPy's API at 4095^2 in float32: CG
+    and MINRES on ``LinearSystem(A, b, M=M, ip_B=W)`` with ``W`` the
+    weights as a DiagonalLinearOperator; gated on the functional lane's
+    inner solve, the true residual, the explicit residual (CG), and the
+    operation-count identity with K1's launches."""
+    import torch
+    from krypy_tpu_torch import interop, kernels, linsys, suite, utils
+
+    nx = BL_NX
+    A, A64, M, _, b, solves = suite.make_config2(nx, "cuda", device)
+    w = interop.from_numpy(suite.config2_weights(nx), device)
+    W = utils.DiagonalLinearOperator(w)
+    w64 = w.double()
+    b32 = b.float()
+    counts = dict.fromkeys(("A", "A32", "M", "M32"), 0)
+    cA, cM = _counted(A, counts, "A"), _counted(M, counts, "M")
+
+    def system(a=A, m=M):
+        return linsys.LinearSystem(a, b32, M=m, ip_B=W, self_adjoint=True,
+                                   positive_definite=True)
+
+    # K1's launches per application of M (the V-cycle of w r), alone
+    M(b32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    M(b32)
+    torch.cuda.synchronize()
+    per_vcycle = kernels.launch_counts()["stencil5_affine"]
+
+    def prec_norm(r):
+        return float(torch.sqrt(torch.vdot(r, w64 * M(r))))
+
+    out, launches, lanes = {"per_vcycle": per_vcycle}, {}, {}
+    for name, cls in (("cg", linsys.Cg), ("minres", linsys.Minres)):
+        cls(system(), tol=COMPAT_TOL, maxiter=COMPAT_MAXITER)  # warm
+        torch.cuda.synchronize()
+        counts.update(dict.fromkeys(counts, 0))
+        kernels.reset_launch_counts()
+        sol = cls(system(cA, cM), tol=COMPAT_TOL, maxiter=COMPAT_MAXITER)
+        torch.cuda.synchronize()
+        used = kernels.launch_counts()
+        k = len(sol.resnorms) - 1
+        model = cls.operations(k)
+        ref = solves[name].inner(b32)
+        ref_k = _functional_iterations(ref)
+        x = sol.xk[:, 0].double()
+        r = b - A64(x)
+        rel = prec_norm(r) / prec_norm(b)
+        rel_w = float(torch.sqrt(torch.vdot(r, w64 * r))
+                      / torch.sqrt(torch.vdot(b, w64 * b)))
+        out[name] = {"iterations": k, "functional": ref_k,
+                     "functional_niter": int(ref.niter),
+                     "rel_M_W": rel, "rel_W": rel_w,
+                     "resnorms": sol.resnorms, "applications": dict(counts),
+                     "model": {key: model[key] for key in ("A", "M")},
+                     "launches": {n: c for n, c in used.items() if c}}
+        print(f"compat config2 {name}: {k} iterations (functional "
+              f"{ref_k}; {int(ref.niter)} with its stagnation window), "
+              f"rel {rel:.3e} in the M-norm of ip_B, "
+              f"{rel_w:.3e} in ip_B, applications {counts}, model "
+              f"{out[name]['model']}, launches {out[name]['launches']}",
+              flush=True)
+        _converged(f"config2 {name}", sol.resnorms, COMPAT_TOL)
+        if abs(k - ref_k) > COMPAT_ITER_SLACK:
+            raise AssertionError(f"compat config2 {name}: {k} iterations "
+                                 f"against the functional {ref_k}")
+        if not rel <= COMPAT_TRUE_FACTOR * COMPAT_TOL:
+            raise AssertionError(f"compat config2 {name}: true residual "
+                                 f"{rel:.3e}")
+        if (counts["A"], counts["M"]) != (model["A"], model["M"]):
+            raise AssertionError(f"compat config2 {name}: applications "
+                                 f"{counts} against the model {model}")
+        _check_launch_identity(f"config2 {name}", used, counts,
+                               {"M": per_vcycle})
+        launches[f"config2 {name}"] = used
+        lanes[name] = {
+            "compat": lambda cls=cls: cls(system(), tol=COMPAT_TOL,
+                                          maxiter=COMPAT_MAXITER),
+            "functional": lambda s=solves[name]: s.inner(b32)}
+        if name == "cg":
+            sole = cls(system(), tol=COMPAT_TOL, maxiter=COMPAT_MAXITER,
+                       explicit_residual=True)
+            out[name]["explicit"] = _explicit_agrees(sol.resnorms,
+                                                     sole.resnorms)
+    for name, lane in lanes.items():
+        _compat_timing(f"config2 {name}@{nx}", lane, record["walls_s"])
+    return out, launches
+
+
+def _compat_config3(device, record):
+    """(c) BASELINE config 3 through KryPy's API at 4095^2 in float32:
+    ``RestartedGmres(GMRES(30), 10 restarts)`` on ``LinearSystem(cd, b,
+    M=M, Ml=Ml, Mr=Mr)``, gated on the functional lane's restarted GMRES
+    (its ``cgs2_pallas`` lane), the true residual, the first cycle's
+    Arnoldi relation and the operation counts with K1's launches; then
+    bench.py's padded Poisson at 1023^2 through ``linsys.Cg``."""
+    import torch
+    from krypy_tpu_torch import (functional as F, kernels, linsys, suite,
+                                 utils)
+    from krypy_tpu_torch.errors import ConvergenceError
+
+    nx = BL_NX
+    cd, Ml, M, Mr = suite.config3_pieces(nx, "cuda", device)
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    b32 = b.float()
+    counts = dict.fromkeys(("A", "A32", "Ml", "Ml32"), 0)
+    cA, cMl = _counted(cd, counts, "A"), _counted(Ml, counts, "Ml")
+
+    def system(a=cd, ml=Ml):
+        return linsys.LinearSystem(a, b32, M=M, Ml=ml, Mr=Mr)
+
+    def compat():
+        return linsys.RestartedGmres(system(), maxiter=COMPAT_RESTART,
+                                     max_restarts=COMPAT_RESTARTS,
+                                     tol=COMPAT_TOL)
+
+    def functional():
+        return F.restarted_gmres(cd, b32, Ml=Ml, M=M, Mr=Mr, tol=COMPAT_TOL,
+                                 maxiter=COMPAT_RESTART,
+                                 max_restarts=COMPAT_RESTARTS, compiled=True,
+                                 ortho="cgs2_pallas")
+
+    Ml(b32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    Ml(b32)
+    torch.cuda.synchronize()
+    per_vcycle = kernels.launch_counts()["stencil5_affine"]
+
+    compat()  # warm
+    torch.cuda.synchronize()
+    counts.update(dict.fromkeys(counts, 0))
+    kernels.reset_launch_counts()
+    sol = linsys.RestartedGmres(system(cA, cMl), maxiter=COMPAT_RESTART,
+                                max_restarts=COMPAT_RESTARTS,
+                                tol=COMPAT_TOL)
+    torch.cuda.synchronize()
+    used = kernels.launch_counts()
+    K = len(sol.resnorms) - 1
+    cycles = -(-K // COMPAT_RESTART)
+    ref = functional()
+    ref_cycles = -(-int(ref.niter) // COMPAT_RESTART)
+    # the model per cycle, summed; each restart's initial residual b - A x0
+    # is one application of A beyond it (the model counts one per solve)
+    per_cycle = [COMPAT_RESTART] * (cycles - 1) + [K - COMPAT_RESTART
+                                                   * (cycles - 1)]
+    model = {key: sum(linsys.Gmres.operations(k)[key] for k in per_cycle)
+             for key in ("A", "Ml")}
+    want = {"A": model["A"] + cycles - 1, "Ml": model["Ml"]}
+    x64 = sol.xk[:, 0].double()
+
+    def prec_norm(r):
+        Mlr = Ml(r)
+        return float(torch.sqrt(torch.vdot(Mlr, M(Mlr))))
+
+    rel = prec_norm(b - cd(x64)) / prec_norm(b)
+    rel_raw = float(torch.linalg.vector_norm(b - cd(x64))
+                    / torch.linalg.vector_norm(b))
+    out = {"iterations": K, "cycles": cycles,
+           "functional": int(ref.niter), "functional_cycles": ref_cycles,
+           "rel_M": rel, "rel_unpreconditioned": rel_raw,
+           "per_vcycle": per_vcycle, "applications": dict(counts),
+           "model": model, "launches": {n: c for n, c in used.items() if c}}
+    print(f"compat config3: {K} iterations in {cycles} cycles (functional "
+          f"{int(ref.niter)} in {ref_cycles}), rel {rel:.3e} in the "
+          f"M-norm of Ml r ({rel_raw:.3e} unpreconditioned), applications "
+          f"{counts}, model {model}, launches {out['launches']}", flush=True)
+    _converged("config3", sol.resnorms, COMPAT_TOL)
+    if abs(K - int(ref.niter)) > COMPAT_ITER_SLACK or cycles != ref_cycles:
+        raise AssertionError(f"compat config3: {K} iterations / {cycles} "
+                             f"cycles against {int(ref.niter)} / "
+                             f"{ref_cycles}")
+    if not rel <= COMPAT_TRUE_FACTOR * COMPAT_TOL:
+        raise AssertionError(f"compat config3: true residual {rel:.3e}")
+    if (counts["A"], counts["Ml"]) != (want["A"], want["Ml"]):
+        raise AssertionError(f"compat config3: applications {counts}, the "
+                             f"model and restarts give {want}")
+    _check_launch_identity("config3", used, counts, {"Ml": per_vcycle})
+
+    # the first cycle with store_arnoldi: dmgs (in float32 single-pass MGS
+    # loses orthogonality with the Krylov basis's condition), mgs recorded
+    for ortho in ("dmgs", "mgs"):
+        try:
+            g = linsys.Gmres(system(), maxiter=COMPAT_RESTART,
+                             tol=COMPAT_TOL, store_arnoldi=True, ortho=ortho)
+        except ConvergenceError as exc:
+            g = exc.solver
+        ls = g.linear_system
+        hnorm = float(np.linalg.norm(g.H, 2))
+        res = float(utils.arnoldi_res(ls.M * ls.MlAMr, g.V, g.H)) / hnorm
+        eye = torch.eye(g.V.shape[1], dtype=g.V.dtype, device=device)
+        orth = float(utils.norm(eye - utils.inner(g.V, g.P)))
+        out[f"arnoldi_{ortho}"] = {"rel_residual": res, "orthonormality":
+                                   orth, "steps": g.H.shape[1]}
+        print(f"compat config3 first cycle ortho={ortho}: ||M MlAMr V - V "
+              f"H|| / ||H|| = {res:.3e}, ||I - <V, P>|| = {orth:.3e}",
+              flush=True)
+        if ortho == "dmgs" and not (res <= COMPAT_ARNOLDI_TOL
+                                    and orth <= COMPAT_ARNOLDI_TOL):
+            raise AssertionError(f"compat config3 Arnoldi relation: "
+                                 f"{out[f'arnoldi_{ortho}']}")
+    lanes = {"compat": compat, "functional": functional}
+    _compat_timing(f"config3@{nx}", lanes, record["walls_s"])
+    return out, used
+
+
+def _compat_poisson(device):
+    """bench.py's padded Poisson at 1023^2 (padded operator and V-cycle,
+    float32) through ``linsys.Cg`` to ``COMPAT_POISSON_TOL``: the
+    functional ``cg``'s iterations within ``COMPAT_POISSON_SLACK``, and
+    K1 (with its coarse form), K2 and K3 launched; the same pair at
+    ``COMPAT_POISSON_RECORDED_TOL``, recorded."""
+    import torch
+    from krypy_tpu_torch import functional as F, kernels, linsys, ops
+
+    nx = NX
+    lap32 = ops.poisson_2d(nx, pad_cols=True, impl="cuda", device=device)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        device=device)
+    b = ops.pad_grid_vec(torch.ones(nx * nx, dtype=torch.float32,
+                                    device=device), nx, nx)
+
+    def compat(tol=COMPAT_POISSON_TOL):
+        ls = linsys.LinearSystem(lap32, b, M=M, self_adjoint=True,
+                                 positive_definite=True)
+        return linsys.Cg(ls, tol=tol, maxiter=COMPAT_MAXITER)
+
+    def functional(tol=COMPAT_POISSON_TOL):
+        return F.cg(lap32, b, M=M, tol=tol, maxiter=COMPAT_MAXITER)
+
+    compat()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sol = compat()
+    torch.cuda.synchronize()
+    used = kernels.launch_counts()
+    ref = functional()
+    k = len(sol.resnorms) - 1
+    tight = compat(COMPAT_POISSON_RECORDED_TOL)
+    tight_ref = functional(COMPAT_POISSON_RECORDED_TOL)
+    out = {"iterations": k, "functional": int(ref.niter),
+           "launches": {n: c for n, c in used.items() if c},
+           f"at tol {COMPAT_POISSON_RECORDED_TOL}": {
+               "iterations": len(tight.resnorms) - 1,
+               "functional": int(tight_ref.niter),
+               "final": tight.resnorms[-1]}}
+    print(f"compat poisson@{nx}: {k} iterations (functional "
+          f"{int(ref.niter)}), launches {out['launches']}; at tol "
+          f"{COMPAT_POISSON_RECORDED_TOL} {len(tight.resnorms) - 1} "
+          f"(functional {int(tight_ref.niter)}), final relative residual "
+          f"{tight.resnorms[-1]}", flush=True)
+    _converged("poisson", sol.resnorms, COMPAT_POISSON_TOL)
+    if abs(k - int(ref.niter)) > COMPAT_POISSON_SLACK:
+        raise AssertionError(f"compat poisson: {k} iterations against "
+                             f"{int(ref.niter)}")
+    for name in ("stencil5_affine", "stencil5_jacobi2",
+                 "stencil5_resrestrict_rows", "stencil5_coarse"):
+        if used[name] <= 0:
+            raise AssertionError(f"compat poisson: {name} never launched")
+    return out, used, {"compat": compat, "functional": functional}
+
+
+def _compat_deflation(device, record):
+    """(d) convection-diffusion at ``COMPAT_DEFL_NX``^2, float32, ``Ml``
+    the V-cycle: ``DeflatedGmres`` (``store_arnoldi``; ``dmgs``, since the
+    Ritz data need an orthonormal float32 basis) with no U, the harmonic
+    Ritz pairs of the ``COMPAT_DEFL_VECTORS`` values smallest in
+    magnitude, their Gram residual norms against the explicit ones, then
+    the deflated solve with their vectors: no more iterations."""
+    import torch
+    from krypy_tpu_torch import (deflation, functional as F, linsys,
+                                 suite)
+    from krypy_tpu_torch.errors import ConvergenceError
+
+    nx = COMPAT_DEFL_NX
+    cd, Ml, _, _ = suite.config3_pieces(nx, "cuda", device)
+    b32 = torch.ones(nx * nx, dtype=torch.float32, device=device)
+    ls = linsys.LinearSystem(cd, b32, Ml=Ml)
+
+    def solve(U):
+        try:
+            return deflation.DeflatedGmres(
+                ls, U=U, store_arnoldi=True, tol=COMPAT_DEFL_TOL,
+                maxiter=COMPAT_DEFL_MAXITER, ortho="dmgs")
+        except ConvergenceError as exc:
+            return exc.solver
+
+    first = solve(None)
+    ritz = deflation.Ritz(first, mode="harmonic")
+    idx = np.argsort(np.abs(ritz.values))[:COMPAT_DEFL_VECTORS]
+    explicit = ritz.get_explicit_resnorms(idx)
+    gram = ritz.resnorms[idx]
+    rel = np.abs(gram - explicit) / explicit
+    vecs = ritz.get_vectors(idx)
+    imag = float(vecs.imag.abs().max() / vecs.real.abs().max()) \
+        if vecs.is_complex() else 0.0
+    U = vecs.real if vecs.is_complex() else vecs
+    if imag > 1e-6:
+        # a complex pair: its real and imaginary parts span it
+        U = torch.cat([vecs.real, vecs.imag], dim=1)
+    U = U.to(torch.float32).contiguous()
+    second = solve(U)
+    n1, n2 = len(first.resnorms) - 1, len(second.resnorms) - 1
+    out = {"iterations": [n1, n2], "resnorms_final": [first.resnorms[-1],
+                                                       second.resnorms[-1]],
+           "ritz_values": [complex(v) for v in ritz.values[idx]],
+           "ritz_resnorms": gram.tolist(), "explicit": explicit.tolist(),
+           "rel": rel.tolist(), "imag_over_real": imag,
+           "deflation_vectors": U.shape[1]}
+    out["ritz_values"] = [[v.real, v.imag] for v in out["ritz_values"]]
+    print(f"compat deflation@{nx}: {n1} then {n2} iterations with "
+          f"{U.shape[1]} harmonic Ritz vectors; Ritz residual norms {gram} "
+          f"against explicit {explicit} (rel {rel})", flush=True)
+    for what, solver in (("first", first), ("deflated", second)):
+        _converged(f"deflation {what}", solver.resnorms, COMPAT_DEFL_TOL)
+    if n2 > n1:
+        raise AssertionError(f"compat deflation: the deflated solve took "
+                             f"{n2} iterations, the first {n1}")
+    if not np.all(rel <= COMPAT_RITZ_RTOL):
+        raise AssertionError(f"compat Ritz residual norms: rel {rel}")
+    lanes = {
+        "compat": lambda: solve(U),
+        "functional": lambda: F.deflated_gmres(
+            cd, b32, U, Ml=Ml, tol=COMPAT_DEFL_TOL,
+            maxiter=COMPAT_DEFL_MAXITER, ortho="dmgs")}
+    _compat_timing(f"deflation@{nx}", lanes, record["walls_s"])
+    return out
+
+
+def compat_phase(device):
+    """The reference-compatible lane (``--only compat``): (a) the goldens,
+    (b) config 2 and (c) config 3 through ``linsys`` at 4095^2 with the
+    operation-count identity, bench.py's Poisson through ``linsys.Cg``,
+    (d) deflation and Ritz at 1023^2; each timed beside the functional
+    lane on the same pieces.  Prints one JSON line and returns it."""
+    t0 = time.perf_counter()
+    record = {"walls_s": {}}
+    parts, failed = {}, []
+
+    def part(name, fn, *args):
+        """Run one part; a failed gate is recorded and raised after the
+        other parts have run, with every part's failure."""
+        t = time.perf_counter()
+        try:
+            res = fn(*args)
+        except AssertionError as exc:
+            failed.append(f"{name}: {exc}")
+            res = None
+        parts[name] = time.perf_counter() - t
+        print(f"compat {name}: {parts[name]:.1f} s", flush=True)
+        return res
+
+    record["goldens"] = part("goldens", _compat_goldens, device)
+    c2 = part("config2", _compat_config2, device, record)
+    c3 = part("config3", _compat_config3, device, record)
+    poisson = part("poisson", _compat_poisson, device)
+    if poisson is not None:
+        _compat_timing(f"poisson@{NX}", poisson[2], record["walls_s"])
+    record["deflation"] = part("deflation", _compat_deflation, device,
+                               record)
+    record["part_s"] = parts
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    if not failed:
+        record["config2"], record["config3"], record["poisson"] = \
+            c2[0], c3[0], poisson[0]
+        record["launches"] = {
+            f"config2 cg@{BL_NX}": c2[1]["config2 cg"],
+            f"config2 minres@{BL_NX}": c2[1]["config2 minres"],
+            f"config3@{BL_NX}": c3[1], f"poisson@{NX}": poisson[1]}
+    print(json.dumps({"compat": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("compat phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -3902,7 +4511,7 @@ def main(argv=None):
                          "prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
-                             "config5", "mesh", "onereduce"),
+                             "config5", "mesh", "onereduce", "compat"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -3910,7 +4519,10 @@ def main(argv=None):
                          "phase; config 5 with K1's forward-mode "
                          "rule; the mesh phase; or the one-reduce lane: "
                          "the policy constants, the north star's "
-                         "cgs2_1r forms, the pairs' slopes and checks); "
+                         "cgs2_1r forms, the pairs' slopes and checks; "
+                         "or the reference-compatible lane: the goldens, "
+                         "configs 2 and 3 and the padded Poisson through "
+                         "linsys, deflation and Ritz); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -3958,7 +4570,8 @@ def main(argv=None):
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase, "kernels": kernels_phase,
-         "mesh": mesh_phase, "onereduce": onereduce_phase}[args.only](device)
+         "mesh": mesh_phase, "onereduce": onereduce_phase,
+         "compat": compat_phase}[args.only](device)
         return
     report = stencil_phase(device)
     report["coarse"] = coarse_phase(device)
@@ -3988,6 +4601,7 @@ def main(argv=None):
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
     c5_jvp, c5_full, _ = config5_phase(device, smi)
     onered = onereduce_phase(device)
+    compat = compat_phase(device)
     worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
@@ -4072,6 +4686,12 @@ def main(argv=None):
         if name == "stencil5_affine":
             rows[-1][f"launches_config5@{C5_FULL}"] = \
                 c5_full["launches"]["stencil5_affine"]
+        # the reference-compatible lane's runs (compat phase): K1 in configs
+        # 2 and 3 at 4095^2, K1-K3 in bench.py's Poisson through linsys.Cg
+        for run, used in compat["launches"].items():
+            if name == "stencil5_affine" or run.startswith("poisson") and \
+                    name in ("stencil5_jacobi2", "stencil5_resrestrict_rows"):
+                rows[-1][f"launches_compat {run}"] = used[name]
         # the north star's one-reduce forms on the kernel lane
         for label, *_ in OR_NORTHSTAR:
             rows[-1][f"launches_northstar {label}@{NS_NX}"] = \
@@ -4099,8 +4719,8 @@ def main(argv=None):
     rows += _mesh_rows(worlds, report["stencil5_halo"])
     print(json.dumps({"walls_s": {
         label: record[label] for record in (c2_rec, c3_rec)
-        for label in record if str(label).startswith("config")}}),
-        flush=True)
+        for label in record if str(label).startswith("config")},
+        "compat_walls_s": compat["walls_s"]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,14 +24,23 @@ subpackage: dtypes, operators, inner products, QR, rotations, timers),
 and the one-reduce lane (``variant="1r"`` of CG and MINRES, every
 ``ortho`` of GMRES with ``cgs2_1r``, ``ip``, the bfloat16 basis,
 ``functional.FusedDeflation`` and the mesh price model
-``functional.policy``).
+``functional.policy``), and the reference-compatible lane, KryPy's own
+API: ``linsys`` (``LinearSystem``, ``Cg``, ``Minres``, ``Gmres``,
+``RestartedGmres``), ``deflation`` (the deflated solvers and ``Ritz``),
+``arnoldi``, ``core.projections``, ``utils`` and the one-call ``cg``,
+``minres`` and ``gmres``.  That lane takes numpy inputs as the reference
+does and puts them on the card (``device=`` to choose another device);
+its ``Arnoldifyer``, ``bound_pseudo``, ``pseudospectra`` and
+``recycling`` are not ported yet.
 """
 
 from . import config  # noqa: F401  (full-f32 matmul defaults at import)
-from . import (core, errors, functional, kernels, northstar, ops, parallel,
-               spectral, suite)
+from . import (arnoldi, core, deflation, errors, functional, kernels, linsys,
+               northstar, ops, parallel, spectral, suite, utils)
+from ._convenience import cg, gmres, minres
 
 __version__ = "0.1.0"
 
-__all__ = ["core", "errors", "functional", "kernels", "northstar", "ops",
-           "parallel", "spectral", "suite", "__version__"]
+__all__ = ["arnoldi", "core", "errors", "functional", "kernels",
+           "northstar", "ops", "parallel", "spectral", "suite", "linsys",
+           "deflation", "utils", "cg", "minres", "gmres", "__version__"]

@@ -1,5 +1,6 @@
 """Core numerical building blocks (counterpart of :mod:`krypy_tpu.core`):
-dtypes, operators, inner products, QR, rotations and timers.
-``projections`` is not ported yet (ROADMAP.md queue A, A9)."""
+dtypes, operators, inner products, projections, QR, rotations and
+timers."""
 
-from . import dtypes, operators, products, qr, rotations, timers  # noqa: F401
+from . import (dtypes, operators, products, projections, qr,  # noqa: F401
+               rotations, timers)

@@ -83,6 +83,11 @@ def norm(x, y=None, ip_B=None):
         if x.ndim == 1 or (x.ndim == 2 and x.shape[1] == 1):
             # a single column's spectral norm is its 2-norm
             return torch.linalg.vector_norm(x.reshape(-1))
+        if x.shape[0] > x.shape[1]:
+            # a tall block's spectral norm is its triangular factor's: the
+            # SVD then runs on a k x k matrix (cuSOLVER's refuses a block
+            # of ~10^7 rows)
+            x = torch.linalg.qr(x, mode="r")[1]
         return torch.linalg.matrix_norm(x, 2)
     if y is None:
         y = x

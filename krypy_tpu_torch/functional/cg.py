@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .common import (
+    host_vectors,
     CONVERGED,
     MAXITER,
     SolveResult,
@@ -138,6 +139,7 @@ def cg(
 
     Every hook's output is cast to the system dtype.
     """
+    b, x0, exact_solution = host_vectors(b, x0, exact_solution)
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]

@@ -8,8 +8,10 @@ replace exceptions.
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..core.dtypes import asarray
 from ..parallel import active_mesh, all_reduce_sum
 
 #: solve reached the requested tolerance
@@ -42,7 +44,10 @@ class SolveResult(NamedTuple):
 
 def as_matvec(op):
     """Coerce ``op`` into a matvec callable ``(N,) -> (N,)``: ``None``
-    (identity), a 2-D tensor, or a callable."""
+    (identity), a 2-D tensor, a 2-D numpy array (anything with ``ndim``
+    that is not callable, as the JAX package takes it through
+    ``jnp.asarray``; it goes to the device of the first vector it meets,
+    the right-hand side's), or a callable."""
     if op is None:
         return None
     if isinstance(op, torch.Tensor):
@@ -56,9 +61,33 @@ def as_matvec(op):
             return op.to(dt) @ x.to(dt)
 
         return mv
+    if hasattr(op, "ndim") and not callable(op):
+        host = np.asarray(op)
+        if host.ndim != 2:
+            raise ValueError("matrix operator must be 2-D")
+        on = {}
+
+        def mv(x):
+            mat = on.get(x.device)
+            if mat is None:
+                mat = on[x.device] = torch.tensor(host, device=x.device)
+            dt = torch.promote_types(mat.dtype, x.dtype)
+            return mat.to(dt) @ x.to(dt)
+
+        return mv
     if callable(op):
         return op
     raise TypeError(f"cannot interpret operator of type {type(op)}")
+
+
+def host_vectors(b, *vectors):
+    """The right-hand side and the other vectors of a solve (``x0``,
+    ``exact_solution``) as tensors: a numpy ``b`` goes to the default
+    device, ``"cuda"`` (where torch sees no card, this raises: the solvers
+    never carry on on the CPU), the others to ``b``'s device; tensors and
+    ``None`` pass as they are."""
+    b = asarray(b)
+    return (b,) + tuple(asarray(v, device=b.device) for v in vectors)
 
 
 def apply(mv, x):

@@ -90,6 +90,7 @@ from ..kernels.orthogonalize import (
 from ..parallel import active_mesh
 from . import policy
 from .common import (
+    host_vectors,
     BREAKDOWN,
     CONVERGED,
     MAXITER,
@@ -346,6 +347,7 @@ def gmres(
             "the kernel orthogonalization schemes support the Euclidean "
             "inner product only; use ortho='cgs2' or 'bmgs2' with ip")
 
+    b, x0, exact_solution = host_vectors(b, x0, exact_solution)
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .common import (
+    host_vectors,
     BREAKDOWN,
     CONVERGED,
     MAXITER,
@@ -97,6 +98,7 @@ def minres(
       ``status`` is CONVERGED, MAXITER, or BREAKDOWN when the Krylov space
       became invariant short of the tolerance.
     """
+    b, x0, exact_solution = host_vectors(b, x0, exact_solution)
     flat = b.ndim == 1
     bv = b.reshape(-1)
     N = bv.shape[0]

@@ -18,7 +18,10 @@ solve's internals and its records of chosen widths
 (:func:`auto_state_to_numpy`, :func:`auto_state_from_numpy`), since it
 chooses widths from measured walls, which two runs do not share.  The
 data of a fused one-reduce deflation crosses as its numpy rows
-(:func:`fused_deflation_from_numpy`).
+(:func:`fused_deflation_from_numpy`).  A solver of the
+reference-compatible lane (``linsys``, ``deflation``) crosses back as its
+results (:func:`compat_solver_to_numpy`): its inputs come as numpy
+already, so nothing needs carrying in.
 
 On a mesh the numpy value of a sharded JAX array crosses as the rank's
 block (:func:`shard_from_numpy`, the layout of
@@ -34,7 +37,8 @@ from . import parallel
 __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
            "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
            "gather_to_numpy", "nls_to_numpy", "auto_state_to_numpy",
-           "auto_state_from_numpy", "fused_deflation_from_numpy"]
+           "auto_state_from_numpy", "fused_deflation_from_numpy",
+           "compat_solver_to_numpy"]
 
 
 def from_numpy(arr, device):
@@ -45,7 +49,7 @@ def from_numpy(arr, device):
 
 def to_numpy(t):
     """Tensor -> numpy array on the host, same dtype."""
-    return t.detach().cpu().numpy()
+    return t.detach().cpu().resolve_conj().resolve_neg().numpy()
 
 
 def internals_to_numpy(d):
@@ -159,3 +163,25 @@ def fused_deflation_from_numpy(UoT, W2T, G=None, *, device):
 
     return FusedDeflation(UoT=rows(UoT), W2T=rows(W2T),
                           G=None if G is None else rows(G))
+
+
+#: the results of a compatibility-lane solver, as the JAX lane names them
+COMPAT_RESULTS = ("xk", "resnorms", "errnorms", "V", "H", "P")
+
+
+def compat_solver_to_numpy(solver):
+    """The results of a ``linsys``/``deflation`` solver (plain, deflated or
+    restarted) as numpy: ``xk``, ``resnorms``, ``errnorms``, ``V``, ``H``
+    and ``P``; a result the solver does not carry (``errnorms`` without
+    an exact solution, the Krylov data without ``store_arnoldi``) is
+    ``None``.  The JAX lane's solver gives the same dictionary through
+    ``np.asarray`` of each attribute."""
+    out = {}
+    for name in COMPAT_RESULTS:
+        val = getattr(solver, name, None)
+        if isinstance(val, torch.Tensor):
+            val = to_numpy(val)
+        elif val is not None:
+            val = np.asarray(val)
+        out[name] = val
+    return out

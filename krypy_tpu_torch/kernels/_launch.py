@@ -48,6 +48,20 @@ def reset_launch_counts():
             counts[k] = 0
 
 
+def jax_keywords(interpret, axis_name=None):
+    """The JAX package's keywords of a kernel entry: its TPU tiles
+    (``block_rows``, ``block_n``) are accepted and ignored, as the port
+    picks its own launch geometry; ``interpret=True`` asks for the plain
+    version, on any device (``None`` and ``False`` launch the kernel on a
+    CUDA tensor); ``axis_name`` must name the mesh axis ``"n"``, as in
+    :func:`krypy_tpu_torch.parallel.make_mesh` (``ValueError``
+    otherwise).  Returns whether the plain version was asked for."""
+    if axis_name not in (None, "n"):
+        raise ValueError(f"axis_name={axis_name!r}: a mesh of the port is "
+                         "the world's process group on the one axis 'n'")
+    return bool(interpret)
+
+
 def _call(fn_name, args, device):
     """Call the C entry point ``fn_name`` of the kernel library on the
     current stream of ``device``; its CUDA error code."""

@@ -38,7 +38,7 @@ for tensors on the CPU.
 import torch
 
 from ..parallel import all_reduce_sum
-from ._launch import LAUNCHES
+from ._launch import LAUNCHES, jax_keywords
 from ._launch import launch as _launch
 
 __all__ = [
@@ -219,13 +219,16 @@ def cgs_project_torch(V, w, mask, basis, rows):
 # ---------------------------------------------------------------------------
 
 
-def project_prefix(V, w, mask, *, rows=None):
+def project_prefix(V, w, mask, *, rows=None, block_n=32768,
+                   interpret=False):
     """K4: one masked projection sweep over the leading ``rows`` rows of
     ``V``; returns ``c`` of length m (zero past ``rows``).  Counterpart
-    of ``krypy_tpu.kernels.orthogonalize.project_prefix``."""
+    of ``krypy_tpu.kernels.orthogonalize.project_prefix`` (``block_n``,
+    ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`)."""
     mask = _mask(mask, V)
     rows, cuda = _check("project_prefix", V, rows, (w,), (mask,))
-    if not cuda:
+    if jax_keywords(interpret) or not cuda:
         return project_prefix_torch(V, w, mask, rows)
     m, N = V.shape
     blocks, threads = launch_config(N, rows, V.element_size(),
@@ -241,14 +244,17 @@ def project_prefix(V, w, mask, *, rows=None):
     return c
 
 
-def apply_project(V, w, c, mask, *, rows=None):
+def apply_project(V, w, c, mask, *, rows=None, block_n=32768,
+                  interpret=False):
     """K5: the fused update and second projection in ONE sweep of the
     prefix: ``w1 = w - c[:rows]^T V[:rows]``, ``c2 = (conj(V[:rows]) w1)
     * mask``; returns ``(w1, c2)`` with ``c2`` of length m.  Counterpart
-    of ``krypy_tpu.kernels.orthogonalize.apply_project``."""
+    of ``krypy_tpu.kernels.orthogonalize.apply_project`` (``block_n``,
+    ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`)."""
     mask = _mask(mask, V)
     rows, cuda = _check("apply_project", V, rows, (w,), (c, mask))
-    if not cuda:
+    if jax_keywords(interpret) or not cuda:
         return apply_project_torch(V, w, c, mask, rows)
     m, N = V.shape
     blocks, threads = launch_config(N, rows, V.element_size(),
@@ -266,11 +272,13 @@ def apply_project(V, w, c, mask, *, rows=None):
     return w1, c2
 
 
-def update_prefix(V, w, c, *, rows=None):
+def update_prefix(V, w, c, *, rows=None, block_n=32768, interpret=False):
     """K6: ``w - c[:rows]^T V[:rows]`` in one sweep of the prefix.
-    Counterpart of ``krypy_tpu.kernels.orthogonalize.update_prefix``."""
+    Counterpart of ``krypy_tpu.kernels.orthogonalize.update_prefix``
+    (``block_n``, ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`)."""
     rows, cuda = _check("update_prefix", V, rows, (w,), (c,))
-    if not cuda:
+    if jax_keywords(interpret) or not cuda:
         return update_prefix_torch(V, w, c, rows)
     N = V.shape[1]
     blocks, threads = launch_config(N, rows, V.element_size(),
@@ -285,23 +293,30 @@ def update_prefix(V, w, c, *, rows=None):
     return out
 
 
-def cgs2_fused(V, w, mask, *, rows=None):
+def cgs2_fused(V, w, mask, *, rows=None, block_n=32768, interpret=False):
     """Two-pass classical Gram-Schmidt of ``w`` against the leading
     ``rows`` rows of ``V`` in three sweeps (K4 -> K5 -> K6); returns
     ``(w2, c1 + c2)``.  Counterpart of
-    ``krypy_tpu.kernels.orthogonalize.cgs2_fused``."""
-    c1 = project_prefix(V, w, mask, rows=rows)
-    w1, c2 = apply_project(V, w, c1, mask, rows=rows)
-    return update_prefix(V, w1, c2, rows=rows), c1 + c2
+    ``krypy_tpu.kernels.orthogonalize.cgs2_fused`` (``block_n``,
+    ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`)."""
+    kw = dict(rows=rows, interpret=interpret)
+    c1 = project_prefix(V, w, mask, **kw)
+    w1, c2 = apply_project(V, w, c1, mask, **kw)
+    return update_prefix(V, w1, c2, **kw), c1 + c2
 
 
-def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, n=None):
+def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, n=None,
+                       axis_name=None, block_n=32768, interpret=None):
     """K9 under the JAX package's contract: :func:`cgs2_fused_blocks`
     where the global N divides over ``mesh``, else ``ValueError`` with
     the JAX package's wording (its ``shard_map`` takes equal blocks
     only).  ``n`` is the global N; without it the blocks' lengths are
     summed first (one all-reduce more).  Counterpart of
-    ``krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded``."""
+    ``krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded`` (``axis_name``,
+    ``block_n``, ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`)."""
+    plain = jax_keywords(interpret, axis_name)
     if n is None:
         n = int(all_reduce_sum(torch.tensor(V.shape[1], device=V.device),
                                mesh))
@@ -310,10 +325,11 @@ def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, n=None):
             f"N={n} must divide over the mesh size {mesh.size} for the "
             "sharded fused path (cgs2_fused_blocks takes blocks of any "
             "length)")
-    return cgs2_fused_blocks(V, w, mask, mesh=mesh, rows=rows)
+    return cgs2_fused_blocks(V, w, mask, mesh=mesh, rows=rows,
+                             interpret=plain)
 
 
-def cgs2_fused_blocks(V, w, mask, *, mesh, rows=None):
+def cgs2_fused_blocks(V, w, mask, *, mesh, rows=None, interpret=False):
     """K9: :func:`cgs2_fused` on a basis whose columns are split over
     ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`): ``V`` is the
     rank's ``(m, n_loc)`` columns and ``w`` its block, of any length
@@ -327,12 +343,13 @@ def cgs2_fused_blocks(V, w, mask, *, mesh, rows=None):
     and the coefficients, the same on every rank.  On the card ``rows``
     must fit the kernels (:func:`max_rows`), as for :func:`cgs2_fused`.
     On a CUDA tensor it counts one ``cgs2_fused_sharded`` launch beside
-    K4-K6's own."""
-    c1 = all_reduce_sum(project_prefix(V, w, mask, rows=rows), mesh)
-    w1, c2p = apply_project(V, w, c1, mask, rows=rows)
+    K4-K6's own; ``interpret=True`` runs their plain versions."""
+    kw = dict(rows=rows, interpret=interpret)
+    c1 = all_reduce_sum(project_prefix(V, w, mask, **kw), mesh)
+    w1, c2p = apply_project(V, w, c1, mask, **kw)
     c2 = all_reduce_sum(c2p, mesh)
-    w2 = update_prefix(V, w1, c2, rows=rows)
-    if V.is_cuda:
+    w2 = update_prefix(V, w1, c2, **kw)
+    if V.is_cuda and not interpret:
         LAUNCHES["cgs2_fused_sharded"] += 1
     return w2, c1 + c2
 
@@ -352,7 +369,8 @@ def cgs_project_blocks(V, w, mask, basis=None, *, mesh, rows=None):
     return update_prefix(V if basis is None else basis, w, c, rows=rows), c
 
 
-def cgs_project(V, w, mask, basis=None, *, rows=None):
+def cgs_project(V, w, mask, basis=None, *, rows=None, block_n=16384,
+                interpret=False):
     """K7: one classical Gram-Schmidt projection pass over the leading
     ``rows`` rows, ``c = (conj(V[:rows]) w) * mask`` and ``w_orth = w -
     c^T B[:rows]``; returns ``(w_orth, c)`` with ``c`` of length m, zero
@@ -363,7 +381,9 @@ def cgs_project(V, w, mask, basis=None, *, rows=None):
     is K4's sweep (the same coefficient bits as :func:`project_prefix`);
     phase 1 is K6's update or, where N is not a multiple of the 16-byte
     group (4 float32 or 2 float64 columns), an update on K4's grid that
-    reads every row in aligned 16-byte groups shifted across lanes."""
+    reads every row in aligned 16-byte groups shifted across lanes.
+    ``block_n``, ``interpret``: :func:`~krypy_tpu_torch.kernels._launch.
+    jax_keywords`."""
     mask = _mask(mask, V)
     B = V if basis is None else basis
     rows, cuda = _check("cgs_project", V, rows, (w,), (mask,))
@@ -372,7 +392,7 @@ def cgs_project(V, w, mask, basis=None, *, rows=None):
         raise ValueError(
             "cgs_project: basis must be contiguous and match V's shape, "
             f"dtype and device, got {tuple(B.shape)} {B.dtype} {B.device}")
-    if not cuda:
+    if jax_keywords(interpret) or not cuda:
         return cgs_project_torch(V, w, mask, B, rows)
     m, N = V.shape
     blocks, threads = launch_config(N, rows, V.element_size(),

@@ -42,6 +42,7 @@ from ._launch import (  # noqa: F401
     reset_launch_counts,
     tangent_counts,
 )
+from ._launch import jax_keywords
 from ._launch import launch as _launch
 
 __all__ = [
@@ -337,7 +338,7 @@ def _dispatch(x, g, geom, tangent=False):
 
 
 def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
-                    alpha=0.0, beta=0.0):
+                    alpha=0.0, beta=0.0, block_rows=256, interpret=None):
     """K1: ``out = alpha*x + beta*g + Stencil5(x)`` on the ``(nrows,
     ncols)`` logical region of an ``(nx, ny)`` buffer (flat operands),
     exact zeros elsewhere.  ``coeffs = (cc, cu, cd, cl, cr)``.
@@ -347,9 +348,16 @@ def stencil5_affine(x, g=None, *, nx, ny, coeffs, ncols=None, nrows=None,
     ``torch.autograd.forward_ad``): the tangent is one more K1 launch on
     the tangents (:class:`_Affine`), counted as a ``stencil5_affine``
     launch and in ``tangent_counts()``.  Reverse mode raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.
+
+    ``block_rows`` and ``interpret`` are the JAX package's tile and mode
+    keywords (:func:`jax_keywords`)."""
     ncols = ny if ncols is None else ncols
     nrows = nx if nrows is None else nrows
+    if jax_keywords(interpret):
+        return stencil5_affine_torch(
+            x.reshape(nx, ny), None if g is None else g.reshape(nx, ny),
+            coeffs, nrows, ncols, alpha, beta).reshape(-1)
     geom = (nx, ny, tuple(float(c) for c in coeffs), nrows, ncols,
             float(alpha), float(beta))
     return _dispatch(x, g, geom)
@@ -407,12 +415,15 @@ def stencil5_coarse(r, *, nx, ny, coeffs, w, sweeps, ncols=None,
     return out
 
 
-def stencil5_jacobi2(u, g, *, nx, ny, coeffs, w, s=1.0, ncols, nrows):
+def stencil5_jacobi2(u, g, *, nx, ny, coeffs, w, s=1.0, ncols, nrows,
+                     block_rows=64, interpret=None):
     """K2: two damped-Jacobi sweeps ``out = s (v + w (g - A v))`` with
     ``v = u + w (g - A u)`` in one kernel; ``coeffs`` are the operator
     ``A``'s, and ``v`` never goes to device memory.  Counterpart of
-    ``krypy_tpu.kernels.stencil.stencil5_jacobi2``."""
-    if not _check("stencil5_jacobi2", nx, ny, nrows, ncols, u, g):
+    ``krypy_tpu.kernels.stencil.stencil5_jacobi2`` (``block_rows``,
+    ``interpret``: :func:`jax_keywords`)."""
+    if jax_keywords(interpret) or not _check(
+            "stencil5_jacobi2", nx, ny, nrows, ncols, u, g):
         return stencil5_jacobi2_torch(
             u.reshape(nx, ny), g.reshape(nx, ny), coeffs, w, s, nrows,
             ncols,
@@ -429,16 +440,19 @@ def stencil5_jacobi2(u, g, *, nx, ny, coeffs, w, s=1.0, ncols, nrows):
     return out
 
 
-def stencil5_resrestrict_rows(u, g, *, nx, ny, coeffs, ncols, nrows):
+def stencil5_resrestrict_rows(u, g, *, nx, ny, coeffs, ncols, nrows,
+                              block_rows=64, interpret=None):
     """K3: residual ``res = g + Stencil5(u)`` (pass NEGATED operator
     coefficients) and full-weighting row restriction into a flat
     ``(nx//2 * ny,)`` output, zero off the coarse logical region.
     Counterpart of
-    ``krypy_tpu.kernels.stencil.stencil5_resrestrict_rows``."""
+    ``krypy_tpu.kernels.stencil.stencil5_resrestrict_rows``
+    (``block_rows``, ``interpret``: :func:`jax_keywords`)."""
     if nx % 2 != 0:
         raise ValueError(f"stencil5_resrestrict_rows: nx must be even, "
                          f"got {nx}")
-    if not _check("stencil5_resrestrict_rows", nx, ny, nrows, ncols, u, g):
+    if jax_keywords(interpret) or not _check(
+            "stencil5_resrestrict_rows", nx, ny, nrows, ncols, u, g):
         return stencil5_resrestrict_rows_torch(
             u.reshape(nx, ny), g.reshape(nx, ny), coeffs, nrows, ncols,
         ).reshape(-1)
@@ -452,45 +466,55 @@ def stencil5_resrestrict_rows(u, g, *, nx, ny, coeffs, ncols, nrows):
     return out
 
 
-def stencil5_pipelined(x, *, nx, ny, coeffs):
+def stencil5_pipelined(x, *, nx, ny, coeffs, block_rows=256,
+                       interpret=None):
     """K1 as the matvec of an unpadded ``nx x ny`` Dirichlet grid (flat
     operand; the logical region is the whole buffer).  Counterpart of
     ``krypy_tpu.kernels.stencil.stencil5_pipelined``; launches K1 and
-    counts as one ``stencil5_affine`` launch."""
-    return stencil5_affine(x, nx=nx, ny=ny, coeffs=coeffs)
+    counts as one ``stencil5_affine`` launch (``block_rows``,
+    ``interpret``: :func:`jax_keywords`)."""
+    return stencil5_affine(x, nx=nx, ny=ny, coeffs=coeffs,
+                           interpret=interpret)
 
 
-def laplacian_2d_pipelined(x, *, nx, ny, hx2=None, hy2=None):
+def laplacian_2d_pipelined(x, *, nx, ny, block_rows=256, hx2=None,
+                           hy2=None, interpret=None):
     """5-point Dirichlet Laplacian through :func:`stencil5_pipelined`.
-    Counterpart of ``krypy_tpu.kernels.stencil.laplacian_2d_pipelined``."""
+    Counterpart of ``krypy_tpu.kernels.stencil.laplacian_2d_pipelined``
+    (``block_rows``, ``interpret``: :func:`jax_keywords`)."""
     hx2 = (1.0 / (nx + 1)) ** 2 if hx2 is None else hx2
     hy2 = (1.0 / (ny + 1)) ** 2 if hy2 is None else hy2
     return stencil5_pipelined(
         x, nx=nx, ny=ny,
         coeffs=(2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2, -1.0 / hy2,
                 -1.0 / hy2),
+        interpret=interpret,
     )
 
 
-def laplacian_2d_kernel(x, *, nx, ny, hx2=None, hy2=None):
+def laplacian_2d_kernel(x, *, nx, ny, block_rows=256, hx2=None, hy2=None,
+                        interpret=False):
     """K10: the Dirichlet 5-point Laplacian of the flat vector ``x`` (grid
     ``nx`` x ``ny``) through K1.  Counterpart of
-    ``krypy_tpu.kernels.stencil.laplacian_2d_kernel``, whose row-block
-    argument and ``nx % 8`` rule belong to its TPU tiling and are not
-    carried over; counts as one ``stencil5_affine`` launch."""
-    return laplacian_2d_pipelined(x, nx=nx, ny=ny, hx2=hx2, hy2=hy2)
+    ``krypy_tpu.kernels.stencil.laplacian_2d_kernel``, whose row block
+    (``block_rows``, accepted and ignored) and ``nx % 8`` rule belong to
+    its TPU tiling and are not carried over; counts as one
+    ``stencil5_affine`` launch (``interpret``: :func:`jax_keywords`)."""
+    return laplacian_2d_pipelined(x, nx=nx, ny=ny, hx2=hx2, hy2=hy2,
+                                  interpret=interpret)
 
 
-def laplacian_2d(nx, ny=None, device="cuda"):
+def laplacian_2d(nx, ny=None, block_rows=256, interpret=False, *,
+                 device="cuda"):
     """Operator constructor over :func:`laplacian_2d_kernel`: a matvec
     closure with ``.shape`` and ``.diag`` (drop-in for
     :func:`krypy_tpu_torch.ops.poisson_2d`).  Counterpart of
-    ``krypy_tpu.kernels.stencil.laplacian_2d``; ``device`` places
-    ``.diag``."""
+    ``krypy_tpu.kernels.stencil.laplacian_2d``, in its positional order;
+    ``device`` places ``.diag``."""
     ny = nx if ny is None else ny
 
     def matvec(x):
-        return laplacian_2d_kernel(x, nx=nx, ny=ny)
+        return laplacian_2d_kernel(x, nx=nx, ny=ny, interpret=interpret)
 
     matvec.shape = (nx * ny, nx * ny)
     hx2 = (1.0 / (nx + 1)) ** 2
@@ -622,7 +646,8 @@ def stencil5_sharded_torch(x, *, nx, ny, coeffs, mesh):
 
 
 def stencil5_sharded(x, *, nx, ny, coeffs, mesh, overlap=None,
-                     mapped=None):
+                     mapped=None, axis_name=None, block_rows=256,
+                     interpret=None):
     """K8: the 5-point Dirichlet matvec of an ``nx x ny`` grid whose rows
     are split over ``mesh`` (a :class:`krypy_tpu_torch.parallel.Mesh`;
     ``nx`` divisible by its size, else ``ValueError``): ``x`` is the
@@ -639,11 +664,13 @@ def stencil5_sharded(x, *, nx, ny, coeffs, mesh, overlap=None,
     CUDA tensor it counts one ``stencil5_sharded`` launch per call and
     each kernel launch as a ``stencil5_affine`` one, and it launches or
     raises; on a CPU tensor it is :func:`stencil5_sharded_torch`.  The
-    operand is checked before the exchange is posted."""
+    operand is checked before the exchange is posted.  ``axis_name``,
+    ``block_rows`` and ``interpret``: :func:`jax_keywords`."""
     overlap = K8_OVERLAP if overlap is None else overlap
     mapped = K8_MAPPED if mapped is None else mapped
+    plain = jax_keywords(interpret, axis_name)
     nx_loc = _block_rows(nx, x, ny, mesh)
-    if not _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x):
+    if plain or not _check("stencil5_sharded", nx_loc, ny, nx_loc, ny, x):
         return stencil5_sharded_torch(x, nx=nx, ny=ny, coeffs=coeffs,
                                       mesh=mesh)
     u = x.view(nx_loc, ny)

@@ -87,22 +87,40 @@ def reset_collective_counts():
         COLLECTIVES[k] = 0
 
 
-def init_distributed(init_method=None, world_size=None, rank=None,
-                     backend=None, timeout=None, local_device_count=None):
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None, backend=None, timeout=None,
+                     local_device_count=None, *, init_method=None,
+                     world_size=None, rank=None):
     """Join this process to the world: a wrapper of
-    ``dist.init_process_group``.  ``backend`` defaults to NCCL where torch
-    sees a CUDA device and gloo elsewhere; ``timeout`` (seconds) bounds
-    every collective.  ``init_method``, ``world_size`` and ``rank`` default
-    to torch's environment variables (what ``torchrun`` sets).
+    ``dist.init_process_group`` that takes the JAX package's keywords.
 
-    ``local_device_count`` (the JAX package's count of virtual XLA
-    devices) has no counterpart, a rank being one process: passing it
-    raises ``ValueError``."""
+    :param coordinator_address: ``"host:port"`` of rank 0 (the JAX
+      package's), which becomes ``tcp://host:port``, or a URL torch takes
+      as its ``init_method`` (``tcp://``, ``file://``, ``env://``).
+    :param num_processes: the world size (``world_size``).
+    :param process_id: this process's rank (``rank``).
+    :param backend: defaults to NCCL where torch sees a CUDA device and
+      gloo elsewhere.
+    :param timeout: seconds; bounds every collective.
+    :param local_device_count: the JAX package's count of virtual XLA
+      devices; it has no counterpart, a rank being one process: passing
+      it raises ``ValueError``.
+
+    ``init_method``, ``world_size`` and ``rank`` are torch's names for
+    the first three, keyword-only; unset, all three default to torch's
+    environment variables (what ``torchrun`` sets)."""
     if local_device_count is not None:
         raise ValueError(
             "local_device_count has no counterpart in the port: a mesh is "
             "a process group with one process per shard; start that many "
             "ranks instead")
+    init_method = _merge("coordinator_address", coordinator_address,
+                         "init_method", init_method)
+    if init_method is not None and "://" not in init_method:
+        init_method = f"tcp://{init_method}"
+    world_size = _merge("num_processes", num_processes, "world_size",
+                        world_size)
+    rank = _merge("process_id", process_id, "rank", rank)
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     kwargs = {}
@@ -112,6 +130,14 @@ def init_distributed(init_method=None, world_size=None, rank=None,
                             world_size=-1 if world_size is None
                             else world_size,
                             rank=-1 if rank is None else rank, **kwargs)
+
+
+def _merge(jax_name, jax_value, torch_name, torch_value):
+    """One argument given under the JAX package's name or torch's."""
+    if jax_value is not None and torch_value is not None:
+        raise TypeError(f"init_distributed: {jax_name} and {torch_name} "
+                        "name the same argument; pass one")
+    return torch_value if jax_value is None else jax_value
 
 
 class Mesh:

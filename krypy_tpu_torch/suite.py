@@ -42,7 +42,7 @@ from . import functional as F, interop, ops
 __all__ = ["SIGMA", "SIGMAS", "N_VECTORS", "INNER_TOL", "RESTART", "TOL",
            "kappa_bound", "make_config4", "recycling_sequence",
            "config1_readme_gmres", "config2_weights", "make_config2",
-           "make_config3", "config5_nls_newton_recycling"]
+           "config3_pieces", "make_config3", "config5_nls_newton_recycling"]
 
 #: the shift of config 4
 SIGMA = 200.0
@@ -284,18 +284,13 @@ def make_config2(nx, impl, device="cuda", dtype=torch.float32):
     return A, A64, M, ip, b, solves
 
 
-def make_config3(nx, impl, ortho, device="cuda", dtype=torch.float32):
-    """Config 3 on an ``nx``-grid: ``-Lap u + (1, 0.5) . grad u = 1``
-    (upwind, Dirichlet) by restarted GMRES(30) with ``max_restarts=10``
-    and ``compiled=True``, ``Ml`` the unpadded V-cycle of the Laplacian
-    (coarsest 31, 60 coarse sweeps), ``M = (1 + h^2 / 2) I`` (so the
-    basis is ``V = M P``) and ``Mr`` Jacobi with ``4 / h^2``, inner
-    tolerance 1e-4, in float64 refinement to ``TOL``.  ``impl="cuda"``
-    runs K1 in the float32 matvec and the V-cycle, ``ortho`` is GMRES's
-    scheme (``"cgs2_pallas"`` runs K7 along the dual basis ``P``);
-    ``dtype`` the inner arithmetic.  Returns ``(solve, A64)``:
-    ``solve(b) -> (result, info)`` with ``solve.inner`` the restarted
-    solve, ``A64`` the operator (float64 in, float64 out)."""
+def config3_pieces(nx, impl, device="cuda"):
+    """Config 3's operator and preconditioners on an ``nx``-grid, as
+    :func:`make_config3` uses them: ``(cd, Ml, M, Mr)``, the upwind
+    convection-diffusion matvec, the unpadded V-cycle of the Laplacian
+    (coarsest 31, 60 coarse sweeps), ``M = (1 + h^2 / 2) I`` and ``Mr``
+    Jacobi with ``4 / h^2``, each a matvec callable; ``impl="cuda"`` runs
+    K1 in the float32 matvec and the V-cycle."""
     device = ops._device(device)
     cd = ops.convection_diffusion_2d(nx, impl=impl, device=device)
     Ml = ops.multigrid_poisson_preconditioner(
@@ -308,6 +303,22 @@ def make_config3(nx, impl, ortho, device="cuda", dtype=torch.float32):
     Mr = ops.jacobi_preconditioner(torch.full((N,), 4.0 / h2,
                                               dtype=torch.float32,
                                               device=device))
+    return cd, Ml, M, Mr
+
+
+def make_config3(nx, impl, ortho, device="cuda", dtype=torch.float32):
+    """Config 3 on an ``nx``-grid: ``-Lap u + (1, 0.5) . grad u = 1``
+    (upwind, Dirichlet) by restarted GMRES(30) with ``max_restarts=10``
+    and ``compiled=True``, ``Ml`` the unpadded V-cycle of the Laplacian
+    (coarsest 31, 60 coarse sweeps), ``M = (1 + h^2 / 2) I`` (so the
+    basis is ``V = M P``) and ``Mr`` Jacobi with ``4 / h^2``, inner
+    tolerance 1e-4, in float64 refinement to ``TOL``.  ``impl="cuda"``
+    runs K1 in the float32 matvec and the V-cycle, ``ortho`` is GMRES's
+    scheme (``"cgs2_pallas"`` runs K7 along the dual basis ``P``);
+    ``dtype`` the inner arithmetic.  Returns ``(solve, A64)``:
+    ``solve(b) -> (result, info)`` with ``solve.inner`` the restarted
+    solve, ``A64`` the operator (float64 in, float64 out)."""
+    cd, Ml, M, Mr = config3_pieces(nx, impl, device)
 
     def inner(rr):
         return F.restarted_gmres(

@@ -243,3 +243,36 @@ def test_cg_unported_options_raise():
         F.cg(A, b, variant="pipelined")
     with pytest.raises(TypeError):
         F.cg(A, b, ip=3.0)
+
+
+@pytest.mark.parametrize("solver", ["cg", "minres", "gmres"])
+def test_solvers_take_numpy_operands(solver):
+    """The JAX package's solvers take numpy operands: ``A``, ``M`` and
+    ``ip`` as numpy matrices, ``x0`` as a numpy vector (an 8x8 diagonal
+    float64 system, tol 1e-10).  The port's do too, a numpy matrix or
+    ``x0`` going to the device of ``b`` (a CPU tensor here): the same
+    status, iterations and ``x`` to 1e-12."""
+    d = np.linspace(1.0, 8.0, 8)
+    A = np.diag(d)
+    M = np.diag(1.0 / np.sqrt(d))
+    ip = np.diag(np.linspace(1.0, 2.0, 8))
+    b = np.ones(8)
+    x0 = np.full(8, 0.1)
+    kw = dict(M=M, ip=ip, x0=x0, tol=1e-10)
+    rj = getattr(JF, solver)(A, b, **kw)
+    rt = getattr(F, solver)(A, _t(b), **kw)
+    assert int(rt.status) == int(rj.status) == JF.CONVERGED
+    assert int(rt.niter) == int(rj.niter)
+    xj = np.asarray(rj.x)
+    assert np.linalg.norm(interop.to_numpy(rt.x) - xj) <= \
+        1e-12 * np.linalg.norm(xj)
+    assert rt.x.device.type == "cpu"
+
+
+def test_numpy_rhs_goes_to_the_card():
+    """A numpy ``b`` goes to the default device, the card: without one
+    the solver raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        F.cg(np.eye(4), np.ones(4))

@@ -1301,3 +1301,172 @@ def test_bf16_basis_on_the_card(cuda_device, ortho):
                    tol=0.0, maxiter=40, ortho=ortho)
     assert max(rels) < 5e-2 and 0.5 < rels[0] / rels[1] < 2.0
     assert true_rel(full.x) < rels[0]
+
+
+# ---------------------------------------------------------------------------
+# the reference-compatible lane (linsys, deflation, the one-call functions)
+# and the JAX package's keywords
+# ---------------------------------------------------------------------------
+
+_COMPAT_GOLDEN = {
+    "cg": (1004.1873775173957, 1000.0003174916551, 999.9999999997555),
+    "gmres": (1004.1873724888546, 1000.0003124630923, 999.999994971191),
+    "minres": (1004.187372488912, 1000.0003124632159, 999.9999949713145),
+}
+
+
+@pytest.mark.parametrize("method", sorted(_COMPAT_GOLDEN))
+def test_compat_goldens_on_the_card(cuda_device, method):
+    """The one-call functions on the README system, numpy in: the
+    solution is a CUDA tensor of b's shape with BASELINE.md's goldens to
+    1e-11."""
+    import krypy_tpu_torch
+
+    A = np.diag([1.0e-3] + list(range(2, 101)))
+    b = np.ones(100)
+    sol, _ = getattr(krypy_tpu_torch, method)(A, b,
+                                              inner_product=torch.dot)
+    assert sol.is_cuda and tuple(sol.shape) == b.shape
+    x = interop.to_numpy(sol)
+    got = (np.sum(np.abs(x)), np.sqrt(x @ x), np.max(np.abs(x)))
+    for g, r in zip(got, _COMPAT_GOLDEN[method]):
+        assert abs(g - r) < 1e-11 * r
+
+
+def _compat_run(cls, ls, **kw):
+    from krypy_tpu_torch.errors import ConvergenceError
+
+    try:
+        return cls(ls, **kw)
+    except ConvergenceError as exc:
+        return exc.solver
+
+
+@pytest.mark.parametrize("name", ["Cg", "Gmres"])
+def test_compat_lane_through_k1_matches_plain(cuda_device, name):
+    """``linsys.Cg`` and ``linsys.Gmres`` on a 255^2 Laplacian with the
+    unpadded V-cycle, float32: through K1 (``impl="cuda"``) and on the
+    plain operators, equal iterations to 1e-4; at a fixed count of
+    steps the kernel lane's x within the FMA rule of the plain lane's
+    (against the plain lane in float64)."""
+    from krypy_tpu_torch import linsys
+
+    nx = 255
+    cls = getattr(linsys, name)
+    flags = dict(self_adjoint=True, positive_definite=True)
+    slot = "M" if name == "Cg" else "Ml"
+    runs = {}
+    for impl in ("cuda", "torch"):
+        A = ops.poisson_2d(nx, impl=impl, device=cuda_device)
+        P = ops.multigrid_poisson_preconditioner(nx, coarsest=31,
+                                                 impl=impl,
+                                                 device=cuda_device)
+        P.shape = A.shape
+        for dt in (torch.float32, torch.float64):
+            b = torch.ones(nx * nx, dtype=dt, device=cuda_device)
+            ls = linsys.LinearSystem(A, b, **{slot: P}, **flags)
+            kernels.reset_launch_counts()
+            conv = _compat_run(cls, ls, tol=1e-4, maxiter=50)
+            fixed = _compat_run(cls, ls, tol=0.0, maxiter=6)
+            runs[impl, dt] = (len(conv.resnorms) - 1,
+                              fixed.xk[:, 0].double(),
+                              kernels.launch_counts())
+    (kc, xk, lk), (pc, xp, lp) = runs["cuda", torch.float32], \
+        runs["torch", torch.float32]
+    assert kc == pc and lk["stencil5_affine"] > 0
+    assert not any(lp.values())
+    want64 = runs["torch", torch.float64][1]
+    torch.testing.assert_close(xk, xp, rtol=2e-6,
+                               atol=fma_atol(xp, want64))
+
+
+def test_compat_deflated_cg_on_the_card(cuda_device):
+    """``deflation.DeflatedCg`` with U through K1 against its plain lane:
+    equal iterations, the same iterate to 1e-5, E and C on the card."""
+    from krypy_tpu_torch import deflation, linsys
+
+    nx = 63
+    rng = np.random.default_rng(3)
+    U = rng.standard_normal((nx * nx, 2)).astype(np.float32)
+    out = {}
+    for impl in ("cuda", "torch"):
+        A = ops.poisson_2d(nx, impl=impl, device=cuda_device)
+        d = A.diag.float()
+        ls = linsys.LinearSystem(
+            A, torch.ones(nx * nx, device=cuda_device),
+            M=ops.diagonal(1.0 / d), Minv=ops.diagonal(d),
+            self_adjoint=True, positive_definite=True)
+        kernels.reset_launch_counts()
+        sol = _compat_run(deflation.DeflatedCg, ls, U=U, tol=1e-4,
+                          maxiter=300, store_arnoldi=True)
+        out[impl] = (sol, kernels.launch_counts())
+    (sk, lk), (sp, lp) = out["cuda"], out["torch"]
+    assert len(sk.resnorms) == len(sp.resnorms)
+    assert sk.xk.is_cuda and sk.E.is_cuda and sk.C.is_cuda
+    assert lk["stencil5_affine"] > 0 and not any(lp.values())
+    assert float(torch.linalg.vector_norm(sk.xk - sp.xk)) <= \
+        1e-5 * float(torch.linalg.vector_norm(sp.xk))
+
+
+def test_numpy_operands_land_on_the_card(cuda_device):
+    """The functional solvers with numpy ``A``, ``M``, ``ip``, ``b`` and
+    ``x0``: ``b`` goes to the card, the rest to ``b``'s device."""
+    d = np.linspace(1.0, 8.0, 8)
+    kw = dict(M=np.diag(1.0 / np.sqrt(d)), ip=np.diag(np.linspace(1, 2, 8)),
+              x0=np.zeros(8), tol=1e-10)
+    for solver in (F.cg, F.minres, F.gmres):
+        res = solver(np.diag(d), np.ones(8), **kw)
+        assert res.x.is_cuda and int(res.status) == F.CONVERGED
+        np.testing.assert_allclose(interop.to_numpy(res.x), 1.0 / d,
+                                   rtol=1e-9)
+
+
+def test_jax_tile_keywords_launch_the_kernels(cuda_device):
+    """The entries take the JAX package's tile keywords (ignored) and
+    launch their kernels; ``interpret=True`` runs the plain version and
+    launches nothing."""
+    rng = np.random.default_rng(9)
+    x, R, P = _padded_noise(rng, 9, 120, cuda_device)
+    kw = dict(nx=R, ny=P, coeffs=(4.0, -1.0, -1.0, -1.0, -1.0), ncols=120,
+              nrows=9)
+    kernels.reset_launch_counts()
+    y = kernels.stencil5_affine(x, block_rows=64, interpret=False, **kw)
+    assert kernels.launch_counts()["stencil5_affine"] == 1
+    kernels.reset_launch_counts()
+    yp = kernels.stencil5_affine(x, block_rows=64, interpret=True, **kw)
+    assert not any(kernels.launch_counts().values())
+    torch.testing.assert_close(y, yp, rtol=2e-6, atol=fma_atol(
+        yp, kst.stencil5_affine_torch(x.double().view(R, P), None,
+                                      kw["coeffs"], 9, 120).reshape(-1)))
+    V = torch.randn(8, 4096, device=cuda_device)
+    w = torch.randn(4096, device=cuda_device)
+    kernels.reset_launch_counts()
+    korth.project_prefix(V, w, torch.ones(8, device=cuda_device), rows=4,
+                         block_n=512)
+    korth.cgs_project(V, w, torch.ones(8, device=cuda_device),
+                      block_n=512)
+    lap = kernels.laplacian_2d(64, 64, 256, False, device=cuda_device)
+    lap(torch.ones(64 * 64, device=cuda_device))
+    counts = kernels.launch_counts()
+    assert counts["project_prefix"] == 1 and counts["cgs_project"] == 1
+    assert counts["stencil5_affine"] == 1
+
+
+def test_init_distributed_jax_keywords_on_nccl(cuda_device):
+    """A one-rank NCCL world joined with the JAX package's keywords
+    (``coordinator_address="host:port"``, ``num_processes``,
+    ``process_id``), and an all-reduce on the card."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    parallel.init_distributed(coordinator_address=f"127.0.0.1:{port}",
+                              num_processes=1, process_id=0,
+                              backend="nccl", timeout=60)
+    try:
+        mesh = parallel.make_mesh(1, device=cuda_device)
+        s = parallel.all_reduce_sum(torch.ones(3, device=cuda_device), mesh)
+        assert s.is_cuda and s.tolist() == [1.0, 1.0, 1.0]
+    finally:
+        torch.distributed.destroy_process_group()

@@ -302,3 +302,50 @@ def test_prefix_check_passes_reordered_sums_and_rejects_faults(dtype):
     assert check.failures(plain) == [] and check.failures(got) == []
     assert check.assert_faults_caught(got) == (
         8 if dtype == torch.float64 else 6)
+
+
+@pytest.mark.parametrize("entry", ["project_prefix", "apply_project",
+                                   "update_prefix", "cgs2_fused",
+                                   "cgs_project"])
+def test_entries_take_the_jax_keywords(entry):
+    """The prefix entries take the JAX package's ``block_n`` (a TPU tile:
+    accepted and ignored) and ``interpret`` (True: the plain version); on
+    CPU tensors each mode gives the JAX entry's result, interpreted."""
+    rng = np.random.default_rng(5)
+    m, N, rows = 6, 512, 4
+    V = rng.standard_normal((m, N))
+    V /= np.linalg.norm(V, axis=1, keepdims=True)
+    w = rng.standard_normal(N)
+    c = rng.standard_normal(m)
+    mask = (np.arange(m) < rows).astype(np.float64)
+    j = jnp.asarray
+    jax_args = {
+        "project_prefix": ((j(V), j(w), j(mask)), dict(rows=rows)),
+        "apply_project": ((j(V), j(w), j(c), j(mask)), dict(rows=rows)),
+        "update_prefix": ((j(V), j(w), j(c)), dict(rows=rows)),
+        "cgs2_fused": ((j(V), j(w), j(mask)), dict(rows=rows)),
+        "cgs_project": ((j(V), j(w), j(mask)), {}),
+    }[entry]
+    want = getattr(jorth, entry)(*jax_args[0], block_n=128, interpret=True,
+                                 **jax_args[1])
+    t = [interop.from_numpy(np.asarray(a), "cpu") for a in jax_args[0]]
+    for it in (False, True):
+        got = getattr(orth, entry)(*t, block_n=128, interpret=it,
+                                   **jax_args[1])
+        for g, wv in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_allclose(interop.to_numpy(g), np.asarray(wv),
+                                       rtol=0, atol=1e-12)
+
+
+def test_sharded_entry_checks_axis_name():
+    """K9's entry checks ``axis_name`` as ``make_mesh`` does: ``"n"`` or
+    None, else ``ValueError``, before any collective."""
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(size=1, rank=0, device=torch.device("cpu"))
+    V = torch.eye(2, 4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="axis"):
+        orth.cgs2_fused_sharded(V, torch.ones(4, dtype=torch.float64),
+                                torch.ones(2), mesh=mesh, n=4,
+                                axis_name="x", block_n=128)

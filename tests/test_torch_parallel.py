@@ -963,6 +963,58 @@ def test_init_distributed_rejects_local_device_count():
         parallel.init_distributed(local_device_count=2)
 
 
+@pytest.mark.parametrize("args,kwargs,want", [
+    ((), dict(coordinator_address="10.0.0.1:1234", num_processes=4,
+              process_id=2), ("tcp://10.0.0.1:1234", 4, 2)),
+    (("localhost:5", 2, 1), {}, ("tcp://localhost:5", 2, 1)),
+    (("file:///tmp/x", 3, 0), {}, ("file:///tmp/x", 3, 0)),
+    ((), dict(init_method="tcp://h:7", world_size=2, rank=1),
+     ("tcp://h:7", 2, 1)),
+    ((), {}, (None, -1, -1)),
+])
+def test_init_distributed_takes_the_jax_keywords(monkeypatch, args, kwargs,
+                                                 want):
+    """The JAX package's ``coordinator_address`` (``"host:port"``, which
+    becomes ``tcp://host:port``), ``num_processes`` and ``process_id``,
+    by keyword or position, map to torch's ``init_method``, ``world_size``
+    and ``rank``, which stay as keyword extras; a URL passes as it is."""
+    seen = {}
+
+    def fake(backend, init_method=None, world_size=-1, rank=-1, **kw):
+        seen.update(backend=backend, got=(init_method, world_size, rank))
+
+    monkeypatch.setattr(parallel.dist, "init_process_group", fake)
+    parallel.init_distributed(*args, backend="gloo", **kwargs)
+    assert seen == {"backend": "gloo", "got": want}
+    with pytest.raises(TypeError, match="same argument"):
+        parallel.init_distributed("a:1", rank=0, process_id=0)
+
+
+def test_init_distributed_jax_keywords_start_a_world(tmp_path):
+    """One gloo rank started with the JAX package's keywords over
+    ``tcp://127.0.0.1`` and a free port: the world has one rank, and a
+    mesh's all-reduce runs on it."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = (
+        "import torch\n"
+        "from krypy_tpu_torch import parallel\n"
+        f"parallel.init_distributed(coordinator_address='127.0.0.1:{port}',"
+        " num_processes=1, process_id=0, backend='gloo', timeout=60)\n"
+        "mesh = parallel.make_mesh(1, device='cpu')\n"
+        "s = parallel.all_reduce_sum(torch.ones(3), mesh)\n"
+        "assert s.tolist() == [1.0, 1.0, 1.0]\n"
+        "print('world', mesh.size, mesh.rank, flush=True)\n"
+        "torch.distributed.destroy_process_group()\n")
+    logs = parallel.launch_ranks(
+        lambda r: [sys.executable, "-c", code], 1, tmp_path, 120,
+        env={"PYTHONPATH": str(ROOT)})
+    assert "world 1 0" in logs[0]
+
+
 def test_parallel_imports_without_jax():
     """The port's package, its mesh layer included, imports in an
     interpreter where ``jax`` and ``krypy_tpu`` cannot be imported."""

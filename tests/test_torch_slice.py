@@ -10,6 +10,7 @@ the inner iteration counts may move by one or two under the
 move, and both solves must reach the float64 target.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -147,3 +148,50 @@ def test_port_sources_import_no_jax(name):
         with open(p) as fh:
             bad = [ln.strip() for ln in fh if pattern.match(ln)]
         assert not bad, f"{p}: {bad}"
+
+
+def _jax_imports(tree):
+    """The imports of ``jax`` or the JAX package in a module's AST: import
+    statements at any depth, and ``__import__``/``import_module`` calls
+    with a literal name."""
+    def banned(name):
+        return name == "jax" or name.startswith("jax.") or \
+            name == "krypy_tpu" or name.startswith("krypy_tpu.")
+
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if banned(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and banned(node.module):
+                found.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("__import__", "import_module") and banned(
+                    node.args[0].value):
+                found.append(node.args[0].value)
+    return found
+
+
+@pytest.mark.parametrize("name", ["krypy_tpu_torch", "chip_smoke.py"])
+def test_port_sources_import_no_jax_by_ast(name):
+    """Walking the AST of every module of the port (the reference-
+    compatible lane's ``linsys``, ``deflation``, ``arnoldi``, ``utils``,
+    ``_convenience`` and ``core.projections`` among them) and of the chip
+    smoke script finds no import of jax or the JAX package."""
+    root = os.path.join(REPO, name)
+    paths = ([os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+              if f.endswith(".py")] if os.path.isdir(root) else [root])
+    names = {os.path.relpath(p, REPO) for p in paths}
+    if name == "krypy_tpu_torch":
+        assert {f"krypy_tpu_torch/{m}.py" for m in (
+            "linsys", "deflation", "arnoldi", "_convenience",
+            "utils/__init__", "core/projections")} <= names
+    for p in paths:
+        with open(p) as fh:
+            tree = ast.parse(fh.read(), p)
+        assert not _jax_imports(tree), (p, _jax_imports(tree))

@@ -395,3 +395,76 @@ def test_halo_wrapper_rejects_bad_rows():
         tst._halo_ptr(good, torch.zeros(32, device="meta"), 8)
     with pytest.raises(RuntimeError):
         tst.stencil5_halo(x, short, None, nx=4, ny=8, coeffs=COEFFS)
+
+
+def _jax_keyword_cases(rng):
+    """Each stencil entry called with the JAX package's tile and mode
+    keywords, as ``(name, port call, JAX call)`` on one set of inputs."""
+    nx, ny = 9, 120
+    u, R, P = _padded_noise(rng, nx, ny, np.float32)
+    g, _, _ = _padded_noise(rng, nx, ny, np.float32)
+    n, lapc, w = _poisson255()
+    u2, R2, P2 = _padded_noise(rng, n, n, np.float32)
+    g2, _, _ = _padded_noise(rng, n, n, np.float32)
+    lap = np.asarray(rng.standard_normal(16 * 128), np.float32)
+    t, j = (lambda a: interop.from_numpy(a, "cpu")), jnp.asarray
+    aff = dict(nx=R, ny=P, coeffs=COEFFS, ncols=ny, nrows=nx, alpha=0.5,
+               beta=0.25, block_rows=8)
+    jac = dict(nx=R2, ny=P2, coeffs=lapc, w=w, s=1.0, ncols=n, nrows=n,
+               block_rows=16)
+    rr = dict(nx=R2, ny=P2, coeffs=tuple(-c for c in lapc), ncols=n,
+              nrows=n, block_rows=16)
+    pipe = dict(nx=R, ny=P, coeffs=COEFFS, block_rows=8)
+    lkw = dict(nx=16, ny=128, block_rows=8)
+    return [
+        ("stencil5_affine",
+         lambda it: tst.stencil5_affine(t(u), t(g), interpret=it, **aff),
+         lambda: jst.stencil5_affine(j(u), j(g), interpret=True, **aff)),
+        ("stencil5_jacobi2",
+         lambda it: tst.stencil5_jacobi2(t(u2), t(g2), interpret=it, **jac),
+         lambda: jst.stencil5_jacobi2(j(u2), j(g2), interpret=True, **jac)),
+        ("stencil5_resrestrict_rows",
+         lambda it: tst.stencil5_resrestrict_rows(t(u2), t(g2),
+                                                  interpret=it, **rr),
+         lambda: jst.stencil5_resrestrict_rows(j(u2), j(g2),
+                                               interpret=True, **rr)),
+        ("stencil5_pipelined",
+         lambda it: tst.stencil5_pipelined(t(u), interpret=it, **pipe),
+         lambda: jst.stencil5_pipelined(j(u), interpret=True, **pipe)),
+        ("laplacian_2d_pipelined",
+         lambda it: tst.laplacian_2d_pipelined(t(lap), interpret=it, **lkw),
+         lambda: jst.laplacian_2d_pipelined(j(lap), interpret=True, **lkw)),
+        ("laplacian_2d_kernel",
+         lambda it: tst.laplacian_2d_kernel(t(lap), interpret=it, **lkw),
+         lambda: jst.laplacian_2d_kernel(j(lap), interpret=True, **lkw)),
+        # the constructor in the JAX package's positional order
+        ("laplacian_2d",
+         lambda it: tst.laplacian_2d(16, 128, 8, it, device="cpu")(t(lap)),
+         lambda: jst.laplacian_2d(16, 128, 8, True)(j(lap))),
+    ]
+
+
+@pytest.mark.parametrize("index", range(7))
+def test_entries_take_the_jax_keywords(index):
+    """The stencil entries take the JAX package's ``block_rows`` (a TPU
+    tile: accepted and ignored) and ``interpret`` (True: the plain
+    version); on CPU tensors both modes give the JAX entry's result,
+    interpreted."""
+    name, port, jax_call = _jax_keyword_cases(
+        np.random.default_rng(70 + index))[index]
+    want = np.asarray(jax_call())
+    for it in (None, False, True):
+        got = interop.to_numpy(port(it))
+        _close(got, want, np.float32)
+
+
+def test_sharded_entry_checks_axis_name():
+    """K8's entry checks ``axis_name`` as ``make_mesh`` does, before it
+    needs the process group: ``"n"`` or None, else ``ValueError``."""
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(size=2, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="axis"):
+        tst.stencil5_sharded(torch.zeros(8 * 8), nx=16, ny=8,
+                             coeffs=COEFFS, mesh=mesh, axis_name="x",
+                             block_rows=8)

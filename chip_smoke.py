@@ -12,7 +12,7 @@ share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
-                                  mesh,onereduce,compat}]
+                                  mesh,onereduce,compat,recycle}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -206,6 +206,58 @@ before printing its last line):
    deflated solve with their vectors taking no more iterations; each
    timed beside the functional lane (3 interleaved solves, host wall,
    the busy share of one profiled solve); one JSON line;
+11d. the recycle phase (``--only recycle``), KryPy's recycling lane
+   (``recycling``, ``deflation.Arnoldifyer`` and ``bound_pseudo``,
+   ``pseudospectra``, ``checkpoint``) on the card: (a)
+   tests/test_recycling.py's battery from numpy (``RecyclingCg``,
+   ``RecyclingMinres``, ``RecyclingGmres`` with each of
+   ``RitzFactorySimple``'s seven criteria, three solves each on the
+   planted-outlier diagonal, N = 100; the two string shortcuts; a
+   ``UnionFactory``): every recomputed final residual finite and at most
+   tol, no later solve longer than the first, the iterations per solve
+   within 1 of the port's CPU run of the same sequence (which prices on
+   the card's clock); tests/test_aux.py:228's non-normal ``bound_pseudo``
+   (``NonnormalAuto``'s batched SVD on the card) within 1e-6 relative of
+   the CPU's; (b) config 5 (``suite.config5_problem``, K1 in F and its
+   tangent) driven by ``functional.newton_krylov`` through an adapter
+   (``_CompatNewtonSolver``) whose every Jacobian solve is
+   ``LinearSystem(J, b, self_adjoint=True)`` solved by one
+   ``recycling.RecyclingGmres(RitzFactorySimple(3, "sm"))``, at 511^2
+   and 1023^2, each sequence run to the functional kernel lane's Newton
+   steps + 1 (``suite.config5_nls_newton_recycling``; at 1023^2 the
+   config-5 phase's counted sequence in the default run), under the
+   reference's capped-solve rule (a solve that raises
+   ``ConvergenceError`` at its cap of 250 gives newton its iterate and
+   does not become ``last_solver``) and under the functional lane's
+   (``recycle_capped``: it does): every residual finite, each solve
+   recycling from the last solve the rule kept, inner iterations within
+   3 where neither solve reaches the cap (under the functional lane's
+   rule while both lanes' ``||F||`` entering the solve agree within 1%),
+   K1 launched ``1 +`` float32
+   calls of F ``+`` float32 Jacobian actions (float64 ones, the deflated
+   solves' float64 Krylov vectors among them, take the plain stencil),
+   Newton converged within 1 of the functional lane's steps (a sequence
+   under the reference's rule that a capped solve held back is recorded
+   as ``held_back``: ROADMAP.md queue C), and the first deflated solve
+   against the functional lane on the same float64 J, b and U
+   (``functional.deflated_gmres``: residual histories within 1e-6; the
+   basis's Rayleigh quotients nearest to the Ritz values that
+   ``functional.ritz_pairs`` selects from the same Arnoldi relation);
+   at 511^2 three interleaved sequences per lane timed (``serve_s``,
+   also per Newton step and per inner iteration), at 1023^2 the busy
+   share of a profiled compat sequence of 2 Newton steps; at 511^2 also
+   ``RecyclingGmres("RitzApproxKrylov")`` and
+   ``RecyclingMinres("RitzAprioriMinres")`` (its first deflated solve
+   against ``functional.deflated_minres``) under the same gates but the
+   inner one and the Ritz values', widths and
+   ``timings["vector_factory"]`` recorded (host LAPACK on one thread:
+   ``OPENBLAS_NUM_THREADS=1``, set before numpy loads);
+   (c) ``checkpoint.CheckpointedRecycling`` over config 4's four shifted
+   Laplacians at 1023^2 on the kernel lane (K1-K3, K7), saved after the
+   second solve and finished by a fresh object from the directory
+   (under ``build/``, removed after): the reloaded basis bit for bit the
+   saved one and on the card, the iterations those of the uninterrupted
+   ``suite.recycling_sequence``; one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -285,6 +337,13 @@ import subprocess
 import sys
 import time
 from types import SimpleNamespace
+
+if __name__ == "__main__":
+    # host LAPACK on one thread: the recycle phase's dense work (Ritz
+    # values, the Arnoldifyer and bound_pseudo of every priced candidate)
+    # is matrices of a few hundred rows, which OpenBLAS's thread pool runs
+    # many times slower; OpenBLAS reads this when numpy loads
+    os.environ["OPENBLAS_NUM_THREADS"] = "1"
 
 import numpy as np
 
@@ -4396,6 +4455,709 @@ def compat_phase(device):
     return record
 
 
+# ---------------------------------------------------------------------------
+# the recycle phase: KryPy's recycling lane (recycling, Arnoldifyer,
+# bound_pseudo, pseudospectra, checkpoint) on the card
+# ---------------------------------------------------------------------------
+
+#: tests/test_recycling.py's battery: the planted-outlier diagonal, its
+#: seven RitzFactorySimple criteria, three solves each
+RC_N = 100
+RC_OUTLIERS = (1e-8, 1e-4, 1e-2, 2e-2, 3e-2)
+RC_WHICH = ("lm", "sm", "lr", "sr", "li", "si", "smallest_res")
+RC_SOLVERS = ("RecyclingCg", "RecyclingMinres", "RecyclingGmres")
+RC_PARAMS = {"maxiter": 50, "tol": 1e-5}
+RC_SOLVES = 3
+#: the card's iterations per solve against the port's CPU run of the same
+#: sequence
+RC_ITER_SLACK = 1
+#: tests/test_aux.py:228's non-normal bound_pseudo case, card against CPU
+RC_BOUND_RTOL = 1e-6
+#: config 5 through recycling.RecyclingGmres: the grids, and the gates
+#: against the functional kernel lane of the same run (Newton steps, and
+#: inner iterations where neither solve reaches the cap).  Every sequence
+#: runs at most the functional lane's Newton steps + RC_C5_NEWTON_SLACK,
+#: the depth at which the Newton gate decides
+RC_C5_GRIDS = (C5_MID, C5_FULL)
+RC_C5_NEWTON_SLACK = 1
+RC_C5_INNER_SLACK = 3
+#: under the functional lane's rule, inner iterations are compared where
+#: the Newton residuals entering the solve agree this closely (relative):
+#: the lanes then solve one system
+RC_C5_SAME_SYSTEM_RTOL = 1e-2
+#: interleaved sequences per lane timed at the first grid
+RC_C5_ROUNDS = 3
+#: Newton steps of the profiled compatibility sequence at 1023^2
+RC_C5_PROFILE_STEPS = 2
+#: the first deflated solve of a sequence against the functional lane on
+#: the same float64 J, b and U: the relative gap of the residual
+#: histories (each unnormalised by its own right-hand side norm)
+RC_C5_HISTORY_RTOL = 1e-6
+#: checkpoint: config 4's four-system sequence on the kernel lane at this
+#: size, saved after this many solves and finished by a fresh object
+RC_CK_NX = NX
+RC_CK_SAVED_AFTER = 2
+RC_CK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_checkpoint")
+
+
+def _rc_system(N, small, device):
+    """``diag(small..., linspace(1, 2))`` from numpy, self-adjoint and
+    positive definite, ``b = ones``; ``device=None`` puts it on the card
+    as numpy inputs go."""
+    from krypy_tpu_torch import linsys
+
+    d = np.linspace(1, 2, N)
+    d[:len(small)] = small
+    return linsys.LinearSystem(np.diag(d), np.ones((N, 1)), normal=True,
+                               self_adjoint=True, positive_definite=True,
+                               device=device)
+
+
+def _rc_sequence(solver, spec, N, small, params, n_solves, device,
+                 clock=None, replay=None):
+    """``n_solves`` solves of one system by ``recycling.<solver>`` with
+    the vector factory ``spec()``; the card's run records each solve's
+    timings in ``clock``, the CPU run reads them (``replay``) in place of
+    its own before pricing, so that a factory that prices by the clock
+    chooses on the same one.  Returns per-solve lists."""
+    from krypy_tpu_torch import recycling, utils
+
+    ls = _rc_system(N, small, device)
+    rs = getattr(recycling, solver)(vector_factory=spec())
+    out = {"iters": [], "final": [], "recomputed": [], "widths": [],
+           "xk_device": []}
+    for i in range(n_solves):
+        if replay is not None and i > 0:
+            timings = utils.Timings()
+            for key, vals in replay[i - 1].items():
+                timings[key].extend(vals)
+            rs.last_solver.linear_system.timings = timings
+        sol = rs.solve(ls, **params)
+        if clock is not None:
+            clock.append({k: list(v) for k, v in
+                          sol.linear_system.timings.items()})
+        _, _, rkn = ls.get_residual(sol.xk, compute_norm=True)
+        out["iters"].append(len(sol.resnorms) - 1)
+        out["final"].append(float(sol.resnorms[-1]))
+        out["recomputed"].append(float(rkn) / float(ls.MMlb_norm))
+        out["widths"].append(int(sol.projection.U.shape[1]))
+        out["xk_device"].append(sol.xk.device.type)
+    out["vector_factory_s"] = list(rs.timings["vector_factory"])
+    out["solve_s"] = list(rs.timings["solve"])
+    return out
+
+
+def _rc_battery_cases():
+    """``(label, solver, spec, N, outliers, params, solves)`` of the
+    battery: the 21 RitzFactorySimple sequences, the two string
+    shortcuts, the union of two factories."""
+    from krypy_tpu_torch import recycling
+
+    fac = recycling.factories
+    cases = [(f"{s} {w}", s,
+              functools.partial(fac.RitzFactorySimple, n_vectors=3, which=w),
+              RC_N, RC_OUTLIERS, RC_PARAMS, RC_SOLVES)
+             for s in RC_SOLVERS for w in RC_WHICH]
+    for short in ("RitzApproxKrylov", "RitzAprioriCg"):
+        cases.append((f"RecyclingCg {short}", "RecyclingCg",
+                      lambda short=short: short, 50, (1e-4, 1e-2, 3e-2),
+                      RC_PARAMS, 2))
+    cases.append(("RecyclingMinres union(sm, lm)", "RecyclingMinres",
+                  lambda: fac.UnionFactory([
+                      fac.RitzFactorySimple(n_vectors=1, which="sm"),
+                      fac.RitzFactorySimple(n_vectors=1, which="lm")]),
+                  40, (1e-3,), {"tol": 1e-6}, 2))
+    return cases
+
+
+def _rc_bound_nonnormal(device):
+    """tests/test_aux.py:228's non-normal ``bound_pseudo`` case: its
+    ``NonnormalAuto`` grid's batched SVD runs on ``device``."""
+    from krypy_tpu_torch import deflation, errors, linsys
+
+    A = np.diag(np.linspace(1, 2, 16))
+    A[0, -1] = 0.5
+    ls = linsys.LinearSystem(A, np.ones((16, 1)), device=device)
+    try:
+        sol = deflation.DeflatedGmres(ls, tol=1e-10, maxiter=8,
+                                      store_arnoldi=True)
+    except errors.ConvergenceError as e:
+        sol = e.solver
+    arn = deflation.Arnoldifyer(sol)
+    Wt = np.zeros((arn.n + arn.d, 0))
+    return np.asarray(deflation.bound_pseudo(arn, Wt, tol=1e-10,
+                                             pseudo_type="nonnormal"))
+
+
+def _rc_battery_case(case, device):
+    """One sequence of the battery (a case of :func:`_rc_battery_cases`)
+    on ``device`` (``None``: the card, as numpy inputs go) against the
+    port's CPU run of it, which prices on the card's clock: every
+    recomputed final residual finite and at most tol, no later solve
+    longer than the first, the iterations per solve within
+    ``RC_ITER_SLACK`` of the CPU's, the iterates on the card.  Returns
+    the record."""
+    label, solver, spec, N, small, params, n = case
+    clock = []
+    card = _rc_sequence(solver, spec, N, small, params, n, device,
+                        clock=clock)
+    cpu = _rc_sequence(solver, spec, N, small, params, n, "cpu",
+                       replay=clock)
+    tol = params["tol"]
+    if not all(math.isfinite(f) for f in card["final"]) or \
+            max(card["recomputed"]) > tol:
+        raise AssertionError(f"recycle {label}: final residuals "
+                             f"{card['final']}, recomputed "
+                             f"{card['recomputed']}, tol {tol}")
+    if max(card["iters"][1:]) > card["iters"][0]:
+        raise AssertionError(f"recycle {label}: a later solve is longer "
+                             f"than the first: {card['iters']}")
+    if any(abs(a - b) > RC_ITER_SLACK
+           for a, b in zip(card["iters"], cpu["iters"])):
+        raise AssertionError(f"recycle {label}: card {card['iters']} "
+                             f"against the CPU {cpu['iters']}")
+    if set(card["xk_device"]) != {"cuda"}:
+        raise AssertionError(f"recycle {label}: iterates on "
+                             f"{card['xk_device']}")
+    return {"card": card, "cpu_iters": cpu["iters"],
+            "cpu_widths": cpu["widths"]}
+
+
+def _rc_battery(device):
+    """(a): the battery on the card from numpy, each sequence against the
+    port's CPU run of it; the non-normal bound on the card against the
+    CPU's."""
+    import warnings
+
+    record = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for case in _rc_battery_cases():
+            record[case[0]] = _rc_battery_case(case, None)
+        got, want = _rc_bound_nonnormal(None), _rc_bound_nonnormal("cpu")
+    if got.shape != want.shape or not np.isfinite(got).all() or np.max(
+            np.abs(got - want) / np.abs(want)) > RC_BOUND_RTOL:
+        raise AssertionError(f"recycle bound_pseudo nonnormal: card {got}, "
+                             f"CPU {want}")
+    record["bound_pseudo nonnormal"] = {
+        "card": got.tolist(), "cpu": want.tolist(),
+        "max_rel": float(np.max(np.abs(got - want) / np.abs(want)))}
+    return record
+
+
+class _CompatNewtonSolver:
+    """``functional.newton_krylov``'s ``recycling_solver=`` over KryPy's
+    API: each Jacobian solve is ``LinearSystem(J, b, M=M,
+    self_adjoint=True)`` solved by one ``recycling.<solver>`` kept across
+    the sequence.  ``J`` applies the Jacobian action newton hands over
+    (``torch.func.jvp`` of F at the float32 iterate: K1 and its tangent)
+    to float32 vectors, and to float64 ones (the lane's iterate and
+    explicit residual) the jvp at the iterate in float64, which takes the
+    plain stencil.  A solve that raises ``ConvergenceError`` at
+    ``maxiter`` gives its iterate (``e.solver``) to newton and, as the
+    reference has it, does not become ``last_solver``; with
+    ``recycle_capped`` it does (the functional lane's rule, a diagnostic
+    beside the reference's).  Each solve records which solve it recycled
+    from; the first deflated one is kept (``first_deflated``: its float64
+    operator, right-hand side, tolerance, solver and the solver it
+    recycled from) for :func:`_rc_first_deflated`."""
+
+    def __init__(self, vector_factory, solver="RecyclingGmres",
+                 recycle_capped=False):
+        from krypy_tpu_torch import recycling
+
+        self.rec = getattr(recycling, solver)(vector_factory=vector_factory)
+        self.recycle_capped = recycle_capped
+        self.jvp32 = self.jvp64 = 0
+        self.solves = []
+        self.first_deflated = None
+        self._number, self._op64 = {}, {}
+
+    def _system(self, op, b, M):
+        import torch
+        from krypy_tpu_torch import linsys
+
+        op64 = op.rebuild(op.params.to(torch.float64))
+
+        def J(v):
+            if v.dtype == torch.float32:
+                self.jvp32 += 1
+                return op(v)
+            self.jvp64 += 1
+            return op64(v)
+
+        J.shape = (b.numel(), b.numel())
+        return linsys.LinearSystem(J, b, M=M, self_adjoint=True), op64
+
+    def warmup(self, op, b, M=None, maxiter=None):
+        """One plain and one deflated solve (a placeholder basis of three
+        unit vectors) on newton's zero right-hand side, then no
+        ``last_solver``."""
+        import torch
+        from krypy_tpu_torch import deflation
+
+        ls, _ = self._system(op, b, M)
+        self.rec.solve(ls, maxiter=maxiter)
+        U = torch.eye(b.numel(), 3, dtype=b.dtype, device=b.device)
+        deflation.DeflatedGmres(ls, U=U, maxiter=maxiter, store_arnoldi=True)
+        self.rec.last_solver = None
+        return self
+
+    def solve(self, op, b, tol=None, M=None, maxiter=None):
+        from krypy_tpu_torch import errors
+
+        ls, op64 = self._system(op, b, M)
+        before = self.rec.last_solver
+        k = len(self.solves)
+        t0 = time.perf_counter()
+        try:
+            sol, capped = self.rec.solve(ls, tol=tol, maxiter=maxiter), False
+        except errors.ConvergenceError as e:
+            sol, capped = e.solver, True
+            if self.recycle_capped:
+                self.rec.last_solver = sol
+        wall = time.perf_counter() - t0
+        self._number[id(sol)] = k
+        self._op64[k] = op64
+        src = None if before is None else self._number[id(before)]
+        width = int(sol.projection.U.shape[1])
+        if width and self.first_deflated is None:
+            self.first_deflated = dict(
+                index=k, op64=op64, b=b, M=M, tol=tol, maxiter=maxiter,
+                solver=sol, source=before, source_op64=self._op64[src])
+        self.solves.append({
+            "niter": len(sol.resnorms) - 1, "capped": capped,
+            "recycled_from": src,
+            "from_previous": None if src is None else src == k - 1,
+            "width": width, "final_resnorm": float(sol.resnorms[-1]),
+            "wall_s": wall})
+        return SimpleNamespace(x=sol.xk.reshape(b.shape).to(b.dtype),
+                               niter=len(sol.resnorms) - 1)
+
+
+def _rc_c5_compat(nx, device, maxiter, vector_factory=None,
+                  solver="RecyclingGmres", recycle_capped=False):
+    """Config 5 (``suite.config5_problem``, K1 in F and its tangent)
+    driven by ``functional.newton_krylov`` (at most ``maxiter`` Newton
+    steps) through the adapter, launch counts zeroed just before and read
+    just after.  The adapter is returned under ``"adapter"``."""
+    import torch
+    from krypy_tpu_torch import functional as F, kernels, recycling, suite
+
+    if vector_factory is None:
+        vector_factory = recycling.factories.RitzFactorySimple(
+            n_vectors=3, which="sm")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prob = suite.config5_problem(nx, "cuda", device)
+    adapter = _CompatNewtonSolver(vector_factory, solver, recycle_capped)
+    t0 = time.perf_counter()
+    res = F.newton_krylov(prob["F"], prob["x0"], tol=prob["tol"],
+                          maxiter=maxiter, inner_maxiter=C5_CAP,
+                          recycling_solver=adapter, warmup=True)
+    total = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {
+        "solver": solver, "recycle_capped": recycle_capped,
+        "newton_steps": int(res.niter), "newton_maxiter": maxiter,
+        "converged": bool(res.converged), "resnorms": res.resnorms.tolist(),
+        "fnorm_final": float(res.resnorms[-1]), "tol": prob["tol"],
+        "f0": prob["f0"], "inner_iters": res.inner_history.tolist(),
+        "solves": adapter.solves, "total_s": total,
+        "warmup_s": float(res.warmup_s),
+        "serve_s": total - float(res.warmup_s),
+        "f_calls": prob["calls"]["F"], "f32_calls": prob["calls"]["F32"],
+        "jvp32": adapter.jvp32, "jvp64": adapter.jvp64,
+        "launches": {k: c for k, c in kernels.launch_counts().items() if c},
+        "tangent_launches": kernels.tangent_counts()["stencil5_affine"],
+        "vector_factory_s": list(adapter.rec.timings["vector_factory"]),
+        "adapter": adapter,
+    }
+
+
+def _rc_first_deflated(tag, c, ritz=None):
+    """The first deflated solve of a compatibility sequence (if any)
+    against the functional lane on the same float64 J, b and U:
+    ``functional.deflated_gmres`` (``deflated_minres`` for MINRES) to the
+    same tolerance and cap, its residual history within
+    ``RC_C5_HISTORY_RTOL`` of the solve's (each times its own norm of b,
+    entry by entry, the lengths within one).  With ``ritz = (n_vectors,
+    which)`` (RitzFactorySimple) also the basis: its Rayleigh quotients
+    under the float64 Jacobian of the undeflated solve it was taken from,
+    against the Ritz values that ``functional.ritz_pairs`` gives for that
+    solve's Arnoldi relation: each quotient nearest to one of the values
+    ``which`` selects, and within half that value's distance to the
+    next (the float32 Krylov vectors move the quotients by far less than
+    the spacing of the smallest values).  A wrong projection,
+    a wrong correction of the iterate, a wrong Arnoldi recurrence or a
+    wrong Ritz basis moves one of them.  Returns the record, or None
+    where no solve deflated."""
+    import torch
+    from krypy_tpu_torch.functional import deflation as fdefl
+
+    first = c["adapter"].first_deflated
+    if first is None:
+        return None
+    sol = first["solver"]
+    U = sol.projection.U
+    solve = (fdefl.deflated_minres if c["solver"] == "RecyclingMinres"
+             else fdefl.deflated_gmres)
+    b64 = first["b"].to(torch.float64)
+    res = solve(first["op64"], b64, U, M=first["M"], tol=first["tol"],
+                maxiter=first["maxiter"])
+    want = res.resnorms[: int(res.niter) + 1].double().cpu().numpy() * \
+        float(torch.linalg.vector_norm(b64))
+    got = np.asarray(sol.resnorms, dtype=np.float64) * float(
+        sol.linear_system.MMlb_norm)
+    n = min(len(got), len(want))
+    gap = np.abs(got[:n] - want[:n]) / np.abs(want[:n])
+    out = {"solve": first["index"], "width": int(U.shape[1]),
+           "iterations": [len(got) - 1, len(want) - 1],
+           "max_rel_gap": float(np.max(gap))}
+    if abs(len(got) - len(want)) > 1 or not out["max_rel_gap"] <= \
+            RC_C5_HISTORY_RTOL:
+        raise AssertionError(
+            f"{tag}: solve {first['index']} against the functional lane on "
+            f"the same J, b and U: {len(got) - 1} / {len(want) - 1} "
+            f"iterations, residual histories {out['max_rel_gap']:.3e} apart "
+            f"(bound {RC_C5_HISTORY_RTOL})")
+    src = first["source"]
+    if ritz is not None and src.projection.U.shape[1] == 0:
+        internals = {"V": src.V.to(torch.float64).T,
+                     "H": torch.as_tensor(src.H, device=src.V.device),
+                     "niter": src.H.shape[1]}
+        theta = np.real(fdefl.ritz_pairs(internals, hermitian=True)[0])
+        order = {"sm": np.argsort(np.abs(theta)),
+                 "lm": np.argsort(np.abs(theta))[::-1]}[ritz[1]]
+        Q = torch.linalg.qr(U.to(torch.float64))[0]
+        JQ = torch.stack([first["source_op64"](q) for q in Q.T], dim=1)
+        got = torch.linalg.eigvalsh((Q.T @ JQ + JQ.T @ Q) / 2).cpu().numpy()
+        nearest = [int(np.argmin(np.abs(theta - g))) for g in got]
+        share = [abs(g - theta[j]) / np.min(np.abs(np.delete(theta, j)
+                                                    - theta[j]))
+                 for g, j in zip(got, nearest)]
+        out["ritz"] = {"rayleigh": got.tolist(),
+                       "nearest": theta[nearest].tolist(),
+                       "selected": theta[order[:ritz[0]]].tolist(),
+                       "gap_over_spacing": float(max(share))}
+        if sorted(nearest) != sorted(order[:ritz[0]].tolist()) or \
+                not max(share) < 0.5:
+            raise AssertionError(
+                f"{tag}: the basis of solve {first['index']}: Rayleigh "
+                f"quotients {got.tolist()}, nearest to the Ritz values "
+                f"{out['ritz']['nearest']} ({max(share):.3e} of their "
+                f"spacing), functional.ritz_pairs selects "
+                f"{out['ritz']['selected']}")
+    return out
+
+
+def _rc_c5_check(label, nx, c, f, inner=True, ritz=None):
+    """Config 5's gates on a compatibility sequence ``c`` against the
+    functional kernel lane's ``f`` of the same run, and its first
+    deflated solve against the functional lane
+    (:func:`_rc_first_deflated`).  ``inner``: the inner iterations of
+    each solve that neither lane capped, within ``RC_C5_INNER_SLACK``,
+    where the factory is the functional lane's; under the functional
+    lane's rule (``recycle_capped``) only while the two Newton sequences
+    still solve the same system (``||F||`` entering the solve within
+    ``RC_C5_SAME_SYSTEM_RTOL``: past that the lanes' float32 and float64
+    Krylov arithmetic have led them to other iterates).  Held back is a
+    sequence under the reference's rule that did not converge with a
+    solve that could not recycle from the capped solve before it
+    (ROADMAP.md queue C); every other sequence must converge within
+    ``RC_C5_NEWTON_SLACK`` of the functional lane's Newton steps.
+    Returns a record: ``held_back``, ``first_deflated``,
+    ``inner_compared`` (the solves whose counts were held) and
+    ``failed`` (every gate's failure)."""
+    tag = f"recycle config5 {label} {nx}^2"
+    solves, failed = c["solves"], []
+    if not all(math.isfinite(v) for v in c["resnorms"]) or not all(
+            math.isfinite(s["final_resnorm"]) for s in solves):
+        failed.append(f"{tag}: a residual is not finite: {c['resnorms']}, "
+                      f"{solves}")
+    # each solve recycles from the last solve that became last_solver:
+    # under the reference's rule the last that returned (a capped solve
+    # raised), under the functional lane's every solve
+    last = None
+    for k, s in enumerate(solves):
+        if s["recycled_from"] != last:
+            failed.append(f"{tag}: solve {k} recycled from "
+                          f"{s['recycled_from']}, the rule gives {last}")
+        if not s["capped"] or c["recycle_capped"]:
+            last = k
+    compared = [i for i, (a, b) in enumerate(zip(c["inner_iters"],
+                                                  f["inner_iters"]))
+                if inner and a < C5_CAP and b < C5_CAP and (
+                    not c["recycle_capped"] or abs(
+                        c["resnorms"][i] - f["resnorms"][i]) <=
+                    RC_C5_SAME_SYSTEM_RTOL * f["resnorms"][i])]
+    for i in compared:
+        a, b = c["inner_iters"][i], f["inner_iters"][i]
+        if abs(a - b) > RC_C5_INNER_SLACK:
+            failed.append(f"{tag}: solve {i}: {a} inner iterations, the "
+                          f"functional lane {b} ({c['inner_iters']} / "
+                          f"{f['inner_iters']})")
+    held_back = not c["recycle_capped"] and not c["converged"] and any(
+        solves[k - 1]["capped"] for k in range(1, len(solves)))
+    if c["newton_maxiter"] < f["newton_steps"] + RC_C5_NEWTON_SLACK:
+        failed.append(f"{tag}: run to {c['newton_maxiter']} Newton steps, "
+                      "short of the gate's depth")
+    if c["converged"]:
+        if abs(c["newton_steps"] - f["newton_steps"]) > RC_C5_NEWTON_SLACK:
+            failed.append(f"{tag}: {c['newton_steps']} Newton steps, the "
+                          f"functional lane {f['newton_steps']}")
+    elif not held_back:
+        failed.append(f"{tag}: not converged in {c['newton_steps']} steps "
+                      f"({c['resnorms']}) with no capped solve to explain "
+                      "it")
+    # K1 once to build F, once per float32 call of F, once more per
+    # float32 Jacobian action (its tangent); float64 takes the plain
+    # stencil, and nothing else launches
+    want = {"stencil5_affine": 1 + c["f32_calls"] + c["jvp32"]}
+    if c["launches"] != want or c["tangent_launches"] != c["jvp32"]:
+        failed.append(f"{tag}: launched {c['launches']} with "
+                      f"{c['tangent_launches']} tangents, expected {want} "
+                      f"with {c['jvp32']}")
+    try:
+        first = _rc_first_deflated(tag, c, ritz)
+    except AssertionError as exc:
+        first = None
+        failed.append(str(exc))
+    return {"held_back": held_back, "first_deflated": first,
+            "inner_compared": compared, "failed": failed}
+
+
+def _per_step(serve_s, newton_steps, inner_iters):
+    """``serve_s`` per Newton step and per inner iteration: sequences of
+    different depths compare on these."""
+    return {"serve_s_per_newton_step": serve_s / max(newton_steps, 1),
+            "serve_s_per_inner_iteration": serve_s / max(sum(inner_iters),
+                                                         1)}
+
+
+def _rc_summary(c, smi, **extra):
+    out = {"device": smi, "solver": c["solver"],
+           "recycle_capped": c["recycle_capped"],
+           "newton_steps": c["newton_steps"],
+           "newton_maxiter": c["newton_maxiter"],
+           "converged": c["converged"], "resnorms": c["resnorms"],
+           "tol_abs": c["tol"] * max(c["f0"], 1.0),
+           "inner_iters": c["inner_iters"],
+           "capped": [s["capped"] for s in c["solves"]],
+           "recycled_from": [s["recycled_from"] for s in c["solves"]],
+           "widths": [s["width"] for s in c["solves"]],
+           "final_resnorms": [s["final_resnorm"] for s in c["solves"]],
+           "solve_walls_s": [s["wall_s"] for s in c["solves"]],
+           "serve_s": c["serve_s"], "total_s": c["total_s"],
+           "warmup_s": c["warmup_s"], "f32_calls": c["f32_calls"],
+           "jvp32": c["jvp32"], "jvp64": c["jvp64"],
+           "launches": c["launches"],
+           "tangent_launches": c["tangent_launches"],
+           "vector_factory_s": c["vector_factory_s"]}
+    out.update(_per_step(c["serve_s"], c["newton_steps"], c["inner_iters"]))
+    out.update(extra)
+    return out
+
+
+def _rc_print(nx, label, rec):
+    print(f"recycle config5 {nx}^2 {label}: Newton {rec['newton_steps']} "
+          f"(converged {rec['converged']}, held back {rec['held_back']}), "
+          f"||F|| {rec['resnorms']}, "
+          f"inner {rec['inner_iters']}, capped {rec['capped']}, recycled "
+          f"from {rec['recycled_from']}, widths {rec['widths']}, serve_s "
+          f"{rec['serve_s']:.6f} ({rec['serve_s_per_newton_step']:.6f} per "
+          f"step, {rec['serve_s_per_inner_iteration']:.6f} per inner "
+          f"iteration), vector_factory_s {rec['vector_factory_s']}, first "
+          f"deflated solve {rec['first_deflated']}, inner iterations "
+          f"compared in solves {rec['inner_compared']}, failed "
+          f"{rec['failed']}", flush=True)
+
+
+def _rc_config5(device, smi, functional=None):
+    """(b): config 5 through ``recycling.RecyclingGmres`` at 511^2 and
+    1023^2 beside the functional kernel lane, each sequence at the Newton
+    gate's depth: under the reference's rule and under the functional
+    lane's (``recycle_capped``); at 511^2 ``RC_C5_ROUNDS`` interleaved
+    sequences per lane timed (the first, counted, round gated), at
+    1023^2 beside the functional lane's counted sequence
+    (``functional[nx]``, the config-5 phase's, or run here) and the busy
+    share of a compatibility sequence (``RC_C5_PROFILE_STEPS`` Newton
+    steps, profiled); at 511^2 also the two automatic factories.  Every
+    sequence runs whatever an earlier one failed: the gates' failures are
+    listed under ``"failed"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    record, fs = {}, {}
+    simple = ("RitzFactorySimple(3, sm)", (3, "sm"))
+    for nx in RC_C5_GRIDS:
+        f = (functional or {}).get(nx) if nx != RC_C5_GRIDS[0] else None
+        serve = {"compat": [], "functional": []}
+        rounds = RC_C5_ROUNDS if nx == RC_C5_GRIDS[0] else 1
+        c = None
+        for r in range(rounds):
+            for lane in (("functional", "compat") if r % 2 == 0
+                         else ("compat", "functional")):
+                if lane == "functional":
+                    if r or f is None:
+                        out = _c5_run(nx, "cuda", False, device)
+                        f = f or out
+                    else:
+                        out = f
+                    serve[lane].append(out["serve_s"])
+                    continue
+                out = _rc_c5_compat(nx, device, f["newton_steps"]
+                                    + RC_C5_NEWTON_SLACK)
+                serve[lane].append(out["serve_s"])
+                c = c or out
+        fs[nx] = f
+        rec = record[f"{nx}"] = _rc_summary(
+            c, smi, **_rc_c5_check(simple[0], nx, c, f, ritz=simple[1]))
+        rec["functional"] = {k: f[k] for k in (
+            "newton_steps", "inner_iters", "resnorms", "serve_s", "total_s",
+            "launches", "tangent_launches", "jvp_calls", "f_calls")}
+        rec["functional"].update(_per_step(f["serve_s"], f["newton_steps"],
+                                           f["inner_iters"]))
+        rec["serve_s_rounds"] = {
+            lane: dict(all=v, median=statistics.median(v), min=min(v),
+                       max=max(v)) for lane, v in serve.items()}
+        _rc_print(nx, simple[0], rec)
+        for lane, v in rec["serve_s_rounds"].items():
+            print(f"timing recycle config5 {nx}^2 {lane} serve_s median="
+                  f"{statistics.median(v['all']):.6f} min={v['min']:.6f} "
+                  f"max={v['max']:.6f} all={v['all']}", flush=True)
+        # the functional lane's rule: a capped solve becomes last_solver
+        v = _rc_c5_compat(nx, device, f["newton_steps"] + RC_C5_NEWTON_SLACK,
+                          recycle_capped=True)
+        rec = record[f"{nx} recycle_capped"] = _rc_summary(
+            v, smi, **_rc_c5_check(simple[0] + " recycle_capped", nx, v, f,
+                                   ritz=simple[1]))
+        _rc_print(nx, simple[0] + " recycle_capped", rec)
+        if nx == RC_C5_GRIDS[-1]:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prof_run = _rc_c5_compat(nx, device, RC_C5_PROFILE_STEPS)
+            busy = sum(e.time_range.elapsed_us()
+                       for e in _device_events(prof)) / 1e6
+            record[f"{nx}"]["profiled"] = {
+                "newton_steps": prof_run["newton_steps"],
+                "total_s": prof_run["total_s"], "busy_s": busy,
+                "busy_share": busy / prof_run["total_s"]}
+            print(f"timing recycle config5 {nx}^2 compat busy {busy:.6f} s "
+                  f"= {100 * busy / prof_run['total_s']:.1f}% of a profiled "
+                  f"sequence of {prof_run['newton_steps']} Newton steps "
+                  f"({prof_run['total_s']:.3f} s)", flush=True)
+    # the automatic factories at the first grid, at the gate's depth (the
+    # Jacobian is symmetric indefinite: MINRES, not CG)
+    nx = RC_C5_GRIDS[0]
+    f = fs[nx]
+    for label, solver, spec in (
+            ("RecyclingGmres RitzApproxKrylov", "RecyclingGmres",
+             "RitzApproxKrylov"),
+            ("RecyclingMinres RitzAprioriMinres", "RecyclingMinres",
+             "RitzAprioriMinres")):
+        c = _rc_c5_compat(nx, device, f["newton_steps"] + RC_C5_NEWTON_SLACK,
+                          spec, solver)
+        rec = record[f"{nx} {label}"] = _rc_summary(
+            c, smi, **_rc_c5_check(label, nx, c, f, inner=False))
+        _rc_print(nx, label, rec)
+    record["failed"] = [m for rec in record.values() for m in rec["failed"]]
+    return record
+
+
+def _rc_checkpoint(device):
+    """(c): ``CheckpointedRecycling`` over config 4's four shifted
+    Laplacians at ``RC_CK_NX`` on the kernel lane (K1-K3 in the V-cycle,
+    K7 in ``cgs2_pallas``), saved after the second solve and finished by
+    a fresh object from the directory, against the uninterrupted
+    ``suite.recycling_sequence``."""
+    import shutil
+
+    import torch
+    from krypy_tpu_torch import checkpoint, kernels, suite
+
+    impl, ortho = "cuda", "cgs2_pallas"
+    whole = [r["niter"] for r in suite.recycling_sequence(
+        RC_CK_NX, impl, ortho, device)]
+    Ml = suite._multigrid(RC_CK_NX, impl, device)
+    kw = dict(Ml=Ml, tol=suite.INNER_TOL, maxiter=suite.RESTART, ortho=ortho)
+    shutil.rmtree(RC_CK_DIR, ignore_errors=True)
+    ck = dict(n_vectors=suite.N_VECTORS, which="sm", hermitian=False,
+              device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        first = checkpoint.CheckpointedRecycling(RC_CK_DIR, **ck)
+        got = []
+        for sigma in suite.SIGMAS[:RC_CK_SAVED_AFTER]:
+            A, b, _ = suite._system(RC_CK_NX, sigma, impl, device)
+            got.append(int(first.solve(A, b, **kw).niter))
+        saved = checkpoint.load(RC_CK_DIR, device=False)["U"]
+        second = checkpoint.CheckpointedRecycling(RC_CK_DIR, **ck)
+        U = second._rec._U
+        if not U.is_cuda or not np.array_equal(U.cpu().numpy(), saved):
+            raise AssertionError("recycle checkpoint: the reloaded basis is "
+                                 "not the saved one on the card")
+        for sigma in suite.SIGMAS[RC_CK_SAVED_AFTER:]:
+            A, b, _ = suite._system(RC_CK_NX, sigma, impl, device)
+            got.append(int(second.solve(A, b, **kw).niter))
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in kernels.launch_counts().items() if c}
+    finally:
+        shutil.rmtree(RC_CK_DIR, ignore_errors=True)
+    if got != whole:
+        raise AssertionError(f"recycle checkpoint: iterations {got} after "
+                             f"the reload, {whole} uninterrupted")
+    for name in ("stencil5_affine", "stencil5_jacobi2",
+                 "stencil5_resrestrict_rows", "cgs_project"):
+        if not launches.get(name):
+            raise AssertionError(f"recycle checkpoint: {name} not launched "
+                                 f"({launches})")
+    return {"nx": RC_CK_NX, "iterations": got, "uninterrupted": whole,
+            "basis_shape": list(saved.shape), "basis_dtype": str(saved.dtype),
+            "launches": launches}
+
+
+def recycle_phase(device, smi, functional=None):
+    """KryPy's recycling lane on the card (``--only recycle``): (a) the
+    battery from numpy against the port's CPU run and the non-normal
+    bound, (b) config 5 through ``recycling.RecyclingGmres`` at 511^2 and
+    1023^2 beside the functional lane, (c) ``checkpoint`` over config 4's
+    sequence.  Every part runs; a failed gate is raised after all of them,
+    with every part's failure.  Prints one JSON line and returns it."""
+    import warnings
+
+    t0 = time.perf_counter()
+    record, parts, failed = {}, {}, []
+    for name, fn, args in (("battery", _rc_battery, (device,)),
+                           ("config5", _rc_config5,
+                            (device, smi, functional)),
+                           ("checkpoint", _rc_checkpoint, (device,))):
+        t = time.perf_counter()
+        try:
+            # the lane warns where an updated residual reached tol and the
+            # explicit one did not; the records hold the outcome
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                record[name] = fn(*args)
+            failed += [f"{name}: {m}" for m in record[name].get("failed",
+                                                                 ())]
+        except AssertionError as exc:
+            failed.append(f"{name}: {exc}")
+            record[name] = None
+        parts[name] = time.perf_counter() - t
+        print(f"recycle {name}: {parts[name]:.1f} s", flush=True)
+    record["part_s"] = parts
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    record["device"] = smi
+    print(json.dumps({"recycle": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("recycle phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -4511,7 +5273,8 @@ def main(argv=None):
                          "prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
-                             "config5", "mesh", "onereduce", "compat"),
+                             "config5", "mesh", "onereduce", "compat",
+                             "recycle"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -4522,7 +5285,9 @@ def main(argv=None):
                          "cgs2_1r forms, the pairs' slopes and checks; "
                          "or the reference-compatible lane: the goldens, "
                          "configs 2 and 3 and the padded Poisson through "
-                         "linsys, deflation and Ritz); "
+                         "linsys, deflation and Ritz; or the recycling "
+                         "lane: the battery, config 5 through "
+                         "recycling.RecyclingGmres, checkpoint); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -4567,6 +5332,9 @@ def main(argv=None):
     if args.only == "config5":
         config5_phase(device, smi)
         return
+    if args.only == "recycle":
+        recycle_phase(device, smi)
+        return
     if args.only:
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase, "kernels": kernels_phase,
@@ -4599,9 +5367,14 @@ def main(argv=None):
                  for k, c in c4_counts.items()}
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
-    c5_jvp, c5_full, _ = config5_phase(device, smi)
+    c5_jvp, c5_full, c5_lines = config5_phase(device, smi)
     onered = onereduce_phase(device)
     compat = compat_phase(device)
+    # the config-5 phase's counted kernel-lane sequences are the recycle
+    # phase's functional references
+    recycle = recycle_phase(device, smi, functional={
+        line["nx"]: line["lanes"]["cuda"] for line in c5_lines
+        if line["config"] == "5" and line["nx"] in RC_C5_GRIDS})
     worlds = mesh_phase(device)
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
@@ -4692,6 +5465,17 @@ def main(argv=None):
             if name == "stencil5_affine" or run.startswith("poisson") and \
                     name in ("stencil5_jacobi2", "stencil5_resrestrict_rows"):
                 rows[-1][f"launches_compat {run}"] = used[name]
+        # the recycling lane's runs (recycle phase): K1 in config 5 through
+        # recycling.RecyclingGmres, K1-K3 and K7 in the checkpointed
+        # config-4 sequence
+        for nx in RC_C5_GRIDS:
+            for rule in ("", " recycle_capped"):
+                if name == "stencil5_affine":
+                    rows[-1][f"launches_recycle config5 compat{rule}@{nx}"] \
+                        = recycle["config5"][f"{nx}{rule}"]["launches"][name]
+        if name in recycle["checkpoint"]["launches"]:
+            rows[-1][f"launches_recycle checkpoint@{RC_CK_NX}"] = \
+                recycle["checkpoint"]["launches"][name]
         # the north star's one-reduce forms on the kernel lane
         for label, *_ in OR_NORTHSTAR:
             rows[-1][f"launches_northstar {label}@{NS_NX}"] = \
@@ -4716,6 +5500,10 @@ def main(argv=None):
         "ms_by_grid": {f"{nx}x{ny}": v
                        for (nx, ny), v in c5_jvp["times"].items()},
     })
+    for nx in RC_C5_GRIDS:
+        for rule in ("", " recycle_capped"):
+            rows[-1][f"launches_recycle config5 compat{rule}@{nx}"] = \
+                recycle["config5"][f"{nx}{rule}"]["tangent_launches"]
     rows += _mesh_rows(worlds, report["stencil5_halo"])
     print(json.dumps({"walls_s": {
         label: record[label] for record in (c2_rec, c3_rec)

@@ -28,19 +28,25 @@ and the one-reduce lane (``variant="1r"`` of CG and MINRES, every
 API: ``linsys`` (``LinearSystem``, ``Cg``, ``Minres``, ``Gmres``,
 ``RestartedGmres``), ``deflation`` (the deflated solvers and ``Ritz``),
 ``arnoldi``, ``core.projections``, ``utils`` and the one-call ``cg``,
-``minres`` and ``gmres``.  That lane takes numpy inputs as the reference
-does and puts them on the card (``device=`` to choose another device);
-its ``Arnoldifyer``, ``bound_pseudo``, ``pseudospectra`` and
-``recycling`` are not ported yet.
+``minres`` and ``gmres``, and its recycling half: ``recycling``
+(``RecyclingCg``, ``RecyclingMinres``, ``RecyclingGmres``, the
+generators, factories and evaluators), ``deflation.Arnoldifyer`` and
+``deflation.bound_pseudo``, ``pseudospectra`` (the batched SVD on the
+device, the level sets by the port's own marching squares) and
+``checkpoint`` (the JAX package's ``.npz`` directory form).  That lane
+takes numpy inputs as the reference does and puts them on the card
+(``device=`` to choose another device).
 """
 
 from . import config  # noqa: F401  (full-f32 matmul defaults at import)
-from . import (arnoldi, core, deflation, errors, functional, kernels, linsys,
-               northstar, ops, parallel, spectral, suite, utils)
+from . import (arnoldi, checkpoint, core, deflation, errors, functional,
+               kernels, linsys, northstar, ops, parallel, pseudospectra,
+               recycling, spectral, suite, utils)
 from ._convenience import cg, gmres, minres
 
 __version__ = "0.1.0"
 
-__all__ = ["arnoldi", "core", "errors", "functional", "kernels",
-           "northstar", "ops", "parallel", "spectral", "suite", "linsys",
-           "deflation", "utils", "cg", "minres", "gmres", "__version__"]
+__all__ = ["arnoldi", "checkpoint", "core", "errors", "functional",
+           "kernels", "northstar", "ops", "parallel", "pseudospectra",
+           "spectral", "suite", "linsys", "deflation", "recycling", "utils",
+           "cg", "minres", "gmres", "__version__"]

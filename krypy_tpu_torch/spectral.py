@@ -515,7 +515,7 @@ def bound_perturbed_gmres(pseudo, p, epsilon, deltas):
     Morgan 2013) -- reference: krypy/utils.py:2006-2033.
 
     :param pseudo: a pseudospectrum object exposing ``contour_paths(delta)``
-      (see :mod:`krypy_tpu.pseudospectra`).
+      (see :mod:`krypy_tpu_torch.pseudospectra`).
     """
     if not np.all(np.asarray(deltas) > epsilon):
         raise ArgumentError("all deltas have to be greater than epsilon")

@@ -42,7 +42,8 @@ from . import functional as F, interop, ops
 __all__ = ["SIGMA", "SIGMAS", "N_VECTORS", "INNER_TOL", "RESTART", "TOL",
            "kappa_bound", "make_config4", "recycling_sequence",
            "config1_readme_gmres", "config2_weights", "make_config2",
-           "config3_pieces", "make_config3", "config5_nls_newton_recycling"]
+           "config3_pieces", "make_config3", "config5_problem",
+           "config5_nls_newton_recycling"]
 
 #: the shift of config 4
 SIGMA = 200.0
@@ -360,50 +361,30 @@ def _counting(cls):
     return Counting
 
 
-def config5_nls_newton_recycling(nx, recycle=3, auto=False, impl="torch",
-                                 device="cuda"):
-    """BASELINE config 5 as benchmarks/suite.py runs it: Newton on the
-    stationary nonlinear-Schrödinger residual ``ops.nls_residual_2d(nx,
-    kappa=1, lam=25, amplitude=3)`` from zero, in float32, with
-    ``maxiter=15``, ``inner_maxiter=250`` and ``warmup=True``, every
-    Jacobian solve through ``RecyclingGmres(recycle, "sm",
-    hermitian=True)``, or with ``auto=True`` through
-    ``AutoRecyclingGmres(max_vectors=recycle + 2, hermitian=True)``
-    (suite.py's config 6).  ``impl="cuda"`` runs the Laplacian of ``F``,
-    and its tangent in every Jacobian action, through K1; GMRES's
-    default ``ortho="cgs2"`` is plain torch on both lanes.
-
-    The tolerance follows suite.py: half the float32 floor (the median
-    ``||F||`` of three dithered roots ``u* (1 + eps32 U(-1, 1))``, numpy
-    ``RandomState(0)``) relative to ``||F(0)||``, and at least 1e-5.
-
-    Returns the keys of suite.py's dictionary (walls unrounded) and:
-    ``resnorms`` (``||F||`` per Newton step), ``tol``, ``f0``,
-    ``predicted_steps`` (auto only), ``f_calls`` (evaluations of ``F``,
-    those inside ``torch.func.jvp`` included) and ``jvp_calls`` (Jacobian
-    actions).  On the kernel lane every call of ``F`` launches K1 once
-    and every Jacobian action once more for its tangent, and building
-    ``F`` launches it once (the manufactured source): ``1 + f_calls +
-    jvp_calls`` K1 launches in all."""
+def config5_problem(nx, impl="torch", device="cuda"):
+    """Config 5's problem as :func:`config5_nls_newton_recycling` solves
+    it: the residual ``F`` of ``ops.nls_residual_2d(nx, kappa=1, lam=25,
+    amplitude=3)`` (``impl`` as there), counting its calls, the float32
+    zero start ``x0`` and suite.py's tolerance (half the float32 floor,
+    the median ``||F||`` of three dithered roots ``u* (1 + eps32 U(-1,
+    1))``, numpy ``RandomState(0)``, relative to ``||F(0)||``, and at
+    least 1e-5).  Returns a dictionary: ``F``, ``x0``, ``tol``, ``f0``,
+    ``eval_floor`` and ``calls``, whose ``"F"`` counts every call of
+    ``F`` (those inside ``torch.func.jvp`` included) and ``"F32"`` the
+    float32 ones, the calls that launch K1 on the kernel lane."""
     func, ustar = ops.nls_residual_2d(nx, kappa=1.0, lam=25.0,
                                       amplitude=3.0, impl=impl,
                                       device=device)
-    calls = {"F": 0}
+    calls = {"F": 0, "F32": 0}
 
     def counted(u):
         calls["F"] += 1
+        calls["F32"] += u.dtype == torch.float32
         return func(u)
 
     N = nx * nx
     dev = ustar.device
     x0 = torch.zeros(N, dtype=torch.float32, device=dev)
-    if auto:
-        rec = _counting(F.AutoRecyclingGmres)(
-            max_vectors=recycle + 2, hermitian=True)
-    else:
-        rec = _counting(F.RecyclingGmres)(
-            n_vectors=recycle, which="sm", hermitian=True)
-
     # the float32 floor: the residual at a last-bit-dithered root (F(u*)
     # itself is 0 in float32, the manufactured g absorbing the rounding)
     u32 = ustar.to(torch.float32)
@@ -418,6 +399,44 @@ def config5_nls_newton_recycling(nx, recycle=3, auto=False, impl="torch",
     ]))
     f0 = float(torch.linalg.vector_norm(counted(x0)))
     tol = max(1e-5, 0.5 * floor / max(f0, 1.0))
+    return {"F": counted, "x0": x0, "tol": tol, "f0": f0,
+            "eval_floor": floor, "calls": calls}
+
+
+def config5_nls_newton_recycling(nx, recycle=3, auto=False, impl="torch",
+                                 device="cuda"):
+    """BASELINE config 5 as benchmarks/suite.py runs it: Newton on the
+    stationary nonlinear-Schrödinger residual ``ops.nls_residual_2d(nx,
+    kappa=1, lam=25, amplitude=3)`` from zero, in float32, with
+    ``maxiter=15``, ``inner_maxiter=250`` and ``warmup=True``, every
+    Jacobian solve through ``RecyclingGmres(recycle, "sm",
+    hermitian=True)``, or with ``auto=True`` through
+    ``AutoRecyclingGmres(max_vectors=recycle + 2, hermitian=True)``
+    (suite.py's config 6).  ``impl="cuda"`` runs the Laplacian of ``F``,
+    and its tangent in every Jacobian action, through K1; GMRES's
+    default ``ortho="cgs2"`` is plain torch on both lanes.
+
+    The problem and its tolerance are :func:`config5_problem`'s.
+
+    Returns the keys of suite.py's dictionary (walls unrounded) and:
+    ``resnorms`` (``||F||`` per Newton step), ``tol``, ``f0``,
+    ``predicted_steps`` (auto only), ``f_calls`` (evaluations of ``F``,
+    those inside ``torch.func.jvp`` included) and ``jvp_calls`` (Jacobian
+    actions).  On the kernel lane every call of ``F`` launches K1 once
+    and every Jacobian action once more for its tangent, and building
+    ``F`` launches it once (the manufactured source): ``1 + f_calls +
+    jvp_calls`` K1 launches in all."""
+    prob = config5_problem(nx, impl, device)
+    counted, x0, tol, calls = prob["F"], prob["x0"], prob["tol"], \
+        prob["calls"]
+    floor, f0 = prob["eval_floor"], prob["f0"]
+    N = nx * nx
+    if auto:
+        rec = _counting(F.AutoRecyclingGmres)(
+            max_vectors=recycle + 2, hermitian=True)
+    else:
+        rec = _counting(F.RecyclingGmres)(
+            n_vectors=recycle, which="sm", hermitian=True)
 
     t0 = time.perf_counter()
     res = F.newton_krylov(

@@ -652,10 +652,20 @@ def test_names_raise_where_jax_raises():
 
 
 def test_arnoldifyer_and_bound_pseudo_are_not_ported_yet():
-    for call in (lambda: deflation.Arnoldifyer(None),
-                 lambda: deflation.bound_pseudo(None, None)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            call()
+    """The two names that raised ``NotImplementedError`` until the
+    recycling lane was ported now run (tests/test_torch_pseudospectra.py
+    holds them to the JAX package); only ``pseudo_type='contain'`` raises
+    it, as the JAX package's does."""
+    ls = linsys.LinearSystem(np.diag(np.linspace(1, 2, 10)), np.ones(10),
+                             self_adjoint=True, device="cpu")
+    sol = deflation.DeflatedGmres(ls, U=np.eye(10, 1), tol=1e-8,
+                                  store_arnoldi=True)
+    arn = deflation.Arnoldifyer(sol)
+    Wt = np.zeros((arn.n + arn.d, 0))
+    bounds = deflation.bound_pseudo(arn, Wt, tol=1e-8, pseudo_type="omit")
+    assert len(bounds) >= 1 and np.isfinite(bounds).all()
+    with pytest.raises(NotImplementedError, match="contain"):
+        deflation.bound_pseudo(arn, Wt, pseudo_type="contain")
 
 
 def test_public_names_match_jax():

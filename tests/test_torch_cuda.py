@@ -1470,3 +1470,41 @@ def test_init_distributed_jax_keywords_on_nccl(cuda_device):
         assert s.is_cuda and s.tolist() == [1.0, 1.0, 1.0]
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the recycling lane (KryPy's recycling API) on the card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py, whose recycle phase runs the same battery: one copy
+    of its sequences and gates."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("which", ["lm", "sm", "lr", "sr", "li", "si",
+                                   "smallest_res"])
+@pytest.mark.parametrize("solver", ["RecyclingCg", "RecyclingMinres",
+                                    "RecyclingGmres"])
+def test_recycling_battery_on_the_card(cuda_device, solver, which):
+    """The battery of the recycle phase (a), through chip_smoke.py's
+    ``_rc_battery_case``: tests/test_recycling.py's sequence from numpy
+    on the card, every recomputed final residual finite and at most tol,
+    no later solve longer than the first, the iterations per solve
+    within 1 of the port's CPU run of the same sequence."""
+    import warnings
+
+    cs = _chip_smoke()
+    case = next(c for c in cs._rc_battery_cases()
+                if c[0] == f"{solver} {which}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        record = cs._rc_battery_case(case, None)
+    assert record["card"]["xk_device"] == ["cuda"] * 3

@@ -181,8 +181,9 @@ def _jax_imports(tree):
 def test_port_sources_import_no_jax_by_ast(name):
     """Walking the AST of every module of the port (the reference-
     compatible lane's ``linsys``, ``deflation``, ``arnoldi``, ``utils``,
-    ``_convenience`` and ``core.projections`` among them) and of the chip
-    smoke script finds no import of jax or the JAX package."""
+    ``_convenience``, ``core.projections``, ``pseudospectra``,
+    ``checkpoint`` and the ``recycling`` package among them) and of the
+    chip smoke script finds no import of jax or the JAX package."""
     root = os.path.join(REPO, name)
     paths = ([os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
               if f.endswith(".py")] if os.path.isdir(root) else [root])
@@ -190,8 +191,52 @@ def test_port_sources_import_no_jax_by_ast(name):
     if name == "krypy_tpu_torch":
         assert {f"krypy_tpu_torch/{m}.py" for m in (
             "linsys", "deflation", "arnoldi", "_convenience",
-            "utils/__init__", "core/projections")} <= names
+            "utils/__init__", "core/projections", "pseudospectra",
+            "checkpoint", "recycling/__init__", "recycling/generators",
+            "recycling/factories", "recycling/evaluators",
+            "recycling/linsys")} <= names
     for p in paths:
         with open(p) as fh:
             tree = ast.parse(fh.read(), p)
         assert not _jax_imports(tree), (p, _jax_imports(tree))
+
+
+def _imports_of(tree, banned):
+    """Every import in a module's AST (at any depth, and by a literal
+    ``__import__``/``import_module`` call) of a package in ``banned``."""
+    def hit(name):
+        return name.split(".")[0] in banned
+
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if hit(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and hit(node.module):
+                found.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("__import__", "import_module") and hit(
+                    node.args[0].value):
+                found.append(node.args[0].value)
+    return found
+
+
+@pytest.mark.parametrize("name", ["krypy_tpu_torch", "chip_smoke.py"])
+def test_port_sources_import_no_contourpy_or_orbax(name):
+    """The card's machine has neither contourpy (nor matplotlib, which
+    brings it here) nor orbax: the port extracts level sets itself and
+    checkpoints to ``.npz``, and no source imports them."""
+    root = os.path.join(REPO, name)
+    paths = ([os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+              if f.endswith(".py")] if os.path.isdir(root) else [root])
+    assert paths
+    for p in paths:
+        with open(p) as fh:
+            tree = ast.parse(fh.read(), p)
+        bad = _imports_of(tree, {"contourpy", "matplotlib", "orbax"})
+        assert not bad, (p, bad)

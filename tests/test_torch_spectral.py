@@ -273,3 +273,29 @@ def test_bound_perturbed_gmres_matches_jax():
     np.testing.assert_array_equal(got, want)
     with pytest.raises(S.ArgumentError):
         S.bound_perturbed_gmres(ps, p, 0.5, [0.1])
+
+
+@pytest.mark.parametrize("kind", ["normal", "nonnormal"])
+def test_bound_perturbed_gmres_with_port_pseudospectra(kind):
+    """The bound with the port's own pseudospectra (``NormalEvals`` and
+    ``NonnormalAuto`` of :mod:`krypy_tpu_torch.pseudospectra`) against the
+    JAX package's bound with its own, 1e-10 relative."""
+    from krypy_tpu import pseudospectra as jps
+    from krypy_tpu_torch import pseudospectra as tps
+
+    if kind == "normal":
+        evals = np.array([1.0, 2.0, 3.0])
+        jp, tp = jps.NormalEvals(evals), tps.NormalEvals(evals)
+        eps, deltas = 1e-3, [1e-2, 5e-2]
+    else:
+        A = np.diag([1.0, 2.0, 3.0]) + np.triu(np.ones((3, 3)), 1)
+        evals = np.linalg.eigvals(A)
+        jp = jps.NonnormalAuto(A, 0.05, 0.5, n_points=41)
+        tp = tps.NonnormalAuto(A, 0.05, 0.5, n_points=41, device="cpu")
+        eps, deltas = 0.01, [0.1, 0.3]
+    want = ju.bound_perturbed_gmres(
+        jp, ju.NormalizedRootsPolynomial(evals), eps, deltas)
+    got = S.bound_perturbed_gmres(
+        tp, S.NormalizedRootsPolynomial(evals), eps, deltas)
+    assert np.isfinite(got).all() and len(got) == len(deltas)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)

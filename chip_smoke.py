@@ -12,7 +12,8 @@ share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
-                                  mesh,onereduce,compat,recycle}]
+                                  mesh,onereduce,compat,recycle,
+                                  nonsym}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -243,7 +244,7 @@ before printing its last line):
    (``functional.deflated_gmres``: residual histories within 1e-6; the
    basis's Rayleigh quotients nearest to the Ritz values that
    ``functional.ritz_pairs`` selects from the same Arnoldi relation);
-   at 511^2 three interleaved sequences per lane timed (``serve_s``,
+   at 511^2 ``RC_C5_ROUNDS`` interleaved sequences per lane timed (``serve_s``,
    also per Newton step and per inner iteration), at 1023^2 the busy
    share of a profiled compat sequence of 2 Newton steps; at 511^2 also
    ``RecyclingGmres("RitzApproxKrylov")`` and
@@ -258,6 +259,20 @@ before printing its last line):
    (under ``build/``, removed after): the reloaded basis bit for bit the
    saved one and on the card, the iterations those of the uninterrupted
    ``suite.recycling_sequence``; one JSON line;
+11e. the nonsym phase (``--only nonsym``): the north star's system at
+   4095^2 through the nonsymmetric short recurrences
+   (``northstar.make_nonsym``: bicgstab, tfqmr, idrs(4) classic and
+   "1r", fgmres(30) with cgs2, qmr classic and "1r" with ``AT=`` K1 on
+   the swapped coefficients and ``MT = M``; float32 inner solves to
+   1e-3, up to 2 per cycle, the padded V-cycle on the right, float64
+   refinement to 1e-8) on both lanes: the residual, equal refinement
+   cycles, inner iterations within 3 in every cycle whose float32 solve
+   converged on both lanes (and each "1r" form against its classic form),
+   K1-K3's launches against the applications of A, AT and M that each
+   solver call's counts predict; AT against the plain operator's
+   reverse-mode transpose at 1023^2; a flexible fgmres whose M alternates
+   between the V-cycle and a 2-sweep Jacobi; 3 interleaved solves per
+   lane and the busy share of the gated solve; one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -355,8 +370,10 @@ NS_NX = 4095
 ROUNDS = 5
 #: timed solves per lane in the north-star timing phase
 NS_ROUNDS = 3
-#: timed deflated solves per lane in the config-4 timing phase
-C4_ROUNDS = 3
+#: timed deflated solves per lane in the config-4 timing phase (one: the
+#: whole script's time limit on a slow host; 3 until the nonsym phase
+#: came)
+C4_ROUNDS = 1
 #: config 4's sizes: the north star's, at which the undeflated pair is
 #: gated and the deflated solve's known failure is asserted, and the cut
 #: at which the deflated pair is gated (ROADMAP.md queue C)
@@ -2388,8 +2405,8 @@ def mesh_fault_phase(device):
 #: configs 2 and 3: the north star's grid, 4095^2 = 16,769,025 unknowns
 BL_NX = NS_NX
 #: timed solves per lane and solver of configs 2 and 3 (after the gated
-#: one, which follows a warm-up solve)
-BL_ROUNDS = 3
+#: one, which follows a warm-up solve; one, as ``C4_ROUNDS``)
+BL_ROUNDS = 1
 #: config 1 in the JAX package, ``JAX_PLATFORMS=cpu python
 #: benchmarks/suite.py --configs 1`` on the CPU (float64)
 C1_JAX = {"niter": 65, "converged": True}
@@ -3059,8 +3076,10 @@ C5_JAX = {
 #: widths its auto variant may choose (``max_vectors = recycle + 2 = 5``)
 C5_CAP = 250
 C5_WIDTHS = tuple(range(6))
-#: timed Newton sequences per lane at each full-width grid
-C5_ROUNDS = 3
+#: timed Newton sequences per lane at each full-width grid (the counted
+#: one: one round keeps the whole script within its time limit on a slow
+#: host; 3 until the nonsym phase came)
+C5_ROUNDS = 1
 #: K1's forward-mode rule is held and timed on these grids: config 5's
 #: two and one ragged odd one
 C5_JVP_GRIDS = ((C5_NX, C5_NX), (C5_FULL, C5_FULL), (1021, 1000))
@@ -4485,8 +4504,10 @@ RC_C5_INNER_SLACK = 3
 #: the Newton residuals entering the solve agree this closely (relative):
 #: the lanes then solve one system
 RC_C5_SAME_SYSTEM_RTOL = 1e-2
-#: interleaved sequences per lane timed at the first grid
-RC_C5_ROUNDS = 3
+#: interleaved sequences per lane timed at the first grid (one, as
+#: ``C5_ROUNDS``: the whole script's time limit; 3 until the nonsym
+#: phase came)
+RC_C5_ROUNDS = 1
 #: Newton steps of the profiled compatibility sequence at 1023^2
 RC_C5_PROFILE_STEPS = 2
 #: the first deflated solve of a sequence against the functional lane on
@@ -5158,6 +5179,349 @@ def recycle_phase(device, smi, functional=None):
     return record
 
 
+# ---------------------------------------------------------------------------
+# the nonsym phase: the north star's system through the nonsymmetric short
+# recurrences (bicgstab, tfqmr, idrs, fgmres, qmr)
+# ---------------------------------------------------------------------------
+
+#: the north star's grid, and its logical grid for the transpose check
+NONSYM_NX = NS_NX
+NONSYM_AT_NX = NX
+#: interleaved timed solves per lane (after the gated, counted one)
+NONSYM_ROUNDS = 3
+#: inner iterations per converged refinement cycle that the kernel lane
+#: may differ by from the plain lane, and a "1r" form from its classic form
+#: (for IDR(s), cycles of s + 1 matvecs; a cycle that ends at its float32
+#: floor is not compared: northstar.make_nonsym, ROADMAP.md C)
+NONSYM_INNER_SLACK = 3
+NONSYM_1R_SLACK = 3
+#: AT (K1 with the swapped coefficients, float32) against the float64
+#: transpose of the plain operator, relative to its largest entry
+NONSYM_AT_RTOL = 1e-5
+#: the flexible solve: omega of its 2-sweep Jacobi from zero
+NONSYM_JACOBI_OMEGA = 0.8
+
+
+def _nonsym_applications(name, call):
+    """What one solver call's counts predict for its applications of A,
+    AT and M (``MT = M`` counts as M): ``k`` its ``niter``, ``m`` TFQMR's
+    half-steps (``entries - 1``) and ``e`` the explicit residuals it took
+    (read off its A applications; a converged call takes at least one,
+    and no call more than one per step):
+
+    * bicgstab: A ``1 + 2k + e`` (r0, two per iteration), M ``2k``;
+    * tfqmr: A ``2 + m + e`` (r0, the first ``A M u``, one per
+      half-step), M ``2 + m + e`` (and the final ``x0 + M y``);
+    * idrs: A ``1 + k + e`` (``k`` the matvecs, ``s + 1`` per cycle),
+      M ``k``;
+    * fgmres: A ``1 + k + e``, M ``k``;
+    * qmr: A ``1 + k + e``, AT ``k``, M ``2k + 1 + e`` (``A M p`` and
+      ``M^T A^T q`` per iteration, one per explicit residual and the
+      final iterate).
+
+    Returns ``(want, e)``; raises where ``e`` is out of its range."""
+    k, m = call["niter"], call["entries"] - 1
+    a0, at, m0, e_in_m = {
+        "bicgstab": (1 + 2 * k, 0, 2 * k, 0),
+        "tfqmr": (2 + m, 0, 2 + m, 1),
+        "idrs": (1 + k, 0, k, 0),
+        "fgmres": (1 + k, 0, k, 0),
+        "qmr": (1 + k, k, 2 * k + 1, 1),
+    }[name]
+    e = call["A"] - a0
+    if not int(call["status"] == 0) <= e <= max(m, 1):
+        raise AssertionError(f"nonsym {name}: {e} explicit residuals in a "
+                             f"solver call {call}")
+    return {"A": a0 + e, "AT": at, "M": m0 + e_in_m * e}, e
+
+
+def _nonsym_launch_identity(label, name, counts, calls, vcycles=None):
+    """The kernel lane's K1-K3 launches against the applications: each
+    application of A or AT one K1, and one K1 per solver call (the
+    restart control's true residual); each V-cycle one K2 and one K3 per
+    kernel level (``KERNEL_LEVELS``), ``len(KERNEL_LEVELS) + 1`` K1 and
+    one coarse form (as the north star's, :func:`_ns_launch_identity`);
+    ``vcycles`` (default: every M application) and one K1 per other M
+    application (the flexible solve's 2-sweep Jacobi).  Each call's
+    applications must be what its counts predict
+    (:func:`_nonsym_applications`)."""
+    nlev = len(KERNEL_LEVELS)
+    for call in calls:
+        want, _ = _nonsym_applications(name, call)
+        got = {key: call[key] for key in want}
+        if got != want:
+            raise AssertionError(f"nonsym {label}: applications {got} of "
+                                 f"{call} against {want}")
+    tot = {key: sum(c[key] for c in calls) for key in ("A", "AT", "M")}
+    nv = tot["M"] if vcycles is None else vcycles
+    want = {"stencil5_affine": tot["A"] + tot["AT"] + len(calls)
+            + (nlev + 1) * nv + (tot["M"] - nv),
+            "stencil5_jacobi2": nlev * nv,
+            "stencil5_resrestrict_rows": nlev * nv,
+            "stencil5_coarse": nv}
+    got = {key: counts[key] for key in want}
+    print(f"nonsym {label}: applications {tot} in {len(calls)} solver calls "
+          f"({nv} V-cycles) -> launches {got} against {want}", flush=True)
+    if got != want:
+        raise AssertionError(f"nonsym {label}: launches {got} do not match "
+                             f"the applications {want}")
+    return got
+
+
+def _nonsym_solve(label, solve, b, cd64, counted):
+    """One gated solve (no warm-up: the kernels are built): float64
+    residual <= 1e-8; with ``counted`` the launch counts zeroed just
+    before and read just after, the solve profiled for its device time.
+    Returns ``(info, rel, launches, device seconds)``."""
+    import torch
+    from krypy_tpu_torch import kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, info = solve(b, warm=False)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    busy = _device_seconds(prof)
+    rel = float(torch.linalg.vector_norm(b - cd64(res.x))
+                / torch.linalg.vector_norm(b))
+    info["outer"] = res.resnorms.cpu().tolist()
+    calls = [(c["cycle"], c["niter"], c["status"], round(c["rel32"], 6))
+             for c in info["calls"]]
+    print(f"nonsym {label}: cycles={info['cycles']} inner {info['inner']} "
+          f"calls (cycle, niter, status, float32 rel) {calls} outer "
+          f"{[f'{v:.2e}' for v in info['outer']]} rel={rel:.3e}", flush=True)
+    _check_solution(res.x, b.shape[0], rel, res.resnorms.cpu().numpy())
+    if not counted and any(launches.values()):
+        raise AssertionError(f"nonsym {label}: the plain lane launched "
+                             f"kernels {launches}")
+    return info, rel, launches, busy
+
+
+def _nonsym_gated_cycles(info):
+    """``(iterations, converged)`` per refinement cycle: a cycle counts as
+    converged where its last solver call reached ``tol`` (status 0); the
+    first cycle from 511^2 up ends at its float32 floor instead
+    (``northstar.make_nonsym``), where the counts follow the rounding."""
+    last = {}
+    for c in info["calls"]:
+        last[c["cycle"]] = c["status"] == 0
+    return info["inner"], [last[j] for j in range(info["cycles"])]
+
+
+def _nonsym_agree(what, got, want, slack):
+    """Equal refinement cycles, and the inner iterations of every cycle
+    converged in both runs within ``slack``."""
+    (gi, gc), (wi, wc) = _nonsym_gated_cycles(got), _nonsym_gated_cycles(want)
+    if len(gi) != len(wi) or any(
+            p and q and abs(a - c) > slack
+            for a, c, p, q in zip(gi, wi, gc, wc)):
+        raise AssertionError(f"nonsym {what}: inner iterations per cycle "
+                             f"{gi} (converged {gc}) against {wi} "
+                             f"(converged {wc}), slack {slack}")
+
+
+def _nonsym_slack(label, limit):
+    """``limit`` iterations in the units of the solver's ``niter``: an
+    IDR(s) iteration is a cycle of ``s + 1`` matvecs."""
+    from krypy_tpu_torch.northstar import NONSYM_SOLVERS
+
+    name, kw = NONSYM_SOLVERS.get(label) or NONSYM_SOLVERS[label.split()[0]]
+    return limit * (kw["s"] + 1) if name == "idrs" else limit
+
+
+def _nonsym_lanes_agree(label, runs):
+    """The kernel lane against the plain lane: equal cycles, inner
+    iterations per converged cycle within ``NONSYM_INNER_SLACK``."""
+    _nonsym_agree(f"{label} kernel lane against plain lane",
+                  runs["cuda"]["info"], runs["torch"]["info"],
+                  _nonsym_slack(label, NONSYM_INNER_SLACK))
+
+
+def _nonsym_timing(label, lanes, b, rec):
+    """``NONSYM_ROUNDS`` interleaved solves per lane, the order
+    alternating; host walls, synchronised; the busy share from the gated
+    solve's device seconds over the median."""
+    walls = {lane: [] for lane in lanes}
+    for k in range(NONSYM_ROUNDS):
+        for lane in (list(lanes) if k % 2 == 0 else list(lanes)[::-1]):
+            walls[lane].append(_synced_wall(
+                lambda f=lanes[lane]: f(b, warm=False))[1])
+    for lane, ts in walls.items():
+        med = statistics.median(ts)
+        r = rec[lane]
+        r.update(median=med, min=min(ts), max=max(ts), all=ts,
+                 busy_share=r["busy_s"] / med)
+        print(f"timing nonsym {label} lane={lane} wall_s median={med:.6f} "
+              f"min={min(ts):.6f} max={max(ts):.6f} busy_share="
+              f"{r['busy_share']:.3f}", flush=True)
+
+
+def _nonsym_transpose_check(device):
+    """AT (K1 with the swapped coefficients, float32) against the
+    float64 reverse-mode transpose of the plain padded operator
+    (``functional.transpose_matvec``) on a seeded random vector at
+    ``NONSYM_AT_NX``^2, on the logical grid; the launch of AT is outside
+    any counted run."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+    from krypy_tpu_torch.northstar import cd_transpose
+
+    nx = NONSYM_AT_NX
+    h2 = (1.0 / (nx + 1)) ** 2
+    cd = ops.convection_diffusion_2d(nx, wind=(h2, 0.5 * h2), eps=h2,
+                                     pad_cols=True, impl="torch",
+                                     device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = ops.pad_grid_vec(torch.randn(nx * nx, generator=gen,
+                                     dtype=torch.float64, device=device),
+                         nx, nx)
+    want = F.transpose_matvec(cd, x.shape[0], torch.float64,
+                              device=device)(x)
+    got = cd_transpose(nx, "cuda")(x.float()).double()
+    err = float(torch.max(torch.abs(ops.unpad_grid_vec(got - want, nx, nx))))
+    scale = float(torch.max(torch.abs(want)))
+    pads = float(torch.max(torch.abs(want - ops.pad_grid_vec(
+        ops.unpad_grid_vec(want, nx, nx), nx, nx))))
+    print(f"nonsym AT@{nx}: K1 (swapped coefficients, float32) against "
+          f"transpose_matvec of the plain operator (float64) on the logical "
+          f"grid: max abs err {err:.3e} of max {scale:.3e} (limit "
+          f"{NONSYM_AT_RTOL} relative); the reverse-mode transpose's pad "
+          f"entries up to {pads:.3e}, AT's zero", flush=True)
+    if not err <= NONSYM_AT_RTOL * scale:
+        raise AssertionError(f"nonsym AT@{nx}: {err:.3e} against "
+                             f"{NONSYM_AT_RTOL * scale:.3e}")
+    return {"max_abs_err": err, "max_abs": scale, "pad_entries": pads}
+
+
+def _nonsym_flexible(device, b):
+    """One flexible ``fgmres`` solve per lane whose ``M`` alternates
+    between the V-cycle and a 2-sweep damped Jacobi from zero (one matvec
+    each; the alternation runs on across the inner solves): residual,
+    lanes and launches gated."""
+    import torch
+    from krypy_tpu_torch import ops
+    from krypy_tpu_torch.northstar import cd_coeffs, make_nonsym
+
+    nx = NONSYM_NX
+    h2 = (1.0 / (nx + 1)) ** 2
+    w = NONSYM_JACOBI_OMEGA / cd_coeffs(nx)[0]
+    runs = {}
+    for impl in ("cuda", "torch"):
+        cd32 = ops.convection_diffusion_2d(
+            nx, wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, impl=impl,
+            device=device)
+        vcycle = ops.multigrid_poisson_preconditioner(
+            nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl,
+            scale=1.0 / h2, device=device)
+        used = {"vcycle": 0, "jacobi": 0}
+
+        def M(v, cd32=cd32, vcycle=vcycle, used=used):
+            if (used["vcycle"] + used["jacobi"]) % 2 == 0:
+                used["vcycle"] += 1
+                return vcycle(v)
+            used["jacobi"] += 1
+            z = w * v
+            return z + w * (v - cd32(z))
+
+        solve, cd64 = make_nonsym(nx, impl, "fgmres", device, M=M)
+        used.update(vcycle=0, jacobi=0)
+        info, rel, launches, busy = _nonsym_solve(
+            f"fgmres flexible {impl}", solve, b, cd64, impl == "cuda")
+        runs[impl] = dict(info=info, rel=rel, launches=launches,
+                          used=dict(used), busy_s=busy)
+    _nonsym_lanes_agree("fgmres flexible", runs)
+    k = runs["cuda"]
+    _nonsym_launch_identity("fgmres flexible cuda", "fgmres",
+                            k["launches"], k["info"]["calls"],
+                            vcycles=k["used"]["vcycle"])
+    return {lane: {"cycles": r["info"]["cycles"], "inner": r["info"]["inner"],
+                   "rel": r["rel"], "applications": r["used"]}
+            for lane, r in runs.items()}
+
+
+def nonsym_phase(device):
+    """The nonsymmetric short recurrences on the north star's system
+    (``--only nonsym``): for each of ``northstar.NONSYM_SOLVERS``
+    (bicgstab, tfqmr, idrs(4) classic and "1r", fgmres(30) with cgs2, qmr
+    classic and "1r" with ``AT=`` K1 on the swapped coefficients and ``MT
+    = M``) at ``NONSYM_NX``^2 on the kernel lane (K1-K3, the coarse form)
+    and the plain lane: float32 inner solves to 1e-3 (up to 2 calls per
+    cycle, ``make_nonsym``'s restart control), the padded V-cycle the
+    right preconditioner, float64 refinement to 1e-8.  Gates per solver:
+    the float64 residual; equal refinement cycles on both lanes and, in
+    every cycle whose float32 solve converged on both, inner iterations
+    within ``NONSYM_INNER_SLACK`` (the first cycle ends at its float32
+    floor, where the counts follow the rounding); each "1r" form against
+    its classic form likewise within ``NONSYM_1R_SLACK``; the applications
+    each solver call's counts predict and the K1-K3 launches those
+    applications predict (:func:`_nonsym_launch_identity`).  Then AT
+    against the plain operator's transpose at ``NONSYM_AT_NX``^2, and one
+    flexible fgmres solve per lane.  Timed: 3 interleaved solves per
+    lane, the busy share of the gated, profiled solve.  Prints one JSON
+    line and returns it."""
+    import torch
+    from krypy_tpu_torch.northstar import NONSYM_SOLVERS, make_nonsym
+
+    t0 = time.perf_counter()
+    nx = NONSYM_NX
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    record = {"nx": nx, "device": _smi(), "solvers": {}, "launches": {}}
+    failed, infos = [], {}
+    for label, (name, _) in NONSYM_SOLVERS.items():
+        t = time.perf_counter()
+        try:
+            lanes, runs = {}, {}
+            for impl in ("cuda", "torch"):
+                solve, cd64 = make_nonsym(nx, impl, label, device)
+                lanes[impl] = solve
+                info, rel, launches, busy = _nonsym_solve(
+                    f"{label} {impl}", solve, b, cd64, impl == "cuda")
+                runs[impl] = dict(info=info, rel=rel, busy_s=busy,
+                                  launches=launches, outer=info["outer"])
+            _nonsym_lanes_agree(label, runs)
+            record["launches"][label] = _nonsym_launch_identity(
+                f"{label} cuda", name, runs["cuda"]["launches"],
+                runs["cuda"]["info"]["calls"])
+            rec = {lane: {"cycles": r["info"]["cycles"],
+                          "inner": r["info"]["inner"],
+                          "calls": [{k: c[k] for k in (
+                              "cycle", "niter", "status", "rel32", "A",
+                              "AT", "M")} for c in r["info"]["calls"]],
+                          "outer": r["outer"], "rel": r["rel"],
+                          "busy_s": r["busy_s"]}
+                   for lane, r in runs.items()}
+            infos[label] = {lane: r["info"] for lane, r in runs.items()}
+            _nonsym_timing(label, lanes, b, rec)
+            record["solvers"][label] = rec
+        except AssertionError as exc:
+            failed.append(f"{label}: {exc}")
+        print(f"nonsym {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    for label in NONSYM_SOLVERS:
+        base = label[:-3]
+        if label.endswith(" 1r") and label in infos and base in infos:
+            for lane in ("cuda", "torch"):
+                try:
+                    _nonsym_agree(f"{label} against {base}, lane {lane}",
+                                  infos[label][lane], infos[base][lane],
+                                  _nonsym_slack(label, NONSYM_1R_SLACK))
+                except AssertionError as exc:
+                    failed.append(str(exc))
+    for name, fn, args in (("transpose", _nonsym_transpose_check, (device,)),
+                           ("flexible", _nonsym_flexible, (device, b))):
+        try:
+            record[name] = fn(*args)
+        except AssertionError as exc:
+            failed.append(f"{name}: {exc}")
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    print(json.dumps({"nonsym": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("nonsym phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -5274,7 +5638,7 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
                              "config5", "mesh", "onereduce", "compat",
-                             "recycle"),
+                             "recycle", "nonsym"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -5287,7 +5651,9 @@ def main(argv=None):
                          "configs 2 and 3 and the padded Poisson through "
                          "linsys, deflation and Ritz; or the recycling "
                          "lane: the battery, config 5 through "
-                         "recycling.RecyclingGmres, checkpoint); "
+                         "recycling.RecyclingGmres, checkpoint; or the "
+                         "nonsymmetric short recurrences on the north "
+                         "star's system); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -5339,19 +5705,30 @@ def main(argv=None):
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase, "kernels": kernels_phase,
          "mesh": mesh_phase, "onereduce": onereduce_phase,
-         "compat": compat_phase}[args.only](device)
+         "compat": compat_phase, "nonsym": nonsym_phase}[args.only](device)
         return
+    last = [t0]
+
+    def mark(what):
+        """Print the phase's wall and the script's so far."""
+        now = time.perf_counter()
+        print(f"phase wall {what}: {now - last[0]:.1f} s (script "
+              f"{now - t0:.1f} s)", flush=True)
+        last[0] = now
+
     report = stencil_phase(device)
     report["coarse"] = coarse_phase(device)
     laplacian_entry_phase(device)
     report.update(ortho_phase(device))
     report.update(project_phase(device))
+    mark("kernel parity")
     _, solves, b = solve_phase(device)
     timing_phase("poisson", solves, b, ROUNDS)
     ns_counts, ns_solves, ns_b = northstar_phase(device)
     timing_phase("northstar", ns_solves, ns_b, NS_ROUNDS)
     level_ranking(report, ns_counts)
     vcycle_host_phase(device)
+    mark("poisson, north star")
     full_counts = config4_full_phase(device)
     c4_counts, c4_solves, c4_b, c4_record = config4_phase(device)
     walls = timing_phase("config4 deflated", c4_solves, c4_b, C4_ROUNDS)
@@ -5366,16 +5743,25 @@ def main(argv=None):
     s3_counts = {k: full_counts[k] + c + rec_counts[k]
                  for k, c in c4_counts.items()}
     s3_path = f"config4@{C4_FULL}+config4@{C4_NX}+recycling@{C4_FULL}"
+    mark("config 4")
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
+    mark("baseline")
     c5_jvp, c5_full, c5_lines = config5_phase(device, smi)
+    mark("config 5")
     onered = onereduce_phase(device)
+    mark("onereduce")
     compat = compat_phase(device)
+    mark("compat")
     # the config-5 phase's counted kernel-lane sequences are the recycle
     # phase's functional references
     recycle = recycle_phase(device, smi, functional={
         line["nx"]: line["lanes"]["cuda"] for line in c5_lines
         if line["config"] == "5" and line["nx"] in RC_C5_GRIDS})
+    mark("recycle")
+    nonsym = nonsym_phase(device)
+    mark("nonsym")
     worlds = mesh_phase(device)
+    mark("mesh")
     if args.profile:
         _profile_solve("poisson", solves["cuda"], b, args.profile)
         _profile_solve("northstar", ns_solves["cuda"], ns_b, args.profile)
@@ -5480,6 +5866,13 @@ def main(argv=None):
         for label, *_ in OR_NORTHSTAR:
             rows[-1][f"launches_northstar {label}@{NS_NX}"] = \
                 onered["northstar_launches"][f"{label} cuda"][name]
+        # the nonsymmetric short recurrences on the north star's system
+        if cu == "stencil5.cu":
+            for label, used in nonsym["launches"].items():
+                rows[-1][f"launches_nonsym {label}@{NONSYM_NX}"] = used[name]
+                if name == "stencil5_affine":
+                    rows[-1][f"coarse_launches_nonsym {label}@"
+                             f"{NONSYM_NX}"] = used["stencil5_coarse"]
     # K1's forward-mode rule: the tangent's launch of config 5's
     # Jacobian actions, timed as the jvp of the matvec at config 5's grid
     t = c5_jvp["times"][C5_FULL, C5_FULL]

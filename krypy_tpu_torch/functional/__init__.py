@@ -4,9 +4,12 @@
 ``FusedDeflation``), ``restarted_gmres``, ``refine_to``, the deflation
 module: ``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the
 Ritz extraction, ``RecyclingGmres`` and ``AutoRecyclingGmres``,
-``newton_krylov``, and the mesh price model ``policy``)."""
+``newton_krylov``, the mesh price model ``policy``, and the
+nonsymmetric short recurrences ``bicgstab``, ``tfqmr``, ``qmr`` (with
+``transpose_matvec``), ``idrs`` and the flexible ``fgmres``)."""
 
 from . import policy
+from .bicgstab import bicgstab
 from .cg import cg
 from .common import (
     BREAKDOWN,
@@ -27,10 +30,14 @@ from .deflation import (
     ritz_pairs,
     weighted_qr,
 )
+from .fgmres import fgmres
 from .gmres import FusedDeflation, gmres, restarted_gmres
+from .idr import idrs
 from .minres import minres
 from .newton import NewtonResult, newton_krylov
+from .qmr import qmr, transpose_matvec
 from .refine import refine_to
+from .tfqmr import tfqmr
 
 __all__ = [
     "cg",
@@ -46,6 +53,12 @@ __all__ = [
     "RecyclingGmres",
     "AutoRecyclingGmres",
     "newton_krylov",
+    "bicgstab",
+    "tfqmr",
+    "qmr",
+    "transpose_matvec",
+    "idrs",
+    "fgmres",
     "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",

@@ -357,3 +357,7 @@ def givens(a, b):
         torch.where(abs_a == 0, abs_b.to(a.dtype), sign_a * denom.to(a.dtype)),
     )
     return c, s, r
+
+
+#: the JAX package's name of :func:`givens`
+givens_traced = givens

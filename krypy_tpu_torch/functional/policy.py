@@ -72,14 +72,17 @@ HBM_BYTES_PER_S_TABLE = {
 #: measured extra cost per iteration over the time of one vector sweep).
 #: The H100's own ratios are measured by chip_smoke.py's onereduce phase
 #: and recorded in PERF.md beside these; the table is not changed here.
-#: The entries of the solvers not ported yet (``qmr``, ``idrs``,
-#: ``shifted_cg``) come with them.
+#: ``shifted_cg``'s entry comes with its solver.
 ONE_REDUCE_EXTRA_SWEEPS = {
     "cg": 12.4,
     "minres": 16.2,
+    # QMR's (9, N) x (N, 6) cross-Gram; it saves three sync points of four
+    "qmr": 87.0,
     # deflated short recurrences (d = 4); MINRES's fold has CG's shape
     "deflated_cg": 16.0,
     "deflated_minres": 16.0,
+    # IDR(s) at s = 4, per MATVEC: one sync point of ~2 saved
+    "idrs": 17.1,
 }
 
 

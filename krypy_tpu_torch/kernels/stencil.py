@@ -289,7 +289,8 @@ class _Affine(torch.autograd.Function):
     tangent is a zero one (``g' = None`` leaves out the ``beta`` term).
     ``forward`` and ``jvp`` both launch K1 on CUDA tensors and run its
     plain version on CPU tensors, so the CPU tests go through the same
-    rule.  Reverse mode is not ported."""
+    rule.  K1 has no reverse mode, as in the JAX package (``backward``
+    raises)."""
 
     @staticmethod
     def forward(x, g, geom, tangent):
@@ -313,8 +314,10 @@ class _Affine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(
-            "stencil5_affine has a forward-mode rule only; reverse mode "
-            "is not ported (ROADMAP.md queue A, A7)")
+            "stencil5_affine (K1) has no reverse mode, as the JAX "
+            "package's Pallas K1 has no transpose rule; qmr on a kernel "
+            "operator takes AT= (for a stencil (cc, cu, cd, cl, cr), the "
+            "stencil (cc, cd, cu, cr, cl))")
 
 
 def _differentiated(*tensors):

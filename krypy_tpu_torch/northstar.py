@@ -27,7 +27,8 @@ import torch
 from . import functional as F, ops
 from .functional.common import MAXITER, SolveResult
 
-__all__ = ["cd_coeffs", "kappa_bound", "make_northstar"]
+__all__ = ["cd_coeffs", "cd_transpose", "kappa_bound", "make_northstar",
+           "make_nonsym", "NONSYM_SOLVERS"]
 
 
 def cd_coeffs(nx):
@@ -40,6 +41,21 @@ def cd_coeffs(nx):
     wx, wy, eps = h2, 0.5 * h2, h2
     return (eps * (4.0 / h2) + wx / h + wy / h, -eps / h2 - wx / h,
             -eps / h2, -eps / h2 - wy / h, -eps / h2)
+
+
+def cd_transpose(nx, impl):
+    """The transpose of the north star's padded float32 operator on the
+    logical grid: the same stencil with the up/down and left/right
+    coefficients swapped, ``(cc, cd, cu, cr, cl)`` (K1 with
+    ``impl="cuda"`` on float32, the plain stencil otherwise).  Its pad
+    entries are zero, where the reverse-mode transpose of the padded
+    operator writes the pads its forward stencil reads as ghosts; the two
+    agree on the logical grid."""
+    cc, cu, cd, cl, cr = cd_coeffs(nx)
+    matvec, nx_pad, ny_pad = ops._padded_stencil_matvec(
+        nx, nx, (cc, cd, cu, cr, cl), impl)
+    matvec.shape = (nx_pad * ny_pad,) * 2
+    return matvec
 
 
 def kappa_bound(nx, wind=(1.0, 0.5)):
@@ -128,6 +144,132 @@ def make_northstar(nx, impl, ortho, device="cuda", *, basis="f32",
         # the GMRES iterations of each refinement cycle's (up to 3) calls;
         # a first solve's warm-up cycles come first and are left out
         info["gmres_niters"] = calls[len(calls) - info["cycles"]:]
+        return res, info
+
+    return solve, cd64
+
+
+#: the nonsymmetric short recurrences of :func:`make_nonsym`: the solver
+#: and its arguments (each takes the V-cycle as its right preconditioner;
+#: idrs's ``maxiter`` counts matvecs, ``s + 1`` to its cycle)
+NONSYM_SOLVERS = {
+    "bicgstab": ("bicgstab", {"maxiter": 10}),
+    "tfqmr": ("tfqmr", {"maxiter": 10}),
+    "idrs": ("idrs", {"s": 4, "maxiter": 20}),
+    "idrs 1r": ("idrs", {"s": 4, "maxiter": 20, "variant": "1r"}),
+    "fgmres": ("fgmres", {"ortho": "cgs2", "maxiter": 30}),
+    "qmr": ("qmr", {"maxiter": 10}),
+    "qmr 1r": ("qmr", {"maxiter": 10, "variant": "1r"}),
+}
+
+
+#: the float32 inner solves' tolerance, and the solver calls per cycle
+NONSYM_TOL = 1e-3
+NONSYM_RESTARTS = 2
+
+
+def make_nonsym(nx, impl, solver, device="cuda", *, M=None):
+    """The north star's system solved by a nonsymmetric short recurrence
+    of :data:`NONSYM_SOLVERS`: float64 refinement (``refine_to(compiled=
+    True)`` to 1e-8) around float32 solves of the padded, h^2-scaled
+    system to ``NONSYM_TOL``, the padded V-cycle (coarsest 31, 60 coarse
+    sweeps) the right preconditioner ``M``; ``qmr`` takes ``AT=``
+    :func:`cd_transpose` and ``MT = M`` (the V-cycle is symmetric).
+    ``impl="cuda"`` runs K1-K3 (and K1 for ``AT``), ``impl="torch"``
+    their plain versions.  ``M``, where given, replaces the V-cycle (a
+    flexible preconditioner for ``fgmres``).
+
+    Each cycle's inner solve is :func:`make_northstar`'s restart control:
+    up to ``NONSYM_RESTARTS`` calls of the solver, each from the last
+    iterate, keeping the best by true float32 residual (one matvec per
+    call), and stopping on a call that does not improve or that
+    converged.  On large grids the first cycle's float32 solve cannot
+    reach its tolerance: its smooth correction has a float32 floor (at
+    4095^2 a float64 residual of 8e-2 after the cycle, whether its calls
+    took 20 iterations or 40: chip_smoke.py's nonsym phase prints it),
+    and the solvers stall there (MAXITER) or break down (BiCGStab, IDR(s),
+    whose last iterate can be worse than its first); the restart from
+    that iterate reaches the floor, and the later cycles, on rough
+    residuals, converge in a few iterations.
+
+    Returns ``solve(b, warm=True) -> (result, info)`` and the float64
+    operator.  ``info["calls"]`` has, per solver call of the counted solve
+    (the warm-up's left out), its refinement ``cycle``, ``niter``,
+    ``status``, ``entries`` (the non-NaN ``resnorms``: TFQMR's half-steps
+    + 1) and the applications of ``A``, ``AT`` and ``M`` it made (``MT =
+    M`` counts as ``M``; the restart control's matvec is not among them);
+    ``info["inner"]`` the iterations of each cycle."""
+    name, kwargs = NONSYM_SOLVERS[solver]
+    h = 1.0 / (nx + 1)
+    h2 = h * h
+    h2_f32 = float(np.float32(h2))
+    cd32 = ops.convection_diffusion_2d(
+        nx, wind=(1.0 * h2, 0.5 * h2), eps=h2, pad_cols=True, impl=impl,
+        device=device)
+    cd64 = ops.convection_diffusion_2d(nx, wind=(1.0, 0.5), eps=1.0,
+                                       device=device)
+    if M is None:
+        M = ops.multigrid_poisson_preconditioner(
+            nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl,
+            scale=1.0 / h2, device=device)
+    applied = {"A": 0, "AT": 0, "M": 0}
+
+    def counted(key, op):
+        def mv(x):
+            applied[key] += 1
+            return op(x)
+
+        return mv
+
+    kwargs = dict(kwargs, M=counted("M", M))
+    if name == "qmr":
+        kwargs.update(AT=counted("AT", cd_transpose(nx, impl)),
+                      MT=kwargs["M"])
+    A = counted("A", cd32)
+    fn = getattr(F, name)
+    calls = []
+
+    def inner_solve(r32):
+        rs = ops.pad_grid_vec(r32 * h2_f32, nx, nx)
+        rs_norm = torch.clamp(torch.linalg.vector_norm(rs), min=1e-30)
+        x = bx = torch.zeros_like(rs)
+        best, nit = np.float32(np.inf), 0
+        cycle = calls[-1]["cycle"] + 1 if calls else 0
+        for _ in range(NONSYM_RESTARTS):
+            for key in applied:
+                applied[key] = 0
+            res = fn(A, rs, x0=x, tol=NONSYM_TOL, **kwargs)
+            rel = np.float32((torch.linalg.vector_norm(rs - cd32(res.x))
+                              / rs_norm).item())
+            calls.append(dict(
+                applied, cycle=cycle, niter=int(res.niter),
+                status=int(res.status), rel32=float(rel),
+                entries=int((~torch.isnan(res.resnorms)).sum())))
+            better = rel < best
+            x = res.x
+            if better:
+                bx, best = res.x, rel
+            nit += int(res.niter)
+            if not better or int(res.status) == 0:
+                break
+        dev = rs.device
+        return SolveResult(
+            x=ops.unpad_grid_vec(bx, nx, nx),
+            resnorms=torch.zeros(1, dtype=torch.float32, device=dev),
+            niter=torch.tensor(nit, dtype=torch.int64, device=dev),
+            status=torch.tensor(MAXITER, dtype=torch.int64, device=dev))
+
+    def solve(b, warm=True):
+        calls.clear()
+        res, info = F.refine_to(cd64, b, inner_solve, tol=1e-8,
+                                compiled=True, warm=warm)
+        first = calls[-1]["cycle"] - info["cycles"] + 1 if calls else 0
+        info["calls"] = [c for c in calls if c["cycle"] >= first]
+        for c in info["calls"]:
+            c["cycle"] -= first
+        info["inner"] = [sum(c["niter"] for c in info["calls"]
+                             if c["cycle"] == j)
+                         for j in range(info["cycles"])]
         return res, info
 
     return solve, cd64

@@ -1508,3 +1508,58 @@ def test_recycling_battery_on_the_card(cuda_device, solver, which):
         warnings.simplefilter("ignore")
         record = cs._rc_battery_case(case, None)
     assert record["card"]["xk_device"] == ["cuda"] * 3
+
+
+def test_k1_transpose_against_plain_reverse_mode(cuda_device):
+    """``northstar.cd_transpose`` (K1 on the swapped coefficients, float32)
+    against the float64 reverse-mode transpose of the plain padded
+    operator on the logical grid, within the stencil tolerance; K1
+    itself has no reverse mode."""
+    from krypy_tpu_torch.northstar import cd_transpose
+
+    nx = 255
+    h2 = (1.0 / (nx + 1)) ** 2
+    plain = ops.convection_diffusion_2d(nx, wind=(h2, 0.5 * h2), eps=h2,
+                                        pad_cols=True, impl="torch",
+                                        device=cuda_device)
+    x = ops.pad_grid_vec(torch.randn(nx * nx, dtype=torch.float64,
+                                     device=cuda_device), nx, nx)
+    want = F.transpose_matvec(plain, x.shape[0], torch.float64,
+                              device=cuda_device)(x)
+    kernels.reset_launch_counts()
+    got = cd_transpose(nx, "cuda")(x.float())
+    assert kernels.launch_counts()["stencil5_affine"] == 1
+    g, w = (ops.unpad_grid_vec(v, nx, nx).double() for v in (got, want))
+    assert float(torch.max(torch.abs(g - w))) <= 1e-5 * float(
+        torch.max(torch.abs(w)))
+    k1 = ops.convection_diffusion_2d(nx, wind=(h2, 0.5 * h2), eps=h2,
+                                     pad_cols=True, impl="cuda",
+                                     device=cuda_device)
+    with pytest.raises(NotImplementedError, match="AT="):
+        F.transpose_matvec(k1, x.shape[0], torch.float32,
+                           device=cuda_device)(x.float())
+
+
+@pytest.mark.parametrize("label", ["bicgstab", "tfqmr", "idrs", "fgmres",
+                                   "qmr"])
+def test_nonsym_north_star_on_the_card(cuda_device, label):
+    """``northstar.make_nonsym`` at 511^2 through K1-K3 against its plain
+    lane: both to 1e-8, the same refinement cycles, K2 and K3 launched
+    and none on the plain lane."""
+    from krypy_tpu_torch.northstar import make_nonsym
+
+    nx = 511
+    b = torch.ones(nx * nx, dtype=torch.float64, device=cuda_device)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        solve, cd64 = make_nonsym(nx, impl, label, cuda_device)
+        kernels.reset_launch_counts()
+        res, info = solve(b, warm=False)
+        rel = float(torch.linalg.vector_norm(b - cd64(res.x))
+                    / torch.linalg.vector_norm(b))
+        runs[impl] = (info, rel, kernels.launch_counts())
+    (ik, rk, lk), (it, rt, lt) = runs["cuda"], runs["torch"]
+    assert rk <= 1e-8 and rt <= 1e-8
+    assert ik["cycles"] == it["cycles"]
+    assert lk["stencil5_jacobi2"] > 0 and lk["stencil5_resrestrict_rows"] > 0
+    assert not any(lt.values())

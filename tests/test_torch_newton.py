@@ -264,7 +264,7 @@ def test_k1_rule_against_plain_jvp():
         out = k1(fwAD.make_dual(x, v), g)
         torch.testing.assert_close(fwAD.unpack_dual(out).tangent, want,
                                    rtol=0, atol=1e-13)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="no reverse mode.*AT="):
         k1(x.clone().requires_grad_(), g).sum().backward()
     # the plain path: no transform, no grad, no Function
     torch.testing.assert_close(k1(x, g), plain(x, g), rtol=0, atol=0)

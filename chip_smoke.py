@@ -13,7 +13,7 @@ share the card.
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
                                   mesh,onereduce,compat,recycle,
-                                  nonsym}]
+                                  nonsym,eigen}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -224,7 +224,12 @@ before printing its last line):
    (``_CompatNewtonSolver``) whose every Jacobian solve is
    ``LinearSystem(J, b, self_adjoint=True)`` solved by one
    ``recycling.RecyclingGmres(RitzFactorySimple(3, "sm"))``, at 511^2
-   and 1023^2, each sequence run to the functional kernel lane's Newton
+   and 1023^2 (the default run: 511^2 alone, ``RC_C5_WHOLE_GRIDS``, the
+   room the eigen phase takes, so only ``--only recycle`` puts the keys
+   ``launches_recycle config5 compat@1023`` and ``launches_recycle
+   config5 compat recycle_capped@1023`` on the ``kernels`` line), each
+   sequence run to the functional
+   kernel lane's Newton
    steps + 1 (``suite.config5_nls_newton_recycling``; at 1023^2 the
    config-5 phase's counted sequence in the default run), under the
    reference's capped-solve rule (a solve that raises
@@ -245,8 +250,9 @@ before printing its last line):
    basis's Rayleigh quotients nearest to the Ritz values that
    ``functional.ritz_pairs`` selects from the same Arnoldi relation);
    at 511^2 ``RC_C5_ROUNDS`` interleaved sequences per lane timed (``serve_s``,
-   also per Newton step and per inner iteration), at 1023^2 the busy
-   share of a profiled compat sequence of 2 Newton steps; at 511^2 also
+   also per Newton step and per inner iteration), at the last grid (1023^2;
+   511^2 in the default run) the busy share of a profiled compat sequence
+   of 2 Newton steps; at 511^2 also
    ``RecyclingGmres("RitzApproxKrylov")`` and
    ``RecyclingMinres("RitzAprioriMinres")`` (its first deflated solve
    against ``functional.deflated_minres``) under the same gates but the
@@ -271,8 +277,29 @@ before printing its last line):
    K1-K3's launches against the applications of A, AT and M that each
    solver call's counts predict; AT against the plain operator's
    reverse-mode transpose at 1023^2; a flexible fgmres whose M alternates
-   between the V-cycle and a 2-sweep Jacobi; 3 interleaved solves per
-   lane and the busy share of the gated solve; one JSON line;
+   between the V-cycle and a 2-sweep Jacobi; ``NONSYM_ROUNDS`` (1)
+   interleaved solve per lane and the kernel lane's busy share of the
+   gated solve (the plain lane unprofiled); one JSON line;
+11f. the eigen phase (``--only eigen``): the eigensolver lane, float64
+   outer work over the float32 kernel lane (``krypy_tpu_torch.eigen``'s
+   pipelines): (a) ``eigsh``, the 6 smallest pairs of bench.py's Poisson
+   operator at 4095^2 by shift-invert block Lanczos (``sigma=0``,
+   ``block_size=2``; ``inv`` float64 refinement to 1e-9 around the float32
+   multigrid-CG: K1-K3 and the coarse form), gated on status, the closed
+   form (both members of each degenerate pair; 1e-6 relative) and
+   ``pair_resnorms``, then ``ortho="cgs2_1r"`` for the 2 smallest held to
+   the classic form; (b) ``lobpcg`` with the V-cycle on ``x.float()``,
+   held to the closed form and to (a) within 1e-8; (c) ``eigs``, the 4
+   eigenvalues nearest 0 of the north star's operator (``inv`` the north
+   star's refined GMRES, K1-K6, on the real and imaginary parts) against
+   its closed form; each kernel-lane run's K1-K6 launches equal to the
+   applications it counted; every run also at 1023^2 on both lanes
+   (theta within 1e-8, counts within 1, LOBPCG's within its lanes' own
+   spread under another float32 rounding of the V-cycle), (a)'s first sweep there profiled
+   once for its busy share; (d) the filtered lane (``eigsh_window`` on
+   the window holding lambda_22 and lambda_13 = lambda_31, ``window_count``
+   and ``kpm_dos``) once at ``EIGEN_WINDOW_NX``^2 (float64: the plain
+   stencil, no kernel; ``"reduced_from": 4095``); one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -2741,7 +2768,7 @@ def _busy_share(label, solve, b, median_wall):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         solve(b)
         torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in _device_events(prof)) / 1e6
+    busy = _device_seconds(prof)
     print(f"busy {label}: device {busy:.6f} s per solve, "
           f"{100 * busy / median_wall:.1f}% of the median wall "
           f"{median_wall:.6f} s", flush=True)
@@ -3386,8 +3413,7 @@ def config5_phase(device, smi):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 _c5_run(nx, "cuda", False, device)
-            busy = sum(e.time_range.elapsed_us()
-                       for e in _device_events(prof)) / 1e6
+            busy = _device_seconds(prof)
             timing["cuda"]["busy_s"] = busy
             timing["cuda"]["busy_share_of_total"] = \
                 busy / timing["cuda"]["total_median"]
@@ -3454,6 +3480,9 @@ OR_NORTHSTAR = (("cgs2_1r left", "cgs2_1r", "f32", "left"),
                 ("bf16 x cgs2_1r right", "cgs2_1r", "bf16", "right"))
 #: slope timing: the two fixed iteration counts and the repeats of each
 OR_KS, OR_REPS = (20, 40), 3
+#: the whole script's solves per slope point (``--only onereduce`` takes
+#: ``OR_REPS``): ~27 s of the room the eigen phase takes
+OR_WHOLE_REPS = 1
 #: the slope grids: onereduce_bench.py's 1023^2 (a float32 vector is 4.2
 #: MB, inside the 50 MB L2: launches are timed) and the north star's
 #: 4095^2 (67 MB: traffic shows)
@@ -3735,11 +3764,11 @@ def _or_solver(pair, scheme, A, Mj, U):
         A, b, maxiter=maxiter, tol=tol, **kw, **extra)
 
 
-def _or_slopes(device):
+def _or_slopes(device, reps=OR_REPS):
     """(c): every pair, both schemes, both lanes, both grids: the median
-    of ``OR_REPS`` solves at tol 0 of each of ``OR_KS`` iterations, and
-    the slope in us per iteration.  Returns ``{(grid, lane, pair,
-    scheme): us}``."""
+    of ``reps`` solves at tol 0 of each of ``OR_KS`` iterations, and the
+    slope in us per iteration.  Returns ``{(grid, lane, pair, scheme):
+    us}``."""
     import torch
 
     slopes = {}
@@ -3753,7 +3782,7 @@ def _or_slopes(device):
                     t = {}
                     for K in OR_KS:
                         ts = []
-                        for _ in range(OR_REPS):
+                        for _ in range(reps):
                             torch.cuda.synchronize()
                             t0 = time.perf_counter()
                             res = solve(b, K, 0.0)
@@ -3867,12 +3896,13 @@ def _extra_sweeps(slopes, hbm):
     return out
 
 
-def onereduce_phase(device):
+def onereduce_phase(device, reps=OR_REPS):
     """The one-reduce lane (``--only onereduce``): the policy constants,
     (a) and (b) the north star in its cgs2_1r and bfloat16 x cgs2_1r
-    forms, (c) the slope timing of the pairs and their convergence
-    gates.  (d), the one-reduce solves on the mesh, runs in the mesh
-    phase.  Prints one JSON line and returns it."""
+    forms, (c) the slope timing of the pairs (``reps`` solves per point;
+    the whole script ``OR_WHOLE_REPS``) and their convergence gates.
+    (d), the one-reduce solves on the mesh, runs in the mesh phase.
+    Prints one JSON line and returns it."""
     t0 = time.perf_counter()
     parts = {}
 
@@ -3886,7 +3916,7 @@ def onereduce_phase(device):
     const = part("policy", policy_constants, device)
     ns, ns_counts = part("northstar", _or_northstar, device)
     checks = part("checks", _or_checks, device)
-    slopes = part("slopes", _or_slopes, device)
+    slopes = part("slopes", _or_slopes, device, reps)
     ratios = _extra_sweeps(slopes, const["HBM_BYTES_PER_S"])
     record = {"onereduce": {
         "policy": const, "northstar": ns, "northstar_launches": ns_counts,
@@ -4498,6 +4528,9 @@ RC_BOUND_RTOL = 1e-6
 #: runs at most the functional lane's Newton steps + RC_C5_NEWTON_SLACK,
 #: the depth at which the Newton gate decides
 RC_C5_GRIDS = (C5_MID, C5_FULL)
+#: the whole script's grids (``--only recycle`` runs RC_C5_GRIDS): the
+#: 1023^2 sequences, ~90 s, made room for the eigen phase
+RC_C5_WHOLE_GRIDS = (C5_MID,)
 RC_C5_NEWTON_SLACK = 1
 RC_C5_INNER_SLACK = 3
 #: under the functional lane's rule, inner iterations are compared where
@@ -4995,16 +5028,17 @@ def _rc_print(nx, label, rec):
           f"{rec['failed']}", flush=True)
 
 
-def _rc_config5(device, smi, functional=None):
-    """(b): config 5 through ``recycling.RecyclingGmres`` at 511^2 and
-    1023^2 beside the functional kernel lane, each sequence at the Newton
-    gate's depth: under the reference's rule and under the functional
-    lane's (``recycle_capped``); at 511^2 ``RC_C5_ROUNDS`` interleaved
-    sequences per lane timed (the first, counted, round gated), at
-    1023^2 beside the functional lane's counted sequence
-    (``functional[nx]``, the config-5 phase's, or run here) and the busy
-    share of a compatibility sequence (``RC_C5_PROFILE_STEPS`` Newton
-    steps, profiled); at 511^2 also the two automatic factories.  Every
+def _rc_config5(device, smi, functional=None, grids=RC_C5_GRIDS):
+    """(b): config 5 through ``recycling.RecyclingGmres`` on ``grids``
+    (511^2 and 1023^2) beside the functional kernel lane, each sequence at
+    the Newton gate's depth: under the reference's rule and under the
+    functional lane's (``recycle_capped``); at the first grid
+    ``RC_C5_ROUNDS`` interleaved sequences per lane timed (the first,
+    counted, round gated), at the others beside the functional lane's
+    counted sequence (``functional[nx]``, the config-5 phase's, or run
+    here); at the last grid the busy share of a compatibility sequence
+    (``RC_C5_PROFILE_STEPS`` Newton steps, profiled); at the first also
+    the two automatic factories.  Every
     sequence runs whatever an earlier one failed: the gates' failures are
     listed under ``"failed"``."""
     import torch
@@ -5012,10 +5046,10 @@ def _rc_config5(device, smi, functional=None):
 
     record, fs = {}, {}
     simple = ("RitzFactorySimple(3, sm)", (3, "sm"))
-    for nx in RC_C5_GRIDS:
-        f = (functional or {}).get(nx) if nx != RC_C5_GRIDS[0] else None
+    for nx in grids:
+        f = (functional or {}).get(nx) if nx != grids[0] else None
         serve = {"compat": [], "functional": []}
-        rounds = RC_C5_ROUNDS if nx == RC_C5_GRIDS[0] else 1
+        rounds = RC_C5_ROUNDS if nx == grids[0] else 1
         c = None
         for r in range(rounds):
             for lane in (("functional", "compat") if r % 2 == 0
@@ -5055,12 +5089,11 @@ def _rc_config5(device, smi, functional=None):
             v, smi, **_rc_c5_check(simple[0] + " recycle_capped", nx, v, f,
                                    ritz=simple[1]))
         _rc_print(nx, simple[0] + " recycle_capped", rec)
-        if nx == RC_C5_GRIDS[-1]:
+        if nx == grids[-1]:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 prof_run = _rc_c5_compat(nx, device, RC_C5_PROFILE_STEPS)
-            busy = sum(e.time_range.elapsed_us()
-                       for e in _device_events(prof)) / 1e6
+            busy = _device_seconds(prof)
             record[f"{nx}"]["profiled"] = {
                 "newton_steps": prof_run["newton_steps"],
                 "total_s": prof_run["total_s"], "busy_s": busy,
@@ -5071,7 +5104,7 @@ def _rc_config5(device, smi, functional=None):
                   f"({prof_run['total_s']:.3f} s)", flush=True)
     # the automatic factories at the first grid, at the gate's depth (the
     # Jacobian is symmetric indefinite: MINRES, not CG)
-    nx = RC_C5_GRIDS[0]
+    nx = grids[0]
     f = fs[nx]
     for label, solver, spec in (
             ("RecyclingGmres RitzApproxKrylov", "RecyclingGmres",
@@ -5140,12 +5173,12 @@ def _rc_checkpoint(device):
             "launches": launches}
 
 
-def recycle_phase(device, smi, functional=None):
+def recycle_phase(device, smi, functional=None, grids=RC_C5_GRIDS):
     """KryPy's recycling lane on the card (``--only recycle``): (a) the
     battery from numpy against the port's CPU run and the non-normal
-    bound, (b) config 5 through ``recycling.RecyclingGmres`` at 511^2 and
-    1023^2 beside the functional lane, (c) ``checkpoint`` over config 4's
-    sequence.  Every part runs; a failed gate is raised after all of them,
+    bound, (b) config 5 through ``recycling.RecyclingGmres`` on ``grids``
+    (511^2 and 1023^2; the whole script 511^2 alone) beside the
+    functional lane, (c) ``checkpoint`` over config 4's sequence.  Every part runs; a failed gate is raised after all of them,
     with every part's failure.  Prints one JSON line and returns it."""
     import warnings
 
@@ -5153,7 +5186,7 @@ def recycle_phase(device, smi, functional=None):
     record, parts, failed = {}, {}, []
     for name, fn, args in (("battery", _rc_battery, (device,)),
                            ("config5", _rc_config5,
-                            (device, smi, functional)),
+                            (device, smi, functional, grids)),
                            ("checkpoint", _rc_checkpoint, (device,))):
         t = time.perf_counter()
         try:
@@ -5187,8 +5220,9 @@ def recycle_phase(device, smi, functional=None):
 #: the north star's grid, and its logical grid for the transpose check
 NONSYM_NX = NS_NX
 NONSYM_AT_NX = NX
-#: interleaved timed solves per lane (after the gated, counted one)
-NONSYM_ROUNDS = 3
+#: interleaved timed solves per lane (after the gated, counted one; 3
+#: until the eigen phase came)
+NONSYM_ROUNDS = 1
 #: inner iterations per converged refinement cycle that the kernel lane
 #: may differ by from the plain lane, and a "1r" form from its classic form
 #: (for IDR(s), cycles of s + 1 matvecs; a cycle that ends at its float32
@@ -5270,20 +5304,23 @@ def _nonsym_launch_identity(label, name, counts, calls, vcycles=None):
 
 def _nonsym_solve(label, solve, b, cd64, counted):
     """One gated solve (no warm-up: the kernels are built): float64
-    residual <= 1e-8; with ``counted`` the launch counts zeroed just
-    before and read just after, the solve profiled for its device time.
-    Returns ``(info, rel, launches, device seconds)``."""
+    residual <= 1e-8; the launch counts zeroed just before and read just
+    after; with ``counted`` (the kernel lane) the solve profiled for its
+    device time (the plain lane is not profiled: ~60 s of profiler time
+    that made room for the eigen phase).  Returns ``(info, rel, launches,
+    device seconds or None)``."""
     import torch
     from krypy_tpu_torch import kernels
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with (profile(activities=[ProfilerActivity.CUDA]) if counted
+          else contextlib.nullcontext()) as prof:
         res, info = solve(b, warm=False)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    busy = _device_seconds(prof)
+    busy = _device_seconds(prof) if counted else None
     rel = float(torch.linalg.vector_norm(b - cd64(res.x))
                 / torch.linalg.vector_norm(b))
     info["outer"] = res.resnorms.cpu().tolist()
@@ -5351,11 +5388,13 @@ def _nonsym_timing(label, lanes, b, rec):
     for lane, ts in walls.items():
         med = statistics.median(ts)
         r = rec[lane]
+        busy = None if r["busy_s"] is None else r["busy_s"] / med
         r.update(median=med, min=min(ts), max=max(ts), all=ts,
-                 busy_share=r["busy_s"] / med)
+                 busy_share=busy)
         print(f"timing nonsym {label} lane={lane} wall_s median={med:.6f} "
               f"min={min(ts):.6f} max={max(ts):.6f} busy_share="
-              f"{r['busy_share']:.3f}", flush=True)
+              f"{'not measured' if busy is None else f'{busy:.3f}'}",
+              flush=True)
 
 
 def _nonsym_transpose_check(device):
@@ -5458,9 +5497,9 @@ def nonsym_phase(device):
     each solver call's counts predict and the K1-K3 launches those
     applications predict (:func:`_nonsym_launch_identity`).  Then AT
     against the plain operator's transpose at ``NONSYM_AT_NX``^2, and one
-    flexible fgmres solve per lane.  Timed: 3 interleaved solves per
-    lane, the busy share of the gated, profiled solve.  Prints one JSON
-    line and returns it."""
+    flexible fgmres solve per lane.  Timed: ``NONSYM_ROUNDS`` interleaved
+    solves per lane, the kernel lane's busy share of its gated, profiled
+    solve.  Prints one JSON line and returns it."""
     import torch
     from krypy_tpu_torch.northstar import NONSYM_SOLVERS, make_nonsym
 
@@ -5519,6 +5558,514 @@ def nonsym_phase(device):
     print(json.dumps({"nonsym": record}, default=str), flush=True)
     if failed:
         raise AssertionError("nonsym phase: " + "; ".join(failed))
+    return record
+
+
+#: the eigen phase's grids: the slice's full width (bench.py's Poisson and
+#: the north star at 4095^2), the lanes' grid, and the filtered lane's
+#: (its filter degree grows like sqrt(spectral range / window width), x2
+#: per grid doubling: 12800 at 4095^2; at 1023^2 eigsh_window alone took
+#: ~25 s a lane on the H100, window_count as much again: PERF.md
+#: section 6)
+EIGEN_NX = NS_NX
+EIGEN_LANE_NX = NX
+EIGEN_WINDOW_NX = 255
+#: eigsh's tolerance, and its inverse's: float64 refinement to 1e-9 (the
+#: float64 residual floor of a smooth right-hand side at 4095^2 is ~8e-10)
+EIGEN_TOL = 1e-8
+EIGEN_INNER_TOL = 1e-9
+#: lobpcg's tolerance (a residual of 1e-7 puts theta within ~1e-14 of the
+#: eigenvalue, the floor of its relative residual being ~eps ||A|| /
+#: lambda_11 ~ 1.5e-9 at 4095^2)
+EIGEN_LOBPCG_TOL = 1e-7
+#: the closed-form limit of every eigenvalue (relative), and the lanes'
+#: and lobpcg-against-eigsh limit
+EIGEN_CLOSED_RTOL = 1e-6
+EIGEN_LANE_RTOL = 1e-8
+#: restart cycles or iterations the lanes may differ by
+EIGEN_COUNT_SLACK = 1
+#: LOBPCG's rounding witnesses, M(s x) / s for each s: 1 -+ 2^-21, 1 -+
+#: 2^-20, 1 + 2^-22 (bench.py's Poisson at 1023^2 on the H100: 23-24 on
+#: the kernel lane, 22-27 on the plain lane, PERF.md PR 15)
+EIGEN_M_SCALES = tuple(1 + sg * 2.0 ** -e for sg, e in
+                       ((-1, 21), (-1, 20), (1, 20), (1, 21), (1, 22)))
+#: the filtered lane: block (a seeded Gaussian start: the deterministic
+#: default block's components on the smooth even modes fall below SVQB's
+#: rank threshold at these degrees, ROADMAP.md C), filter degree (200 at
+#: 63^2, x2 per grid doubling: the CPU's outer iterations stay ~5-10),
+#: outer iterations, tolerance (backward: ||r|| <= tol ||A||), the
+#: window_count probes and the kpm_dos moments and probes
+EIGEN_WINDOW_BLOCK = 8
+EIGEN_WINDOW_DEGREE = 800
+EIGEN_WINDOW_MAXITER = 40
+EIGEN_WINDOW_TOL = 1e-9
+EIGEN_COUNT_PROBES = 16
+EIGEN_DOS = dict(degree=180, n_probes=16)
+EIGEN_SEED = 15
+
+
+def _eigen_vcycle_levels(nx, device):
+    """The padded V-cycle's kernel levels at ``nx`` (those of 511^2 and
+    up: 4 at 4095^2, 2 at 1023^2), checked against one V-cycle's
+    launches."""
+    import torch
+    from krypy_tpu_torch import kernels, ops
+
+    nlev, n = 0, nx
+    while n >= 511:
+        nlev, n = nlev + 1, (n - 1) // 2
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        device=device)
+    r = torch.ones(M.shape[0], dtype=torch.float32, device=device)
+    kernels.reset_launch_counts()
+    M(r)
+    got = {k: c for k, c in kernels.launch_counts().items() if c}
+    want = {"stencil5_affine": nlev + 1, "stencil5_jacobi2": nlev,
+            "stencil5_resrestrict_rows": nlev, "stencil5_coarse": 1}
+    if got != want:
+        raise AssertionError(f"eigen: one V-cycle at {nx}^2 launched {got}, "
+                             f"not {want}")
+    return nlev
+
+
+def _eigen_identity(label, launches, nlev, k1=0, vcycles=0, prefix=0):
+    """The kernel lane's launches against the counted applications: ``k1``
+    float32 operator applications (one K1 each), ``vcycles`` V-cycles
+    (``nlev + 1`` K1, ``nlev`` K2, ``nlev`` K3 and one coarse form each)
+    and ``prefix`` GMRES iterations with ``cgs2_fused`` (one K4, K5 and K6
+    each); nothing else."""
+    want = {"stencil5_affine": k1 + (nlev + 1) * vcycles,
+            "stencil5_jacobi2": nlev * vcycles,
+            "stencil5_resrestrict_rows": nlev * vcycles,
+            "stencil5_coarse": vcycles, "project_prefix": prefix,
+            "apply_project": prefix, "update_prefix": prefix}
+    got = {k: launches.get(k, 0) for k in want}
+    other = {k: c for k, c in launches.items() if c and k not in want}
+    print(f"eigen {label}: launches {got} against the applications {want}",
+          flush=True)
+    if got != want or other:
+        raise AssertionError(f"eigen {label}: launches {got} {other} do not "
+                             f"match the applications {want}")
+    return got
+
+
+def _eigen_closed(label, theta, want, rtol=EIGEN_CLOSED_RTOL):
+    """Sorted eigenvalues against the closed form, relative."""
+    got = np.sort(np.real(np.asarray(theta)))
+    ref = np.sort(np.asarray(want, dtype=float))
+    err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    print(f"eigen {label}: theta {got.tolist()} closed form {ref.tolist()} "
+          f"max rel err {err:.3e} (limit {rtol})", flush=True)
+    if not err <= rtol:
+        raise AssertionError(f"eigen {label}: theta off the closed form by "
+                             f"{err:.3e}")
+    return err
+
+
+def _eigen_run(label, fn, profile=False):
+    """One eigensolve ``fn() -> (result, extra)`` with the launch counts
+    zeroed just before it and read just after; its wall (synchronised) and,
+    with ``profile``, its device seconds."""
+    import torch
+    from krypy_tpu_torch import kernels
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    if profile:
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    else:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: c for k, c in kernels.launch_counts().items() if c}
+    busy = _device_seconds(prof) if profile else None
+    print(f"eigen {label}: wall {wall:.3f} s" + (
+        f", device {busy:.3f} s under the profiler" if profile else ""),
+        flush=True)
+    return out, launches, wall, busy
+
+
+def _eigen_eigsh(nx, impl, device, nlev, ortho="cgs2"):
+    """(a): the 6 smallest pairs of bench.py's Poisson operator by
+    shift-invert block Lanczos (``sigma=0``, ``block_size=2``; with
+    ``ortho="cgs2_1r"`` the 2 smallest by the single-vector one-reduce
+    sweep, maxdim 12), ``inv`` the refined float32 multigrid-CG."""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F
+
+    inv, A, counts = eigen.poisson_inverse(nx, impl, device,
+                                           tol=EIGEN_INNER_TOL)
+    if ortho == "cgs2":
+        kw, k = dict(block_size=2), 6
+        want = [v for v, _, _ in eigen.poisson_eigenvalues(nx, 6)]
+    else:
+        kw, k = dict(maxdim=12, ortho="cgs2_1r"), 2
+        # single-vector Lanczos sees one vector of each eigenspace
+        want = [v for v, j, kk in eigen.poisson_eigenvalues(nx, 3)
+                if j <= kk][:2]
+    label = f"eigsh {ortho} {impl}@{nx}"
+    r, launches, wall, _ = _eigen_run(label, lambda: F.eigsh(
+        A, k, sigma=0.0, inv=inv, tol=EIGEN_TOL, **kw))
+    theta = r.theta.cpu().numpy()
+    pair = r.pair_resnorms.cpu().numpy()
+    cycles = int((~torch.isnan(r.resnorms)).sum()) - 1
+    print(f"eigen {label}: status {int(r.status)} niter {int(r.niter)} "
+          f"restart cycles {cycles} pair_resnorms {pair.tolist()} inverse "
+          f"{counts}", flush=True)
+    if int(r.status) != 0 or not float(pair.max()) <= EIGEN_TOL:
+        raise AssertionError(f"eigen {label}: status {int(r.status)}, "
+                             f"pair_resnorms {pair.tolist()}")
+    err = _eigen_closed(label, theta, want)
+    rec = dict(theta=theta.tolist(), status=int(r.status),
+               niter=int(r.niter), cycles=cycles,
+               pair_resnorms=pair.tolist(), closed_rel_err=err, wall_s=wall,
+               inverse=dict(counts), launches=launches)
+    if impl == "cuda":
+        _eigen_identity(label, launches, nlev, k1=counts["A"],
+                        vcycles=counts["M"])
+    elif launches:
+        raise AssertionError(f"eigen {label}: the plain lane launched "
+                             f"{launches}")
+    return rec
+
+
+def _eigen_lobpcg(nx, impl, device, nlev, m_scale=None, maxiter=500):
+    """(b): the 6 smallest pairs by LOBPCG preconditioned by the padded
+    V-cycle on ``x.float()``, from the deterministic default block, or (a
+    rounding witness) with ``M(x)`` taken as ``M(s x) / s`` for ``s =
+    m_scale``: the same preconditioner in exact arithmetic, another
+    float32 rounding in every V-cycle, which is how the lanes differ; at
+    most ``maxiter`` iterations.  A witness is recorded and its status
+    returned, not gated (it may stall: ROADMAP.md C)."""
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A = ops.poisson_2d(nx, device=device)
+    M, counts = eigen.poisson_vcycle(nx, impl, device)
+    if m_scale is not None:
+        V = M
+
+        def M(x):
+            return V(x * m_scale) / m_scale
+    label = f"lobpcg {impl}@{nx}" + ("" if m_scale is None else
+                                     f" M(s x) / s, s = 1 + "
+                                     f"{m_scale - 1:.3e}")
+    r, launches, wall, _ = _eigen_run(label, lambda: F.lobpcg(
+        A, 6, M=M, which="sa", tol=EIGEN_LOBPCG_TOL, maxiter=maxiter))
+    theta = r.theta.cpu().numpy()
+    pair = r.pair_resnorms.cpu().numpy()
+    hist = r.resnorms.cpu().numpy()
+    print(f"eigen {label}: status {int(r.status)} iterations "
+          f"{int(r.niter)} pair_resnorms {pair.tolist()} V-cycles "
+          f"{counts['M']} max relative residual per iteration "
+          f"{hist[~np.isnan(hist)].tolist()}", flush=True)
+    if m_scale is not None:
+        return dict(lane=impl, m_scale=m_scale, niter=int(r.niter),
+                    status=int(r.status),
+                    resnorms=hist[~np.isnan(hist)].tolist(), wall_s=wall)
+    if int(r.status) != 0:
+        raise AssertionError(f"eigen {label}: status {int(r.status)}")
+    err = _eigen_closed(label, theta, [v for v, _, _ in
+                                       eigen.poisson_eigenvalues(nx, 6)])
+    if impl == "cuda":
+        _eigen_identity(label, launches, nlev, vcycles=counts["M"])
+    elif launches:
+        raise AssertionError(f"eigen {label}: the plain lane launched "
+                             f"{launches}")
+    return dict(theta=theta.tolist(), status=int(r.status),
+                niter=int(r.niter), pair_resnorms=pair.tolist(),
+                resnorms=hist[~np.isnan(hist)].tolist(), closed_rel_err=err,
+                wall_s=wall, vcycles=counts["M"], launches=launches)
+
+
+def _eigen_eigs(nx, impl, device, nlev):
+    """(c): the 4 eigenvalues nearest 0 of the north star's operator by
+    Krylov-Schur on the inverse, the north star's refined GMRES on the
+    real and imaginary parts."""
+    from krypy_tpu_torch import eigen, functional as F
+
+    inv, A, counts = eigen.northstar_inverse(nx, impl, device)
+    label = f"eigs {impl}@{nx}"
+    r, launches, wall, _ = _eigen_run(label, lambda: F.eigs(
+        A, 4, sigma=0.0, inv=inv, tol=EIGEN_TOL))
+    theta = r.theta.cpu().numpy()
+    pair = r.pair_resnorms.cpu().numpy()
+    iters = sum(n for cyc in counts["gmres_niters"] for n in cyc)
+    print(f"eigen {label}: status {r.status} niter {r.niter} restart "
+          f"cycles {len(r.resnorms)} pair_resnorms {pair.tolist()} solves "
+          f"{counts['solves']} refinement cycles {counts['cycles']} GMRES "
+          f"iterations {iters}", flush=True)
+    if r.status != 0 or not float(pair.max()) <= EIGEN_CLOSED_RTOL:
+        raise AssertionError(f"eigen {label}: status {r.status}, "
+                             f"pair_resnorms {pair.tolist()}")
+    imag = float(np.max(np.abs(theta.imag) / np.abs(theta)))
+    if not imag <= EIGEN_CLOSED_RTOL:
+        raise AssertionError(f"eigen {label}: imaginary parts {imag:.3e}")
+    err = _eigen_closed(label, theta, [v for v, _, _ in
+                                       eigen.cd_eigenvalues(nx, 4)])
+    if impl == "cuda":
+        # per GMRES call of niter iterations: niter + 3 float32 matvecs and
+        # as many V-cycles (the north star's identity, _ns_launch_identity)
+        calls = [n for cyc in counts["gmres_niters"] for n in cyc]
+        mv = sum(n + 3 for n in calls)
+        _eigen_identity(label, launches, nlev, k1=mv, vcycles=mv,
+                        prefix=iters)
+    elif launches:
+        raise AssertionError(f"eigen {label}: the plain lane launched "
+                             f"{launches}")
+    return dict(theta=[[float(z.real), float(z.imag)] for z in theta],
+                status=r.status, niter=r.niter, cycles=len(r.resnorms),
+                pair_resnorms=pair.tolist(), closed_rel_err=err,
+                imag_rel=imag, wall_s=wall, solves=counts["solves"],
+                refinement_cycles=counts["cycles"], gmres_iterations=iters,
+                launches=launches)
+
+
+def _eigen_window(nx, impl, device):
+    """(d): the filtered lane on bench.py's Poisson operator: eigsh_window
+    from a seeded Gaussian block on the window holding lambda_22 and the
+    pair lambda_13 = lambda_31, window_count on it and kpm_dos, with the
+    outer bounds (0, 8/h^2)."""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+    window, inside, bounds = eigen.poisson_window(nx)
+    gen = torch.Generator(device=device).manual_seed(EIGEN_SEED)
+    X0 = torch.randn((nx * nx, EIGEN_WINDOW_BLOCK), generator=gen,
+                     dtype=torch.float64, device=device)
+    label = f"window {impl}@{nx}"
+    r, launches, wall, _ = _eigen_run(label, lambda: F.eigsh_window(
+        A, window, X0=X0, degree=EIGEN_WINDOW_DEGREE, bounds=bounds,
+        tol=EIGEN_WINDOW_TOL, maxiter=EIGEN_WINDOW_MAXITER))
+    n_in = int(r.n_inside)
+    theta = r.theta.cpu().numpy()
+    print(f"eigen {label}: window {window} status {int(r.status)} outer "
+          f"iterations {int(r.niter)} inside {n_in} theta "
+          f"{theta.tolist()}", flush=True)
+    if int(r.status) != 0 or n_in != 3:
+        raise AssertionError(f"eigen {label}: status {int(r.status)}, "
+                             f"{n_in} inside")
+    err = _eigen_closed(label, theta[:3], inside)
+    gen = torch.Generator(device=device).manual_seed(EIGEN_SEED)
+    t = time.perf_counter()
+    cnt, se = F.window_count(A, window, gen, bounds=bounds,
+                             degree=EIGEN_WINDOW_DEGREE,
+                             n_probes=EIGEN_COUNT_PROBES)
+    t_count = time.perf_counter() - t
+    # tests/test_filtered.py's tolerance of the count
+    lim = max(4 * se, 0.12 * 3)
+    print(f"eigen {label}: window_count {cnt:.4f} +- {se:.4f} of 3 (limit "
+          f"{lim:.4f}) in {t_count:.3f} s", flush=True)
+    if not abs(cnt - 3) <= lim:
+        raise AssertionError(f"eigen {label}: window_count {cnt}")
+    t = time.perf_counter()
+    grid, dens = F.kpm_dos(A, EIGEN_SEED, bounds=bounds, **EIGEN_DOS)
+    t_dos = time.perf_counter() - t
+    total = float(np.trapezoid(dens, grid)) / (nx * nx)
+    print(f"eigen {label}: kpm_dos integrates to {total:.6f} of 1 (limit "
+          f"0.05) in {t_dos:.3f} s", flush=True)
+    if not abs(total - 1) <= 0.05:
+        raise AssertionError(f"eigen {label}: kpm_dos integral {total}")
+    if launches:
+        # float64 takes the plain stencil on both lanes (the JAX dispatch
+        # rule): no kernel runs in the filtered lane
+        raise AssertionError(f"eigen {label}: launches {launches}")
+    return dict(window=list(window), theta=theta.tolist(),
+                status=int(r.status), niter=int(r.niter), n_inside=n_in,
+                closed_rel_err=err, wall_s=wall, count=cnt, count_se=se,
+                count_s=t_count, dos_integral=total, dos_s=t_dos,
+                degree=EIGEN_WINDOW_DEGREE, block=EIGEN_WINDOW_BLOCK)
+
+
+def _eigen_busy(nx, device, nlev):
+    """The device busy share of (a)'s ``cgs2_1r`` kernel lane at ``nx``,
+    on its first Lanczos sweep (``max_restarts=0``: 12 inverse solves, not
+    gated; the profiler's cost grows with the launches, ~6x the wall of
+    the whole run): the sweep once unprofiled for its wall,
+    once under the profiler for its device seconds, each run's launches
+    held to its applications."""
+    from krypy_tpu_torch import eigen, functional as F
+
+    out = {}
+    for profile in (False, True):
+        inv, A, counts = eigen.poisson_inverse(nx, "cuda", device,
+                                               tol=EIGEN_INNER_TOL)
+        label = f"eigsh cgs2_1r first sweep cuda@{nx}" + (
+            " profiled" if profile else "")
+        r, launches, wall, busy = _eigen_run(label, lambda: F.eigsh(
+            A, 2, sigma=0.0, inv=inv, tol=EIGEN_TOL, maxdim=12,
+            ortho="cgs2_1r", max_restarts=0), profile=profile)
+        _eigen_identity(label, launches, nlev, k1=counts["A"],
+                        vcycles=counts["M"])
+        out["profiled_wall_s" if profile else "wall_s"] = wall
+        if profile:
+            out["busy_s"] = busy
+        out["solves"] = counts["solves"]
+    out.update(nx=nx, busy_share=out["busy_s"] / out["wall_s"])
+    print(f"busy eigen eigsh cgs2_1r cuda@{nx}: device {out['busy_s']:.3f} "
+          f"s of the unprofiled wall {out['wall_s']:.3f} s = "
+          f"{100 * out['busy_share']:.1f}% ({out['solves']} inverse solves)",
+          flush=True)
+    return out
+
+
+def _eigen_lanes_agree(what, runs, count_key, witness=None):
+    """The kernel lane against the plain lane at the lanes' grid: theta
+    within ``EIGEN_LANE_RTOL``, the counts within ``EIGEN_COUNT_SLACK``,
+    or, where ``witness()`` is given, within the spread of each lane's own
+    count under another float32 rounding: ``witness()`` returns the
+    witness runs (``lane``, ``status``, ``niter``), and only those that
+    converged count, each against its own lane's count.  Where none
+    moves, the limit stays ``EIGEN_COUNT_SLACK``."""
+    c, t = runs["cuda"], runs["torch"]
+    tc = np.sort(np.asarray(c["theta"], dtype=float).reshape(len(c["theta"]),
+                                                             -1)[:, 0])
+    tt = np.sort(np.asarray(t["theta"], dtype=float).reshape(len(t["theta"]),
+                                                             -1)[:, 0])
+    dev = float(np.max(np.abs(tc - tt) / np.abs(tt)))
+    slack = abs(c[count_key] - t[count_key])
+    print(f"eigen {what}: lanes theta within {dev:.3e} (limit "
+          f"{EIGEN_LANE_RTOL}), {count_key} {c[count_key]} against "
+          f"{t[count_key]}", flush=True)
+    limit = EIGEN_COUNT_SLACK
+    if slack > limit and witness is not None:
+        moved = [abs(w[count_key] - runs[w["lane"]][count_key])
+                 for w in witness() if w["status"] == 0]
+        spread = max(moved, default=0)
+        print(f"eigen {what}: the lanes' {count_key} under another float32 "
+              f"rounding, converged witnesses only: moved by {moved}, spread "
+              f"{spread}", flush=True)
+        limit = max(limit, spread)
+    if not dev <= EIGEN_LANE_RTOL or slack > limit:
+        raise AssertionError(f"eigen {what}: lanes differ: theta {dev:.3e}, "
+                             f"{count_key} {c[count_key]} / {t[count_key]}")
+    return dev
+
+
+def eigen_phase(device):
+    """The eigensolver lane (``--only eigen``), float64 outer work over the
+    float32 kernel lane: (a) eigsh, the 6 smallest pairs of bench.py's
+    Poisson operator at ``EIGEN_NX``^2 by shift-invert block Lanczos
+    (``inv`` the refined multigrid-CG: K1-K3 and the coarse form), then
+    ``cgs2_1r`` for the 2 smallest; (b) lobpcg with the V-cycle; (c)
+    eigs, the 4 nearest 0 of the north star's operator (``inv`` its
+    refined GMRES: K1-K6); each gated on the closed forms and its launches
+    held to its counted applications.  Every run also at
+    ``EIGEN_LANE_NX``^2 on both lanes (theta equal, counts within 1;
+    LOBPCG's within its lanes' own spread under another float32 rounding
+    of M, converged witnesses only), the first Lanczos sweep of (a)'s
+    ``cgs2_1r`` kernel lane there under the profiler for its busy share;
+    (d) the filtered lane (eigsh_window, window_count, kpm_dos) once at
+    ``EIGEN_WINDOW_NX``^2 (float64: the plain stencil on either lane).
+    Prints one JSON line and returns it."""
+    t0 = time.perf_counter()
+    record = {"device": _smi(), "nx": EIGEN_NX, "lane_nx": EIGEN_LANE_NX,
+              "window_nx": EIGEN_WINDOW_NX, "reduced_from": {}, "runs": {},
+              "launches": {}, "lanes": {}}
+    failed = []
+    levels = {nx: _eigen_vcycle_levels(nx, device)
+              for nx in (EIGEN_NX, EIGEN_LANE_NX)}
+
+    def attempt(key, fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            rec = fn(*args, **kw)
+            record["runs"][key] = rec
+            if rec.get("launches"):
+                record["launches"][key] = rec["launches"]
+            return rec
+        except AssertionError as exc:
+            failed.append(f"{key}: {exc}")
+        finally:
+            print(f"eigen {key}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+
+    runs = {}
+    for nx, lanes in ((EIGEN_NX, ("cuda",)),
+                      (EIGEN_LANE_NX, ("cuda", "torch"))):
+        nlev = levels[nx]
+        for impl in lanes:
+            runs["eigsh", impl, nx] = attempt(
+                f"eigsh {impl}@{nx}", _eigen_eigsh, nx, impl, device, nlev)
+            runs["eigsh_1r", impl, nx] = attempt(
+                f"eigsh cgs2_1r {impl}@{nx}", _eigen_eigsh, nx, impl,
+                device, nlev, ortho="cgs2_1r")
+            runs["lobpcg", impl, nx] = attempt(
+                f"lobpcg {impl}@{nx}", _eigen_lobpcg, nx, impl, device, nlev)
+            runs["eigs", impl, nx] = attempt(
+                f"eigs {impl}@{nx}", _eigen_eigs, nx, impl, device, nlev)
+    # once: in float64 both lanes take the plain stencil (no kernel)
+    attempt(f"window cuda@{EIGEN_WINDOW_NX}", _eigen_window,
+            EIGEN_WINDOW_NX, "cuda", device)
+    if EIGEN_WINDOW_NX != EIGEN_NX:
+        record["reduced_from"]["window"] = EIGEN_NX
+    # the busy share of (a)'s kernel lane at the lanes' grid
+    try:
+        record["busy_share_eigsh_1r_cuda"] = _eigen_busy(
+            EIGEN_LANE_NX, device, levels[EIGEN_LANE_NX])
+    except AssertionError as exc:
+        failed.append(f"busy: {exc}")
+
+    # gates across runs: the 1r form against the classic block form, lobpcg
+    # against eigsh, the lanes at the lanes' grid
+    for nx in (EIGEN_NX, EIGEN_LANE_NX):
+        a, one, lo = (runs.get((w, "cuda", nx))
+                      for w in ("eigsh", "eigsh_1r", "lobpcg"))
+        try:
+            if a and one:
+                ref = np.sort(a["theta"])[[0, 1]]
+                dev = float(np.max(np.abs(np.sort(one["theta"]) - ref)
+                                   / ref))
+                print(f"eigen cgs2_1r@{nx} against the classic form: "
+                      f"{dev:.3e} (limit {EIGEN_LANE_RTOL})", flush=True)
+                if not dev <= EIGEN_LANE_RTOL:
+                    raise AssertionError(f"cgs2_1r@{nx} off the classic "
+                                         f"form by {dev:.3e}")
+            if a and lo:
+                dev = float(np.max(np.abs(np.sort(lo["theta"])
+                                          - np.sort(a["theta"]))
+                                   / np.sort(a["theta"])))
+                print(f"eigen lobpcg@{nx} against eigsh: {dev:.3e} (limit "
+                      f"{EIGEN_LANE_RTOL})", flush=True)
+                if not dev <= EIGEN_LANE_RTOL:
+                    raise AssertionError(f"lobpcg@{nx} off eigsh by "
+                                         f"{dev:.3e}")
+        except AssertionError as exc:
+            failed.append(str(exc))
+    def lobpcg_witness():
+        # LOBPCG's count follows the float32 V-cycle's rounding, in which
+        # the lanes differ: each lane with M(s x) / s for each of
+        # EIGEN_M_SCALES, capped 10 past its own count (a witness that
+        # does not converge sets no spread)
+        nx = EIGEN_LANE_NX
+        out = [_eigen_lobpcg(nx, impl, device, levels[nx], m_scale=sc,
+                             maxiter=runs["lobpcg", impl, nx]["niter"] + 10)
+               for impl in ("cuda", "torch") for sc in EIGEN_M_SCALES]
+        record["lobpcg_witness"] = out
+        return out
+
+    for what, key in (("eigsh", "cycles"), ("eigsh_1r", "cycles"),
+                      ("lobpcg", "niter"), ("eigs", "cycles")):
+        nx = EIGEN_LANE_NX
+        pair = {impl: runs.get((what, impl, nx)) for impl in ("cuda",
+                                                              "torch")}
+        if all(pair.values()):
+            try:
+                record["lanes"][what] = _eigen_lanes_agree(
+                    f"{what}@{nx}", pair, key,
+                    lobpcg_witness if what == "lobpcg" else None)
+            except AssertionError as exc:
+                failed.append(str(exc))
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    print(json.dumps({"eigen": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("eigen phase: " + "; ".join(failed))
     return record
 
 
@@ -5638,7 +6185,7 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
                              "config5", "mesh", "onereduce", "compat",
-                             "recycle", "nonsym"),
+                             "recycle", "nonsym", "eigen"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -5705,7 +6252,8 @@ def main(argv=None):
         {"stencil": stencil_phase, "ortho": ortho_phase,
          "baseline": baseline_phase, "kernels": kernels_phase,
          "mesh": mesh_phase, "onereduce": onereduce_phase,
-         "compat": compat_phase, "nonsym": nonsym_phase}[args.only](device)
+         "compat": compat_phase, "nonsym": nonsym_phase,
+         "eigen": eigen_phase}[args.only](device)
         return
     last = [t0]
 
@@ -5748,7 +6296,7 @@ def main(argv=None):
     mark("baseline")
     c5_jvp, c5_full, c5_lines = config5_phase(device, smi)
     mark("config 5")
-    onered = onereduce_phase(device)
+    onered = onereduce_phase(device, reps=OR_WHOLE_REPS)
     mark("onereduce")
     compat = compat_phase(device)
     mark("compat")
@@ -5756,10 +6304,13 @@ def main(argv=None):
     # phase's functional references
     recycle = recycle_phase(device, smi, functional={
         line["nx"]: line["lanes"]["cuda"] for line in c5_lines
-        if line["config"] == "5" and line["nx"] in RC_C5_GRIDS})
+        if line["config"] == "5" and line["nx"] in RC_C5_WHOLE_GRIDS},
+        grids=RC_C5_WHOLE_GRIDS)
     mark("recycle")
     nonsym = nonsym_phase(device)
     mark("nonsym")
+    eig = eigen_phase(device)
+    mark("eigen")
     worlds = mesh_phase(device)
     mark("mesh")
     if args.profile:
@@ -5854,7 +6405,7 @@ def main(argv=None):
         # the recycling lane's runs (recycle phase): K1 in config 5 through
         # recycling.RecyclingGmres, K1-K3 and K7 in the checkpointed
         # config-4 sequence
-        for nx in RC_C5_GRIDS:
+        for nx in RC_C5_WHOLE_GRIDS:
             for rule in ("", " recycle_capped"):
                 if name == "stencil5_affine":
                     rows[-1][f"launches_recycle config5 compat{rule}@{nx}"] \
@@ -5873,6 +6424,13 @@ def main(argv=None):
                 if name == "stencil5_affine":
                     rows[-1][f"coarse_launches_nonsym {label}@"
                              f"{NONSYM_NX}"] = used["stencil5_coarse"]
+        # the eigensolver lane's kernel-lane runs (eigen phase)
+        for run, used in eig["launches"].items():
+            if used.get(name):
+                rows[-1][f"launches_eigen {run}"] = used[name]
+            if name == "stencil5_affine" and used.get("stencil5_coarse"):
+                rows[-1][f"coarse_launches_eigen {run}"] = \
+                    used["stencil5_coarse"]
     # K1's forward-mode rule: the tangent's launch of config 5's
     # Jacobian actions, timed as the jvp of the matvec at config 5's grid
     t = c5_jvp["times"][C5_FULL, C5_FULL]
@@ -5893,7 +6451,7 @@ def main(argv=None):
         "ms_by_grid": {f"{nx}x{ny}": v
                        for (nx, ny), v in c5_jvp["times"].items()},
     })
-    for nx in RC_C5_GRIDS:
+    for nx in RC_C5_WHOLE_GRIDS:
         for rule in ("", " recycle_capped"):
             rows[-1][f"launches_recycle config5 compat{rule}@{nx}"] = \
                 recycle["config5"][f"{nx}{rule}"]["tangent_launches"]

@@ -6,7 +6,10 @@ module: ``deflated_gmres``, ``deflated_cg``, ``deflated_minres``, the
 Ritz extraction, ``RecyclingGmres`` and ``AutoRecyclingGmres``,
 ``newton_krylov``, the mesh price model ``policy``, and the
 nonsymmetric short recurrences ``bicgstab``, ``tfqmr``, ``qmr`` (with
-``transpose_matvec``), ``idrs`` and the flexible ``fgmres``)."""
+``transpose_matvec``), ``idrs`` and the flexible ``fgmres``, and the
+eigensolvers ``eigsh``, ``eigs``, ``lobpcg`` and the filtered window
+lane ``eigsh_window``, ``window_count``, ``kpm_dos``,
+``estimate_spectrum_bounds``, ``jackson_cheby_coeffs``)."""
 
 from . import policy
 from .bicgstab import bicgstab
@@ -30,9 +33,20 @@ from .deflation import (
     ritz_pairs,
     weighted_qr,
 )
+from .eigh import EigshResult, eigsh
+from .eigs import EigsResult, eigs
 from .fgmres import fgmres
+from .filtered import (
+    WindowResult,
+    eigsh_window,
+    estimate_spectrum_bounds,
+    jackson_cheby_coeffs,
+    kpm_dos,
+    window_count,
+)
 from .gmres import FusedDeflation, gmres, restarted_gmres
 from .idr import idrs
+from .lobpcg import LobpcgResult, lobpcg
 from .minres import minres
 from .newton import NewtonResult, newton_krylov
 from .qmr import qmr, transpose_matvec
@@ -59,6 +73,18 @@ __all__ = [
     "transpose_matvec",
     "idrs",
     "fgmres",
+    "eigsh",
+    "EigshResult",
+    "eigs",
+    "EigsResult",
+    "eigsh_window",
+    "WindowResult",
+    "window_count",
+    "kpm_dos",
+    "estimate_spectrum_bounds",
+    "jackson_cheby_coeffs",
+    "lobpcg",
+    "LobpcgResult",
     "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",

@@ -1563,3 +1563,129 @@ def test_nonsym_north_star_on_the_card(cuda_device, label):
     assert ik["cycles"] == it["cycles"]
     assert lk["stencil5_jacobi2"] > 0 and lk["stencil5_resrestrict_rows"] > 0
     assert not any(lt.values())
+
+
+def _eigen_lanes(run):
+    """``run(impl) -> result`` on both lanes with the launches counted;
+    returns ``{impl: (result, launches)}`` (the plain lane launches
+    nothing)."""
+    out = {}
+    for impl in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        res = run(impl)
+        torch.cuda.synchronize()
+        out[impl] = (res, {k: c for k, c in kernels.launch_counts().items()
+                           if c})
+    assert not out["torch"][1]
+    return out
+
+
+@pytest.mark.parametrize("entry", ["eigsh", "lobpcg", "eigs"])
+def test_numpy_matrix_solves_on_the_card(cuda_device, entry):
+    """A numpy ``A`` with no start: the solve runs on the current CUDA
+    device, as a numpy right-hand side does."""
+    A = np.diag(np.arange(1.0, 41.0))
+    r = getattr(F, entry)(A, 2, tol=1e-9)
+    assert r.U.device == cuda_device
+    assert int(r.status) == 0
+    np.testing.assert_allclose(np.sort(np.real(r.theta.cpu().numpy())),
+                               [39.0, 40.0] if entry == "eigs" else
+                               [1.0, 2.0], rtol=1e-8)
+
+
+def test_eigsh_shift_invert_on_the_card(cuda_device):
+    """eigsh's shift-invert block Lanczos at 255^2 through
+    ``eigen.poisson_inverse`` (K1-K3, the coarse form): the 6 smallest
+    pairs to the closed form on both lanes; on the kernel lane the coarse
+    form once per V-cycle and K1 at least once per float32 operator
+    application and V-cycle (the chip smoke's eigen phase holds every
+    kernel to its exact count)."""
+    from krypy_tpu_torch import eigen
+
+    nx = 255
+    counts = {}
+
+    def run(impl):
+        inv, A, c = eigen.poisson_inverse(nx, impl, cuda_device)
+        counts[impl] = c
+        return F.eigsh(A, 6, sigma=0.0, inv=inv, block_size=2, tol=1e-8)
+
+    out = _eigen_lanes(run)
+    want = [v for v, _, _ in eigen.poisson_eigenvalues(nx, 6)]
+    for impl, (r, launches) in out.items():
+        assert r.converged
+        np.testing.assert_allclose(np.sort(r.theta.cpu().numpy()), want,
+                                   rtol=1e-8)
+    c, launches = counts["cuda"], out["cuda"][1]
+    assert launches["stencil5_coarse"] == c["M"]
+    assert launches["stencil5_affine"] >= c["A"] + c["M"]
+
+
+def test_lobpcg_vcycle_on_the_card(cuda_device):
+    """LOBPCG with ``eigen.poisson_vcycle`` at 255^2: the closed form on
+    both lanes, the coarse form launched once per V-cycle."""
+    from krypy_tpu_torch import eigen
+
+    nx = 255
+    counts = {}
+
+    def run(impl):
+        M, c = eigen.poisson_vcycle(nx, impl, cuda_device)
+        counts[impl] = c
+        return F.lobpcg(ops.poisson_2d(nx, device=cuda_device), 6, M=M,
+                        tol=1e-7)
+
+    out = _eigen_lanes(run)
+    want = [v for v, _, _ in eigen.poisson_eigenvalues(nx, 6)]
+    for impl, (r, _) in out.items():
+        assert r.converged
+        np.testing.assert_allclose(r.theta.cpu().numpy(), want, rtol=1e-8)
+    assert out["cuda"][1]["stencil5_coarse"] == counts["cuda"]["M"]
+
+
+def test_eigs_northstar_inverse_on_the_card(cuda_device):
+    """Krylov-Schur with ``eigen.northstar_inverse`` at 127^2 (K1-K6): the
+    4 eigenvalues nearest 0 of the north star's operator to the closed
+    form on both lanes; K4, K5 and K6 one each per GMRES iteration."""
+    from krypy_tpu_torch import eigen
+
+    nx = 127
+    counts = {}
+
+    def run(impl):
+        inv, A, c = eigen.northstar_inverse(nx, impl, cuda_device)
+        counts[impl] = c
+        return F.eigs(A, 4, sigma=0.0, inv=inv, tol=1e-8)
+
+    out = _eigen_lanes(run)
+    want = [v for v, _, _ in eigen.cd_eigenvalues(nx, 4)]
+    for impl, (r, _) in out.items():
+        assert r.status == 0
+        th = r.theta.cpu().numpy()
+        np.testing.assert_allclose(np.sort(th.real), want, rtol=1e-7)
+    iters = sum(n for cyc in counts["cuda"]["gmres_niters"] for n in cyc)
+    for name in ("project_prefix", "apply_project", "update_prefix"):
+        assert out["cuda"][1][name] == iters
+
+
+def test_filtered_lane_on_the_card(cuda_device):
+    """eigsh_window, window_count (a CUDA generator) and kpm_dos on the
+    card at 63^2 in float64 (the plain stencil: no kernel launches)."""
+    from krypy_tpu_torch import eigen
+
+    nx = 63
+    A = ops.poisson_2d(nx, impl="cuda", device=cuda_device)
+    window, inside, bounds = eigen.poisson_window(nx)
+    kernels.reset_launch_counts()
+    r = F.eigsh_window(A, window, block=8, degree=200, bounds=bounds,
+                       tol=1e-10, maxiter=40)
+    assert r.converged and int(r.n_inside) == 3
+    np.testing.assert_allclose(np.sort(r.theta[:3].cpu().numpy()),
+                               np.sort(inside), rtol=1e-10)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cnt, se = F.window_count(A, window, gen, bounds=bounds, degree=200,
+                             n_probes=24)
+    assert abs(cnt - 3) <= max(4 * se, 0.36)
+    grid, dens = F.kpm_dos(A, 5, bounds=bounds)
+    assert abs(np.trapezoid(dens, grid) / (nx * nx) - 1) <= 0.05
+    assert not any(kernels.launch_counts().values())

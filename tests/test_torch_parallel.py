@@ -87,6 +87,28 @@ NS_HISTORY_RTOL = 3e-6
 #: a length that divides over neither world: K9 runs on blocks of
 #: unequal length there, the JAX package its two-pass ``fused_force_jnp``
 UNEVEN_N = 61
+#: the eigensolvers' sharded cases (tests/test_eigsh.py,
+#: tests/test_lobpcg.py and tests/test_filtered.py), float64: eigsh on a
+#: diagonal (single vector and block_size=2 with a planted degeneracy),
+#: lobpcg classic and fused on the 8^2 Poisson operator (K8's plain
+#: version; the JAX test's 16^2 takes 84 iterations, 8^2 31),
+#: eigsh_window on the diagonal of the 16^2 operator's spectrum
+#: (its filter applies the operator ``degree`` times a column per outer
+#: iteration: on the stencil, a halo exchange each), and the runs whose
+#: all-reduces are counted (never converging)
+EIG_NX, EIG_LOBPCG_NX = 16, 8
+EIG_WINDOW = dict(block=12, tol=1e-9, degree=400, maxiter=150,
+                  bounds=(0.0, 8.0 * (EIG_NX + 1) ** 2))
+EIG_COUNT_RESTARTS = (1, 2)
+#: LOBPCG's tolerance on the mesh: unpreconditioned on a Laplacian its
+#: residuals fall below ~1e-6 along a path that the order of the sums
+#: steers (the JAX package at 16^2: 117 iterations to 1e-9 on a 2-device
+#: mesh, 118 on a 4-device one), above it the counts agree
+EIG_LOBPCG_TOL = 1e-6
+#: all-reduces per LOBPCG iteration: the fused advance's three stacked
+#: Grams and the residual norms
+LOBPCG_FUSED_REDUCES = 4
+
 #: seconds: each collective, and the whole world
 DIST_TIMEOUT, WORLD_TIMEOUT = 60, 240
 
@@ -388,6 +410,8 @@ def rank_cases(mesh):
         sizes += [parallel.active_mesh_size(), parallel.active_mesh() is mesh]
     out["mesh_sizes"] = np.array(sizes + [parallel.active_mesh() is None])
 
+    _eig_cases(out, mesh)
+
     # the dryrun's deflation and recycling lanes (nx = 4P, ny = 8)
     nx, ny = 4 * P, 8
     N = nx * ny
@@ -410,6 +434,97 @@ def rank_cases(mesh):
         _result(out, "recycle2", rec.solve(A, b, **kw), mesh)
         out["recycle_U"] = interop.gather_to_numpy(rec._U, mesh, axis=0)
     return out
+
+
+def _eig_diag(name):
+    """The sharded eigsh cases' diagonals and starts (numpy): the wanted
+    pairs apart from the rest of the spectrum, so that a few restart
+    cycles converge (the JAX tests' evenly spaced diagonals take 294 and
+    492 Lanczos steps to 1e-9, each step's all-reduces a few ms on gloo
+    ranks that share a loaded host); the block case with a planted
+    degeneracy."""
+    if name == "single":
+        return np.r_[np.linspace(1.0, 50.0, 1021), 58.0, 61.0, 64.0], \
+            np.ones(1024)
+    return np.r_[0.5, 0.5, 2.0, np.linspace(10.0, 20.0, 509)], \
+        np.cos(np.arange(512) * 0.7391) + 0.01
+
+
+EIG_EIGSH = {"single": dict(k=3, which="la", tol=1e-9),
+             "block": dict(k=3, which="sa", tol=1e-9, block_size=2,
+                           maxdim=24)}
+
+
+def _eig_spectrum():
+    """The 16^2 Laplacian's eigenvalues, ascending."""
+    h = np.pi / (EIG_NX + 1)
+    c = np.cos(h * np.arange(1, EIG_NX + 1))
+    return np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None, :]).ravel()) \
+        * (EIG_NX + 1) ** 2
+
+
+def _eig_window_range():
+    """The sharded window of tests/test_filtered.py: edges inside gaps of
+    the 16^2 Laplacian's spectrum."""
+    ew = _eig_spectrum()
+    return float((ew[98] + ew[99]) / 2), float((ew[105] + ew[106]) / 2)
+
+
+def _eig_start_block(N, p):
+    return np.stack([np.cos(np.arange(N) * (0.7391 + 0.1137 * i))
+                     + 0.01 * (i + 1) for i in range(p)], axis=1)
+
+
+def _eig_result(out, key, r, mesh):
+    out[f"{key}_theta"] = interop.to_numpy(r.theta)
+    out[f"{key}_U"] = interop.gather_to_numpy(r.U, mesh, axis=0)
+    out[f"{key}_niter"] = np.int64(r.niter)
+    out[f"{key}_status"] = np.int64(r.status)
+    if hasattr(r, "n_inside"):
+        out[f"{key}_n_inside"] = np.int64(r.n_inside)
+
+
+def _eig_cases(out, mesh):
+    """The eigensolvers on the mesh, and the all-reduces of the one-reduce
+    Lanczos sweep and of LOBPCG's fused advance."""
+    dev = mesh.device
+    N = EIG_NX * EIG_NX
+    lap = ops.poisson_2d(EIG_LOBPCG_NX, impl="cuda", mesh=mesh, device=dev)
+    X0 = interop.shard_from_numpy(
+        _eig_start_block(EIG_LOBPCG_NX ** 2, 3), mesh, axis=0)
+    with mesh:
+        for name, kw in EIG_EIGSH.items():
+            d, v0 = _eig_diag(name)
+            A = ops.diagonal(parallel.shard_vector(d, mesh))
+            _eig_result(out, f"eigsh_{name}", F.eigsh(
+                A, v0=parallel.shard_vector(v0, mesh), **kw), mesh)
+        for variant in ("classic", "fused"):
+            _eig_result(out, f"lobpcg_{variant}", F.lobpcg(
+                lap, X0=X0, which="sa", tol=EIG_LOBPCG_TOL, variant=variant),
+                mesh)
+        Xw = interop.shard_from_numpy(_eig_start_block(N, 12), mesh, axis=0)
+        _eig_result(out, "window", F.eigsh_window(
+            ops.diagonal(parallel.shard_vector(_eig_spectrum(), mesh)),
+            _eig_window_range(), X0=Xw, **EIG_WINDOW), mesh)
+        # all-reduces per restart cycle of each Lanczos sweep, and per
+        # LOBPCG iteration of each advance
+        d, v0 = _eig_diag("single")
+        A = ops.diagonal(parallel.shard_vector(d, mesh))
+        v0 = parallel.shard_vector(v0, mesh)
+        for ortho in ("cgs2", "cgs2_1r"):
+            for c in EIG_COUNT_RESTARTS:
+                parallel.reset_collective_counts()
+                F.eigsh(A, k=3, v0=v0, tol=1e-300, maxdim=12,
+                        max_restarts=c, ortho=ortho)
+                out[f"eigsh_{ortho}_reduces_{c}"] = np.int64(
+                    parallel.collective_counts()["all_reduce_sum"])
+        for variant in ("classic", "fused", "auto"):
+            for it in (2, 3):
+                parallel.reset_collective_counts()
+                F.lobpcg(lap, X0=X0, tol=1e-300, maxiter=it,
+                         variant=variant)
+                out[f"lobpcg_{variant}_reduces_{it}"] = np.int64(
+                    parallel.collective_counts()["all_reduce_sum"])
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +1053,115 @@ def test_mesh_rejects_what_is_not_ported(worlds, P):
             assert str(r[f"err_{key}"]).startswith("NotImplementedError"), \
                 (key, str(r[f"err_{key}"]))
         assert "one rank per shard" in str(r["err_make_mesh"])
+
+
+def _eig_compare(ranks, key, res, rtol=1e-10, width=None, angle=1e-8):
+    """A sharded eigensolve against the JAX package's: status and count
+    equal, eigenvalues to ``rtol`` (the same bits on every rank), the
+    gathered Ritz vectors spanning the same subspace (sine of the largest
+    principal angle at most ``angle``)."""
+    from torch_eigen_cases import sin_angle
+
+    r = ranks[0]
+    assert int(r[f"{key}_status"]) == int(res.status) == F.CONVERGED
+    assert int(r[f"{key}_niter"]) == int(res.niter)
+    w = slice(None) if width is None else slice(0, width)
+    np.testing.assert_allclose(r[f"{key}_theta"][w],
+                               np.asarray(res.theta)[w], rtol=rtol)
+    assert sin_angle(r[f"{key}_U"][:, w], np.asarray(res.U)[:, w]) <= angle
+    assert all(q[f"{key}_theta"].tobytes() == r[f"{key}_theta"].tobytes()
+               for q in ranks)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("name", list(EIG_EIGSH))
+def test_eigsh_on_mesh_matches_jax(worlds, name, P):
+    """``eigsh`` under ``with mesh:`` (tests/test_eigsh.py's sharded cases
+    in float64; single vector and block Lanczos) against the JAX package
+    on its P-device mesh."""
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, ops as jops, parallel as jp
+
+    mesh = _jmesh(P)
+    d, v0 = _eig_diag(name)
+    with mesh:
+        res = JF.eigsh(jops.diagonal(jnp.asarray(d)),
+                       v0=jp.shard_vector(jnp.asarray(v0), mesh),
+                       **EIG_EIGSH[name])
+    _eig_compare(worlds[P], f"eigsh_{name}", res)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("variant", ["classic", "fused"])
+def test_lobpcg_on_mesh_matches_jax(worlds, variant, P):
+    """``lobpcg`` through K8's plain version on the mesh (tests/
+    test_lobpcg.py's sharded case, at 8^2) against the JAX package's,
+    classic and fused (``variant="auto"``'s pick:
+    test_eigen_collectives)."""
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, ops as jops, parallel as jp
+
+    mesh = _jmesh(P)
+    nx = EIG_LOBPCG_NX
+    X0 = jp.shard_vector(jnp.asarray(_eig_start_block(nx * nx, 3)).T,
+                         mesh).T
+    with mesh:
+        res = JF.lobpcg(jops.poisson_2d(nx), X0=X0, which="sa",
+                        tol=EIG_LOBPCG_TOL, variant=variant)
+    # each run's subspace is within tol * theta_3 / gap of the invariant
+    # one (Davis-Kahan; gap = lambda_22 - lambda_12 of the closed form)
+    h = np.pi / (nx + 1)
+    lam = [(4 - 2 * np.cos(i * h) - 2 * np.cos(j * h)) * (nx + 1) ** 2
+           for i, j in ((1, 2), (2, 2))]
+    _eig_compare(worlds[P], f"lobpcg_{variant}", res, rtol=1e-9,
+                 angle=2 * EIG_LOBPCG_TOL * lam[0] / (lam[1] - lam[0]))
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_eigsh_window_on_mesh_matches_jax(worlds, P):
+    """``eigsh_window`` on the mesh (tests/test_filtered.py's sharded case,
+    on the diagonal of the 16^2 Laplacian's spectrum: the filter local,
+    the SVQB and Rayleigh-Ritz Grams one all-reduce each) against the JAX
+    package's."""
+    import jax.numpy as jnp
+    from krypy_tpu import ops as jops, parallel as jp
+    from krypy_tpu.functional.filtered import eigsh_window
+
+    mesh = _jmesh(P)
+    N = EIG_NX * EIG_NX
+    X0 = jp.shard_vector(jnp.asarray(_eig_start_block(N, 12)).T, mesh).T
+    with mesh:
+        res = eigsh_window(jops.diagonal(jnp.asarray(_eig_spectrum())),
+                           _eig_window_range(), X0=X0, **EIG_WINDOW)
+    r = worlds[P][0]
+    assert int(r["window_n_inside"]) == int(res.n_inside) > 0
+    _eig_compare(worlds[P], "window", res, rtol=1e-9,
+                 width=int(res.n_inside))
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_eigen_collectives(worlds, P):
+    """All-reduces per restart cycle of eigsh (maxdim 12, k = 3: m - l =
+    6 Lanczos steps a cycle): the classic CGS2 sweep 3 per step, the
+    one-reduce sweep one per step plus the peel and the seal, each cycle
+    one more for the dead-row mask; per LOBPCG iteration the fused
+    advance ``LOBPCG_FUSED_REDUCES``, fewer than the classic one, and
+    ``variant="auto"`` the fused advance on a mesh of more than one
+    rank."""
+    r = worlds[P][0]
+    c1, c2 = EIG_COUNT_RESTARTS
+    steps = 12 - 6
+    per_cycle = {"cgs2": 3 * steps + 1, "cgs2_1r": steps + 1 + 1}
+    for ortho, want in per_cycle.items():
+        got = (r[f"eigsh_{ortho}_reduces_{c2}"]
+               - r[f"eigsh_{ortho}_reduces_{c1}"]) / (c2 - c1)
+        assert got == want, (ortho, got, want)
+    fused = r["lobpcg_fused_reduces_3"] - r["lobpcg_fused_reduces_2"]
+    classic = r["lobpcg_classic_reduces_3"] - r["lobpcg_classic_reduces_2"]
+    assert fused == LOBPCG_FUSED_REDUCES < classic
+    for it in (2, 3):
+        assert r[f"lobpcg_auto_reduces_{it}"] == \
+            r[f"lobpcg_fused_reduces_{it}"]
 
 
 @pytest.mark.parametrize("N", [10, 12, 13, 3])

@@ -13,7 +13,7 @@ share the card.
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
                                   mesh,onereduce,compat,recycle,
-                                  nonsym,eigen}]
+                                  nonsym,eigen,lsq,shifted}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -224,10 +224,10 @@ before printing its last line):
    (``_CompatNewtonSolver``) whose every Jacobian solve is
    ``LinearSystem(J, b, self_adjoint=True)`` solved by one
    ``recycling.RecyclingGmres(RitzFactorySimple(3, "sm"))``, at 511^2
-   and 1023^2 (the default run: 511^2 alone, ``RC_C5_WHOLE_GRIDS``, the
-   room the eigen phase takes, so only ``--only recycle`` puts the keys
-   ``launches_recycle config5 compat@1023`` and ``launches_recycle
-   config5 compat recycle_capped@1023`` on the ``kernels`` line), each
+   and 1023^2 (the default run: 127^2 alone, ``RC_C5_WHOLE_GRIDS``, the
+   room the eigen, lsq and shifted phases take, so the ``kernels`` line
+   has the keys ``launches_recycle config5 compat@127`` and
+   ``launches_recycle config5 compat recycle_capped@127``), each
    sequence run to the functional
    kernel lane's Newton
    steps + 1 (``suite.config5_nls_newton_recycling``; at 1023^2 the
@@ -249,10 +249,10 @@ before printing its last line):
    (``functional.deflated_gmres``: residual histories within 1e-6; the
    basis's Rayleigh quotients nearest to the Ritz values that
    ``functional.ritz_pairs`` selects from the same Arnoldi relation);
-   at 511^2 ``RC_C5_ROUNDS`` interleaved sequences per lane timed (``serve_s``,
-   also per Newton step and per inner iteration), at the last grid (1023^2;
-   511^2 in the default run) the busy share of a profiled compat sequence
-   of 2 Newton steps; at 511^2 also
+   at the first grid ``RC_C5_ROUNDS`` interleaved sequences per lane
+   timed (``serve_s``, also per Newton step and per inner iteration), at
+   the last grid the busy share of a profiled compat sequence of 2 Newton
+   steps; at the first grid also
    ``RecyclingGmres("RitzApproxKrylov")`` and
    ``RecyclingMinres("RitzAprioriMinres")`` (its first deflated solve
    against ``functional.deflated_minres``) under the same gates but the
@@ -300,6 +300,29 @@ before printing its last line):
    the window holding lambda_22 and lambda_13 = lambda_31, ``window_count``
    and ``kpm_dos``) once at ``EIGEN_WINDOW_NX``^2 (float64: the plain
    stencil, no kernel; ``"reduced_from": 4095``); one JSON line;
+11g. the lsq phase (``--only lsq``): the least-squares and randomized
+   lane, float32 through K1 on the kernel lane and the plain stencil on
+   the plain lane: ``lsqr`` and ``lsmr`` on the north star's operator at
+   4095^2 with ``Ah = northstar.cd_transpose`` and damp 0.1, gated on
+   the normal-equations residual recomputed in float64, LSMR's estimated
+   ||A^T r|| never rising (read where the solver hands it to its stop
+   tests) and the lanes' counts within 3; ``rsvd`` (k = 6) on bench.py's
+   Poisson at 4095^2 by interlacing, its certified residuals recomputed
+   in float64, and its lanes' values and left subspaces against each
+   other; ``svds`` (k = 6) at 31^2 (``reduced_from``:
+   LOBPCG's count grows ~3x per grid doubling on Poisson's clustered top)
+   against the closed form of the largest eigenvalues; ``hutchpp`` within
+   5 standard errors of the exact trace; ``nystrom_preconditioner`` held
+   to its float64 build from the same sketch and as ``M`` of ``cg`` on
+   Poisson + mu I beside plain CG; one JSON line;
+11h. the shifted phase (``--only shifted``): ``arnoldi`` (20 steps) on the
+   north star's operator with ``cgs2`` and ``cgs2_1r`` and ``lanczos`` on
+   Poisson at 4095^2, gated on ||AV - VH|| / ||A|| and ||V^H V - I|| in
+   float64; ``shifted_cg`` (classic, 1r) on Poisson with 8 shifts, and
+   ``shifted_gmres``/``restarted_shifted_gmres`` on the north star's
+   operator with real shifts, each member's true residual recomputed in
+   float64; K1's launches counted per run on both phases' kernel lanes
+   and listed on the ``kernels`` line; one JSON line;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -324,6 +347,9 @@ before printing its last line):
    iteration plus the fixed per-solve ones of ``MESH_1R_FIXED``), and a
    GMRES(25) cycle with ``ortho="auto"`` (its pick, read off its
    all-reduces, against ``policy.fused_sharded_wins`` for the shard),
+   LSQR on the Poisson operator for 60 iterations and multi-shift CG with
+   ``variant="auto"`` (8 shifts, 20 iterations; its pick against
+   ``policy.prefer_one_reduce``) and with ``variant="1r"``,
    launch and collective counts zeroed just before each and read just
    after.  Gated against
    one device: iteration and matvec counts equal, residual histories
@@ -1688,16 +1714,34 @@ MESH_CG_SEED = 12
 #: float32 residual histories, sharded against one device, relative: the
 #: same algorithm with its sums in another order (per-rank partials plus
 #: the all-reduce).  About 10x above the largest sound reading (GMRES
-#: 3.0e-7, CG 1.1e-5, recycling 2.0e-5 on the H100); the faults that
-#: ``--mesh-faults`` plants (a zeroed halo, an unreduced inner product)
-#: must land above them
+#: 3.0e-7, CG 1.1e-5, recycling 2.0e-5, LSQR 5.1e-7 on the H100); the
+#: faults that ``--mesh-faults`` plants (a zeroed halo, an unreduced inner
+#: product) must land above them (LSQR 5.6e-4 and 2.0e-3).  The
+#: multi-shift CG's final per-shift residuals: 4x above its largest sound
+#: reading (1.2e-4, 4 ranks, both variants within it), 2x below its
+#: halo fault's (1.04e-3; its unreduced product reads 0.79 and 2e5)
 MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4,
-             "gmres_1r": 3e-6, "cg_1r": 2e-4, "gmres_auto": 3e-6}
+             "gmres_1r": 3e-6, "cg_1r": 2e-4, "gmres_auto": 3e-6,
+             "lsqr": 5e-6, "shifted_cg_auto": 5e-4, "shifted_cg_1r": 5e-4}
+#: the least-squares and multi-shift lane on the mesh: LSQR on the Poisson
+#: operator (its own adjoint) for MESH_LSQ_ITERS iterations (tol below
+#: reach, the stagnation window past them), and multi-shift CG with
+#: ``variant="auto"`` for MESH_SHIFTED_ITERS iterations (no stagnation
+#: window, short of the float32 floor, past which the members' residuals
+#: are rounding: 100 iterations put them 1.0e-2 apart on 2 gloo ranks)
+#: with 8 shifts lambda_max x 1e-2 ... 1e-1; their per-shift final
+#: residuals are its "history".  All-reduces per solve of the multi-shift
+#: CG beyond its per-iteration ones (classic 2, 1r 1): the global N, the
+#: initial norm and rho, the final residuals, and 1r's initial delta
+MESH_LSQ_ITERS, MESH_SHIFTED_ITERS = 60, 20
+MESH_SHIFTS = tuple(8.0 * (MESH_NX + 1) ** 2 * np.geomspace(1e-2, 1e-1, 8))
+MESH_SHIFTED_FIXED = {"classic": 4, "1r": 5}
 #: all-reduces of the one-reduce solves on the mesh beyond one per
 #: iteration: per GMRES cycle the global N, the two initial norms, the
 #: peeled first product and the final explicit residual; per CG solve the
 #: two initial norms, the initial delta and the final explicit residual
-MESH_1R_FIXED = {"gmres_1r": 5, "cg_1r": 4}
+MESH_1R_FIXED = {"gmres_1r": 5, "cg_1r": 4,
+                 "shifted_cg_1r": MESH_SHIFTED_FIXED["1r"]}
 #: the faults ``--mesh-faults`` plants, one world each
 MESH_FAULTS = ("halo", "reduce")
 
@@ -1773,6 +1817,17 @@ def _mesh_solves(device, mesh=None):
                                tol=MESH_TOL, maxiter=MESH_CG_ITERS,
                                variant="1r")],
         "gmres_auto": lambda: [F.gmres(cd, b, ortho="auto", **gm)],
+        "lsqr": lambda: [F.lsqr(lap, b_cg, Ah=lap, tol=MESH_TOL,
+                                maxiter=MESH_LSQ_ITERS,
+                                stagnation_window=MESH_LSQ_ITERS + 1)],
+        "shifted_cg_auto": lambda: [F.shifted_cg(
+            lap, b_cg, MESH_SHIFTS, tol=MESH_TOL,
+            maxiter=MESH_SHIFTED_ITERS, stagnation_window=0,
+            variant="auto")],
+        "shifted_cg_1r": lambda: [F.shifted_cg(
+            lap, b_cg, MESH_SHIFTS, tol=MESH_TOL,
+            maxiter=MESH_SHIFTED_ITERS, stagnation_window=0,
+            variant="1r")],
     }
     out = {}
     for name, run in runs.items():
@@ -1788,7 +1843,8 @@ def _mesh_solves(device, mesh=None):
                                     if name in ("gmres", "gmres_1r")
                                     else int(r.niter) + 1].tolist()
                          for r in results],
-            "status": [int(r.status) for r in results],
+            "status": [r.status.tolist() for r in results],
+            "niter": [int(r.niter) for r in results],
         }
     out["recycling"]["deflated_width"] = (
         None if rec._U is None else int(rec._U.shape[1]))
@@ -1886,8 +1942,9 @@ def _k8_composition(x_loc, nx, co, mesh):
 def _plant(fault):
     """Plant one fault in this rank's mesh path (``--mesh-faults``):
     ``halo`` zeroes the rows K8 receives from its neighbours; ``reduce``
-    leaves the inner product of two vectors (``pair``, a 0-dim partial)
-    rank-local, while the row products and K9's sums stay reduced;
+    leaves every 0-dim partial handed to ``mesh_sum`` (the inner product
+    of two vectors, a norm) rank-local, while the row products and K9's
+    sums stay reduced;
     ``none`` plants nothing."""
     import torch
     from krypy_tpu_torch.functional import common
@@ -1917,7 +1974,17 @@ def _plant(fault):
         kst.halo_exchange = zeroed
     elif fault == "reduce":
         mesh_sum = common.mesh_sum
-        common.mesh_sum = lambda t: t if t.dim() == 0 else mesh_sum(t)
+
+        def local(t):
+            return t if t.dim() == 0 else mesh_sum(t)
+
+        # common's own helpers and every solver module that bound the name
+        # at import (LSQR through _short, the multi-shift CG, ...)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith(
+                    "krypy_tpu_torch.functional") and \
+                    getattr(mod, "mesh_sum", None) is mesh_sum:
+                mod.mesh_sum = local
 
 
 def mesh_rank(backend, P, rank, workdir, plant=None):
@@ -2241,6 +2308,23 @@ def _check_mesh_world(backend, P, ranks, ref):
     if picked != want:
         raise AssertionError(f"{tag} gmres_auto: picked {picked}, the "
                              f"price model says {want}")
+    # shifted_cg(variant="auto"): its pick read off its all-reduces, against
+    # the price model (one rank: the classic recurrence)
+    sh = r0["shifted_cg_auto"]
+    n_sh = sh["niter"][0]
+    picked_sh = {v: k for k, v in {
+        "classic": 2 * n_sh + MESH_SHIFTED_FIXED["classic"],
+        "1r": n_sh + MESH_SHIFTED_FIXED["1r"]}.items()}.get(
+        sh["collectives"]["all_reduce_sum"])
+    want_sh = "1r" if P > 1 and policy.prefer_one_reduce(
+        "shifted_cg", MESH_NX ** 2 // P, 4, device=MESH_DEVICE) \
+        else "classic"
+    print(f"{tag} shifted_cg_auto: variant='auto' picked {picked_sh} "
+          f"({sh['collectives']['all_reduce_sum']} all-reduces in {n_sh} "
+          f"iterations); policy.prefer_one_reduce -> {want_sh}", flush=True)
+    if picked_sh != want_sh:
+        raise AssertionError(f"{tag} shifted_cg_auto: picked {picked_sh}, "
+                             f"the price model says {want_sh}")
     for name, one in ref.items():
         if name == "gmres_auto" and picked == "cgs2_1r":
             # held to one device's first cycle of the same scheme
@@ -2266,10 +2350,15 @@ def _check_mesh_world(backend, P, ranks, ref):
                                  f"{r0[name]['status']} against one device "
                                  f"{[len(h) - 1 for h in want]} "
                                  f"{one['status']}")
+        if r0[name]["niter"] != one["niter"]:
+            raise AssertionError(f"{tag} {name}: iterations "
+                                 f"{r0[name]['niter']} against one device "
+                                 f"{one['niter']}")
         rel = _history_rel(got, want)
         launches, coll = r0[name]["launches"], r0[name]["collectives"]
         matvecs = one["launches"]["stencil5_affine"]
-        iters = sum(len(h) - 1 for h in got)
+        iters = sum(r0[name]["niter"]) if name.startswith("shifted") else \
+            sum(len(h) - 1 for h in got)
         print(f"{tag} {name}: {iters} iterations, {matvecs} matvecs as on "
               f"one device; residual history max rel diff {rel:.3e} "
               f"(tolerance {MESH_RTOL[name]}); launches {launches}; "
@@ -2336,8 +2425,7 @@ def mesh_phase(device):
     torch.cuda.empty_cache()
     one = _mesh_solves(device)
     for name, r in one.items():
-        print(f"mesh one device {name}: iterations "
-              f"{[len(h) - 1 for h in r['resnorms']]} launches "
+        print(f"mesh one device {name}: iterations {r['niter']} launches "
               f"{r['launches']}", flush=True)
     torch.cuda.empty_cache()
     worlds = {}
@@ -4528,9 +4616,14 @@ RC_BOUND_RTOL = 1e-6
 #: runs at most the functional lane's Newton steps + RC_C5_NEWTON_SLACK,
 #: the depth at which the Newton gate decides
 RC_C5_GRIDS = (C5_MID, C5_FULL)
-#: the whole script's grids (``--only recycle`` runs RC_C5_GRIDS): the
-#: 1023^2 sequences, ~90 s, made room for the eigen phase
-RC_C5_WHOLE_GRIDS = (C5_MID,)
+#: the whole script's grid (``--only recycle`` runs RC_C5_GRIDS; the
+#: phase's JSON line says ``reduced_from``): at 511^2 the sequences' capped
+#: solves of 250 iterations, each iteration reading every inner product,
+#: took 177 s of a slow host's script, and at 255^2 RitzApproxKrylov
+#: priced a 222-step Krylov space for 83 s on the card's host (PERF.md);
+#: at 127^2 no solve reaches the cap (46-113 inner iterations per Newton
+#: step), so every solve is compared
+RC_C5_WHOLE_GRIDS = (127,)
 RC_C5_NEWTON_SLACK = 1
 RC_C5_INNER_SLACK = 3
 #: under the functional lane's rule, inner iterations are compared where
@@ -5028,15 +5121,13 @@ def _rc_print(nx, label, rec):
           f"{rec['failed']}", flush=True)
 
 
-def _rc_config5(device, smi, functional=None, grids=RC_C5_GRIDS):
+def _rc_config5(device, smi, grids=RC_C5_GRIDS):
     """(b): config 5 through ``recycling.RecyclingGmres`` on ``grids``
-    (511^2 and 1023^2) beside the functional kernel lane, each sequence at
-    the Newton gate's depth: under the reference's rule and under the
-    functional lane's (``recycle_capped``); at the first grid
-    ``RC_C5_ROUNDS`` interleaved sequences per lane timed (the first,
-    counted, round gated), at the others beside the functional lane's
-    counted sequence (``functional[nx]``, the config-5 phase's, or run
-    here); at the last grid the busy share of a compatibility sequence
+    (511^2 and 1023^2) beside the functional kernel lane's sequence, run
+    here, each sequence at the Newton gate's depth: under the reference's
+    rule and under the functional lane's (``recycle_capped``); at the
+    first grid ``RC_C5_ROUNDS`` interleaved sequences per lane timed (the
+    first, counted, round gated), at the others one; at the last grid the busy share of a compatibility sequence
     (``RC_C5_PROFILE_STEPS`` Newton steps, profiled); at the first also
     the two automatic factories.  Every
     sequence runs whatever an earlier one failed: the gates' failures are
@@ -5047,19 +5138,15 @@ def _rc_config5(device, smi, functional=None, grids=RC_C5_GRIDS):
     record, fs = {}, {}
     simple = ("RitzFactorySimple(3, sm)", (3, "sm"))
     for nx in grids:
-        f = (functional or {}).get(nx) if nx != grids[0] else None
         serve = {"compat": [], "functional": []}
         rounds = RC_C5_ROUNDS if nx == grids[0] else 1
-        c = None
+        c = f = None
         for r in range(rounds):
             for lane in (("functional", "compat") if r % 2 == 0
                          else ("compat", "functional")):
                 if lane == "functional":
-                    if r or f is None:
-                        out = _c5_run(nx, "cuda", False, device)
-                        f = f or out
-                    else:
-                        out = f
+                    out = _c5_run(nx, "cuda", False, device)
+                    f = f or out
                     serve[lane].append(out["serve_s"])
                     continue
                 out = _rc_c5_compat(nx, device, f["newton_steps"]
@@ -5173,20 +5260,20 @@ def _rc_checkpoint(device):
             "launches": launches}
 
 
-def recycle_phase(device, smi, functional=None, grids=RC_C5_GRIDS):
+def recycle_phase(device, smi, grids=RC_C5_GRIDS):
     """KryPy's recycling lane on the card (``--only recycle``): (a) the
     battery from numpy against the port's CPU run and the non-normal
     bound, (b) config 5 through ``recycling.RecyclingGmres`` on ``grids``
-    (511^2 and 1023^2; the whole script 511^2 alone) beside the
-    functional lane, (c) ``checkpoint`` over config 4's sequence.  Every part runs; a failed gate is raised after all of them,
-    with every part's failure.  Prints one JSON line and returns it."""
+    (511^2 and 1023^2; the whole script ``RC_C5_WHOLE_GRIDS``) beside
+    the functional lane, (c) ``checkpoint`` over config 4's sequence.
+    Every part runs; a failed gate is raised after all of them, with every
+    part's failure.  Prints one JSON line and returns it."""
     import warnings
 
     t0 = time.perf_counter()
     record, parts, failed = {}, {}, []
     for name, fn, args in (("battery", _rc_battery, (device,)),
-                           ("config5", _rc_config5,
-                            (device, smi, functional, grids)),
+                           ("config5", _rc_config5, (device, smi, grids)),
                            ("checkpoint", _rc_checkpoint, (device,))):
         t = time.perf_counter()
         try:
@@ -5202,6 +5289,8 @@ def recycle_phase(device, smi, functional=None, grids=RC_C5_GRIDS):
             record[name] = None
         parts[name] = time.perf_counter() - t
         print(f"recycle {name}: {parts[name]:.1f} s", flush=True)
+    if tuple(grids) != RC_C5_GRIDS:
+        record["reduced_from"] = {"config5": list(RC_C5_GRIDS)}
     record["part_s"] = parts
     record["phase_s"] = time.perf_counter() - t0
     record["failed"] = failed
@@ -6069,6 +6158,639 @@ def eigen_phase(device):
     return record
 
 
+#: the lsq phase: the north star's grid for lsqr/lsmr, rsvd, hutchpp and
+#: the Nystrom preconditioner; svds at 31^2 ("reduced_from": 4095): the top
+#: of Poisson's spectrum is a cluster whose relative gaps shrink as h^2, so
+#: LOBPCG on its Gram operator takes ~700 iterations to tol 1e-4 at 31^2,
+#: ~2200 at 63^2 and more than 3000 at 127^2 (the port's CPU run), and no
+#: bounded count reaches it at 4095^2
+LSQ_NX = NS_NX
+LSQ_SVDS_NX = 31
+#: Tikhonov damp of lsqr/lsmr on the north star's h^2-scaled operator
+#: (sigma_max <= 8 + 1.5 h by Gershgorin): ~290 and ~230 float32
+#: iterations to tol 1e-5 at every grid (the CPU at 63^2 and 255^2),
+#: where damp 0.05 takes ~500 and LSQR's ||A^T r|| estimate, oscillating,
+#: trips its stagnation window below damp ~0.02
+LSQ_DAMP, LSQ_TOL, LSQ_MAXITER = 0.1, 1e-5, 2000
+LSQ_SIGMA_MAX = 8.0 + 1.5 / (NS_NX + 1)
+#: the triplets of rsvd and svds, rsvd's oversampling and power steps,
+#: svds's float32 tolerance and iteration cap, Hutch++'s head and probes,
+#: the Nystrom rank and the shift of Poisson + mu I relative to
+#: lambda_max (kappa ~ 100: float32 CG reaches 1e-4 there; at 1e-3
+#: lambda_max it stalls above 1e-4 on the CPU at 255^2), and CG's tol
+LSQ_K, LSQ_P, LSQ_Q = 6, 10, 2
+LSQ_SVDS_TOL, LSQ_SVDS_MAXITER = 1e-4, 3000
+LSQ_HUTCH_K, LSQ_HUTCH_PROBES, LSQ_HUTCH_SIGMAS = 16, 32, 5.0
+LSQ_NYS_RANK, LSQ_NYS_MU, LSQ_NYS_TOL = 20, 1e-2, 1e-4
+LSQ_SEED = 16
+#: rsvd's lanes (the same sketch, float32 through K1 and through the plain
+#: stencil): values within LSQ_RSVD_S_RTOL relative, their left subspaces
+#: within LSQ_RSVD_U_SIN (sine of the largest principal angle); each
+#: lane's certified residuals recomputed in float64 with the plain stencil
+#: within LSQ_RSVD_RES_ATOL (in units of s_1: float32's residuals round
+#: at ~1e-7 s_1)
+LSQ_RSVD_S_RTOL, LSQ_RSVD_U_SIN, LSQ_RSVD_RES_ATOL = 1e-5, 1e-2, 1e-4
+#: the Nystrom preconditioner against its float64 build from the same
+#: sketch on the plain stencil: the values (relative) and P^-1's action
+#: on the float64 build's range, relative to that action's own part
+#: beyond the identity (the CPU in float32 at 1023^2: 5.5e-7 and 2.6e-4;
+#: an identity preconditioner reads 1)
+LSQ_NYS_LAM_RTOL, LSQ_NYS_APPLY_RTOL = 1e-5, 1e-2
+#: iterations the lanes' lsqr/lsmr counts may differ by (ROADMAP.md C,
+#: float32 reductions)
+LSQ_LANE_SLACK = 3
+
+
+#: the runs profiled for the phases' busy shares (device time under the
+#: profiler over the wall of the same run)
+LSQ_PROFILED = ("lsq lsqr cuda", "shifted shifted_cg classic cuda")
+
+
+def _lsq_run(label, fn, busy=None):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after, and its synchronised wall; where ``label`` starts with one of
+    ``LSQ_PROFILED``, the busy share of a rerun under the profiler stored
+    in ``busy`` (a dict)."""
+    import torch
+    from krypy_tpu_torch import kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: c for k, c in kernels.launch_counts().items() if c}
+    extra = ""
+    if busy is not None and label.startswith(LSQ_PROFILED):
+        # the same run again under the profiler, once the profiler has
+        # started on a trivial op (its first start takes seconds), its
+        # device time over the unprofiled run's wall
+        for warm in (True, False):
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                if warm:
+                    torch.ones(1, device="cuda").add_(1)
+                else:
+                    fn()
+                torch.cuda.synchronize()
+        dev = _device_seconds(p)
+        busy.update(device_s=dev, wall_s=wall, busy_share=dev / wall)
+        extra = f", device {dev:.3f} s under the profiler in a rerun " \
+                f"(busy {100 * dev / wall:.1f}%)"
+    print(f"{label}: wall {wall:.3f} s{extra}, launches {launches}",
+          flush=True)
+    return out, launches, wall
+
+
+def _lsq_solve(solver, nx, impl, device):
+    """(a): ``lsqr``/``lsmr`` on the north star's padded float32 operator
+    with ``Ah = northstar.cd_transpose``, ``b`` the padded ones, damp
+    ``LSQ_DAMP``; gated on status, LSMR's estimated ||A^T r|| never rising,
+    K1 twice per iteration and start (and per explicit check), and the
+    normal-equations residual ``||A^T (b - A x) - damp^2 x||`` recomputed
+    in float64 with the plain stencil within ``2 tol sqrt((2k + 1)
+    (sigma_max^2 + damp^2)) ||rbar||`` (the solver's own stop rule with its
+    Frobenius-norm estimate bounded, ``rbar`` the damped residual)."""
+    import torch
+    from krypy_tpu_torch import functional as F, northstar, ops
+    from krypy_tpu_torch.functional import lsq
+
+    h2 = 1.0 / (nx + 1) ** 2
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=device)
+    A = ops.convection_diffusion_2d(nx, impl=impl, **kw)
+    At = northstar.cd_transpose(nx, impl)
+    b = ops.pad_grid_vec(torch.ones(nx * nx, device=device), nx, nx)
+    # each iteration's estimated ||A^T r||, read where the solver hands it
+    # to its stop tests
+    seen, stop_tests = [], lsq._Problem.stop_tests
+
+    def observed(pb, normar, *rest):
+        seen.append(float(normar))
+        return stop_tests(pb, normar, *rest)
+
+    lsq._Problem.stop_tests = observed
+    busy = {}
+    try:
+        r, launches, wall = _lsq_run(
+            f"lsq {solver} {impl}@{nx}",
+            lambda: getattr(F, solver)(A, b, Ah=At, damp=LSQ_DAMP,
+                                       tol=LSQ_TOL, maxiter=LSQ_MAXITER),
+            busy)
+    finally:
+        lsq._Problem.stop_tests = stop_tests
+    k = int(r.niter)
+    A64 = ops.convection_diffusion_2d(nx, impl="torch", **kw)
+    At64 = northstar.cd_transpose(nx, "torch")
+    x, b64 = r.x.double(), b.double()
+    res = b64 - A64(x)
+    g = float(torch.linalg.vector_norm(At64(res) - LSQ_DAMP ** 2 * x))
+    rbar = math.hypot(float(torch.linalg.vector_norm(res)),
+                      LSQ_DAMP * float(torch.linalg.vector_norm(x)))
+    limit = 2 * LSQ_TOL * math.sqrt(
+        (2 * k + 1) * (LSQ_SIGMA_MAX ** 2 + LSQ_DAMP ** 2)) * rbar
+    ar = np.array(seen)
+    rises = int(np.sum(np.diff(ar) > 0))
+    rec = {"niter": k, "status": int(r.status), "wall_s": wall,
+           "launches": launches, "normal_residual": g,
+           "normal_residual_limit": limit,
+           "normal_residual_over_sigma_rbar": g / (LSQ_SIGMA_MAX * rbar),
+           "ar_first_last": [float(ar[0]), float(ar[-1])] if len(ar) else [],
+           "ar_rises": rises, "busy": busy or None}
+    print(f"lsq {solver} {impl}@{nx}: {k} iterations, status {r.status}, "
+          f"||A^T r - d^2 x|| {g:.3e} (limit {limit:.3e}), estimated "
+          f"||A^T r|| rises {rises} times", flush=True)
+    if int(r.status) != 0:
+        raise AssertionError(f"{solver} {impl}: status {int(r.status)}")
+    if not g <= limit:
+        raise AssertionError(f"{solver} {impl}: normal-equations residual "
+                             f"{g:.3e} > {limit:.3e}")
+    if solver == "lsmr" and rises:
+        raise AssertionError(f"lsmr {impl}: its estimated ||A^T r|| rose "
+                             f"{rises} times")
+    if impl == "cuda" and launches.get("stencil5_affine", 0) < 2 * k + 2:
+        raise AssertionError(f"{solver}: {launches} K1 launches for {k} "
+                             "iterations (two each, and two to start)")
+    return rec
+
+
+def _lsq_rsvd(nx, impl, device, keep):
+    """(b) rsvd, float32 on Poisson through K1 (its own adjoint): each value
+    at most the closed form's largest (interlacing), and the certified
+    residuals ``max(||A v_i - s_i u_i||, ||A u_i - s_i v_i||) / s_1``
+    recomputed in float64 with the plain stencil within
+    ``LSQ_RSVD_RES_ATOL`` of the reported ones; ``keep[impl]`` takes the
+    triplets for the lanes' comparison (:func:`_lsq_rsvd_lanes`).  (At
+    4095^2 no closed-form gate is sharper: the 16.7M eigenvalues lie 4-35
+    apart, far inside the certified residual of ~0.17 s_1.)"""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+    r, launches, wall = _lsq_run(
+        f"lsq rsvd {impl}@{nx}", lambda: F.rsvd(
+            A, LSQ_K, Ah=A, n=nx * nx, p=LSQ_P, q=LSQ_Q, seed=LSQ_SEED))
+    s = r.s.double().cpu().numpy()
+    res = r.resnorms.double().cpu().numpy()
+    want = np.array([v for v, _, _ in eigen.poisson_eigenvalues(
+        nx, LSQ_K, largest=True)])
+    A64 = ops.poisson_2d(nx, device=device)
+    again = []
+    for i in range(LSQ_K):
+        u, v = r.U[:, i].double(), r.Vh[i].double()
+        again.append(max(float(torch.linalg.vector_norm(A64(v) - s[i] * u)),
+                         float(torch.linalg.vector_norm(A64(u) - s[i] * v)))
+                     / s[0])
+    again = np.array(again)
+    off = float(np.max(np.abs(again - res)))
+    keep[impl] = (r.U, r.s)
+    rec = {"s": s.tolist(), "closed": want.tolist(),
+           "resnorms": res.tolist(), "resnorms_float64": again.tolist(),
+           "resnorms_off": off, "wall_s": wall, "launches": launches}
+    print(f"lsq rsvd {impl}@{nx}: s/lambda_max {(s / want[0]).tolist()}, "
+          f"certified residuals {res.tolist()}, recomputed in float64 "
+          f"{again.tolist()} (off by {off:.3e}, limit {LSQ_RSVD_RES_ATOL})",
+          flush=True)
+    if not np.all(s <= want[0] * (1 + 1e-5)):
+        raise AssertionError(f"rsvd {impl}: above the closed form")
+    if not off <= LSQ_RSVD_RES_ATOL:
+        raise AssertionError(f"rsvd {impl}: certified residuals {res} "
+                             f"against {again} in float64")
+    return rec
+
+
+def _lsq_rsvd_lanes(keep):
+    """rsvd's kernel lane against its plain lane on the same sketch: the
+    values within ``LSQ_RSVD_S_RTOL`` (relative) and the sine of the
+    largest principal angle between their left subspaces, in float64,
+    within ``LSQ_RSVD_U_SIN``."""
+    import torch
+
+    (Uc, sc), (Ut, st) = keep["cuda"], keep["torch"]
+    ds = float(torch.max(torch.abs(sc.double() - st.double()) / st.double()))
+    Uc, Ut = Uc.double(), Ut.double()
+    Rm = Ut - Uc @ (Uc.T @ Ut)
+    sin = float(torch.sqrt(torch.clamp(torch.linalg.eigvalsh(Rm.T @ Rm)[-1],
+                                       min=0.0)))
+    print(f"lsq rsvd lanes: values within {ds:.3e} (limit "
+          f"{LSQ_RSVD_S_RTOL}), left subspaces {sin:.3e} apart (limit "
+          f"{LSQ_RSVD_U_SIN})", flush=True)
+    if not (ds <= LSQ_RSVD_S_RTOL and sin <= LSQ_RSVD_U_SIN):
+        raise AssertionError(f"rsvd lanes: values {ds:.3e}, subspaces "
+                             f"{sin:.3e} apart")
+    return {"s_rel": ds, "u_sin": sin}
+
+
+def _lsq_svds(nx, impl, device):
+    """(b) svds, k = LSQ_K, on Poisson at ``LSQ_SVDS_NX``^2: LOBPCG in
+    float64 on the Gram operator of the float32 operator (K1 on the
+    kernel lane; each application ``A(v.float()).double()``), from a seeded
+    float64 Gaussian start, against the closed form of the largest
+    eigenvalues (1e-5 relative) and certified.  (LOBPCG in float32 on this
+    Gram operator diverges from most starts at 31^2, in both packages:
+    ROADMAP.md C.)"""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+
+    def op(v):
+        return A(v.float()).double()
+
+    op.device = device
+    gen = torch.Generator(device=device).manual_seed(LSQ_SEED)
+    X0 = torch.randn(nx * nx, LSQ_K, generator=gen, device=device,
+                     dtype=torch.float64)
+    r, launches, wall = _lsq_run(
+        f"lsq svds {impl}@{nx}", lambda: F.svds(
+            op, Ah=op, X0=X0, tol=LSQ_SVDS_TOL, maxiter=LSQ_SVDS_MAXITER))
+    want = np.array([v for v, _, _ in eigen.poisson_eigenvalues(
+        nx, LSQ_K, largest=True)])
+    s = r.s.double().cpu().numpy()
+    err = float(np.max(np.abs(s - want) / want))
+    rec = {"niter": int(r.niter), "status": int(r.status), "err": err,
+           "pair_resnorms": r.pair_resnorms.cpu().tolist(), "wall_s": wall,
+           "launches": launches}
+    print(f"lsq svds {impl}@{nx}: {int(r.niter)} iterations, status "
+          f"{int(r.status)}, closed form within {err:.3e}", flush=True)
+    if int(r.status) != 0 or not err <= 1e-5:
+        raise AssertionError(f"svds {impl}: status {int(r.status)}, "
+                             f"closed-form error {err:.3e}")
+    if impl == "cuda" and not launches.get("stencil5_affine"):
+        raise AssertionError("svds: K1 never launched")
+    return rec
+
+
+def _lsq_hutchpp(nx, impl, device):
+    """(c) Hutch++ of Poisson, float32 through K1: its trace is N 4/h^2,
+    gated within ``LSQ_HUTCH_SIGMAS`` standard errors."""
+    from krypy_tpu_torch import functional as F, ops
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+    N = nx * nx
+    (est, se), launches, wall = _lsq_run(
+        f"lsq hutchpp {impl}@{nx}", lambda: F.hutchpp(
+            A, LSQ_SEED, n=N, k=LSQ_HUTCH_K, n_probes=LSQ_HUTCH_PROBES))
+    true = N * 4.0 * (nx + 1) ** 2
+    z = (float(est) - true) / float(se)
+    rec = {"estimate": float(est), "trace": true, "stderr": float(se),
+           "z": z, "wall_s": wall, "launches": launches}
+    print(f"lsq hutchpp {impl}@{nx}: {float(est):.10e} against {true:.10e}, "
+          f"{z:+.2f} standard errors ({float(se):.3e})", flush=True)
+    if not abs(z) <= LSQ_HUTCH_SIGMAS:
+        raise AssertionError(f"hutchpp {impl}: {z:+.2f} standard errors")
+    return rec
+
+
+def _lsq_nystrom(nx, impl, device):
+    """(d) the Nystrom preconditioner of Poisson (rank ``LSQ_NYS_RANK``,
+    float32 through K1) as ``M`` of ``cg`` on Poisson + mu I, beside plain
+    CG: both converged, their true residuals recomputed in float64 within
+    10 tol, the counts recorded.  On Poisson the preconditioner is the
+    identity but for the spread of its top values (a few 1e-3 of its
+    action at 1023^2: Poisson's top spectrum is flat), so no count can
+    fall (ROADMAP.md C); its build is held instead to its float64 build
+    from the same sketch on the plain stencil: the values within
+    ``LSQ_NYS_LAM_RTOL`` and P^-1 on the float64 build's range within
+    ``LSQ_NYS_APPLY_RTOL`` of the part of its action beyond the
+    identity."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+    from krypy_tpu_torch.functional import randomized
+
+    A = ops.poisson_2d(nx, impl=impl, device=device)
+    A64 = ops.poisson_2d(nx, device=device)
+    N = nx * nx
+    mu = LSQ_NYS_MU * 8.0 * (nx + 1) ** 2
+    b = torch.ones(N, device=device)
+    (P, (_, lam)), launches, wall = _lsq_run(
+        f"lsq nystrom build {impl}@{nx}", lambda: F.nystrom_preconditioner(
+            A, LSQ_NYS_RANK, N, mu=mu, seed=LSQ_SEED, return_factors=True))
+    # the float64 build from the same draw (nystrom_preconditioner's p=10)
+    Om = randomized._gaussian(
+        torch.Generator(device=device).manual_seed(LSQ_SEED),
+        (N, LSQ_NYS_RANK + 10), torch.float32, device)
+    P64, (U64, lam64) = randomized._nystrom_core(
+        A64, LSQ_NYS_RANK, Om.double(), mu, return_factors=True)
+    del Om
+    dlam = float(torch.max(torch.abs(lam.double() - lam64) / lam64))
+    x = U64 @ torch.randn(LSQ_NYS_RANK, generator=torch.Generator(
+        device=device).manual_seed(LSQ_SEED + 1), dtype=torch.float64,
+        device=device)
+    y64 = P64(x)
+    beyond = float(torch.linalg.vector_norm(y64 - x))
+    apply = float(torch.linalg.vector_norm(P(x.float()).double() - y64)) \
+        / beyond
+    del U64, x, y64
+    rec = {"mu": mu, "build_s": wall, "build_launches": launches,
+           "launches": dict(launches), "lam_rel": dlam,
+           "apply_rel": apply, "beyond_identity": beyond}
+    print(f"lsq nystrom {impl}@{nx}: values within {dlam:.3e} of the "
+          f"float64 build (limit {LSQ_NYS_LAM_RTOL}), P^-1 on its range "
+          f"within {apply:.3e} of its action beyond the identity (limit "
+          f"{LSQ_NYS_APPLY_RTOL}; that action {beyond:.3e} of a unit "
+          f"vector)", flush=True)
+    if not (dlam <= LSQ_NYS_LAM_RTOL and apply <= LSQ_NYS_APPLY_RTOL):
+        raise AssertionError(f"nystrom {impl}: values {dlam:.3e}, action "
+                             f"{apply:.3e} off the float64 build")
+    for name, M in (("plain", None), ("nystrom", P)):
+        r, used, t = _lsq_run(
+            f"lsq cg {name} {impl}@{nx}", lambda: F.cg(
+                lambda v: A(v) + mu * v, b, M=M, tol=LSQ_NYS_TOL,
+                maxiter=5000))
+        x = r.x.double()
+        rel = float(torch.linalg.vector_norm(b.double() - A64(x) - mu * x)
+                    / math.sqrt(N))
+        rec[name] = {"niter": int(r.niter), "status": int(r.status),
+                     "true_rel": rel, "wall_s": t, "launches": used}
+        for k, c in used.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + c
+        print(f"lsq cg {name} {impl}@{nx}: {int(r.niter)} iterations, "
+              f"status {int(r.status)}, true residual {rel:.3e}", flush=True)
+        if int(r.status) != 0 or not rel <= 10 * LSQ_NYS_TOL:
+            raise AssertionError(f"cg {name} {impl}: status "
+                                 f"{int(r.status)}, true residual {rel:.3e}")
+    return rec
+
+
+def lsq_phase(device):
+    """The least-squares and randomized lane (``--only lsq``), float32
+    through K1 on the kernel lane (``impl="cuda"``) and the plain stencil
+    on the plain lane: (a) ``lsqr`` and ``lsmr`` on the north star's
+    operator at ``LSQ_NX``^2 with ``Ah = northstar.cd_transpose`` (the
+    lanes' counts within ``LSQ_LANE_SLACK``); (b) ``rsvd`` (k = 6) on
+    bench.py's Poisson operator at ``LSQ_NX``^2 (the lanes against each
+    other, :func:`_lsq_rsvd_lanes`), ``svds`` (k = 6) at
+    ``LSQ_SVDS_NX``^2 (``reduced_from``); (c) ``hutchpp`` of Poisson at
+    ``LSQ_NX``^2; (d) ``nystrom_preconditioner`` as ``M`` of ``cg`` on
+    Poisson + mu I at ``LSQ_NX``^2.  Each run's K1 launches are counted
+    (zeroed just before, read just after).  Prints one JSON line and
+    returns it."""
+    import torch
+
+    t0 = time.perf_counter()
+    record = {"device": _smi(), "nx": LSQ_NX,
+              "reduced_from": {"svds": {"nx": LSQ_SVDS_NX, "from": LSQ_NX}},
+              "runs": {}, "launches": {}}
+    failed = []
+    kept = {}
+
+    def attempt(key, fn, *args):
+        t = time.perf_counter()
+        try:
+            rec = fn(*args)
+            record["runs"][key] = rec
+            if " cuda@" in key:
+                record["launches"][key] = rec["launches"]
+            return rec
+        except AssertionError as exc:
+            failed.append(f"{key}: {exc}")
+        finally:
+            torch.cuda.empty_cache()
+            print(f"lsq {key}: {time.perf_counter() - t:.1f} s", flush=True)
+
+    runs = {}
+    for impl in ("cuda", "torch"):
+        for solver in ("lsqr", "lsmr"):
+            runs[solver, impl] = attempt(f"{solver} {impl}@{LSQ_NX}",
+                                         _lsq_solve, solver, LSQ_NX, impl,
+                                         device)
+        attempt(f"rsvd {impl}@{LSQ_NX}", _lsq_rsvd, LSQ_NX, impl, device,
+                kept)
+        attempt(f"svds {impl}@{LSQ_SVDS_NX}", _lsq_svds, LSQ_SVDS_NX, impl,
+                device)
+        attempt(f"hutchpp {impl}@{LSQ_NX}", _lsq_hutchpp, LSQ_NX, impl,
+                device)
+        attempt(f"nystrom {impl}@{LSQ_NX}", _lsq_nystrom, LSQ_NX, impl,
+                device)
+    if len(kept) == 2:
+        try:
+            record["rsvd_lanes"] = _lsq_rsvd_lanes(kept)
+        except AssertionError as exc:
+            failed.append(str(exc))
+    del kept
+    for solver in ("lsqr", "lsmr"):
+        k, t = runs.get((solver, "cuda")), runs.get((solver, "torch"))
+        if k and t:
+            gap = abs(k["niter"] - t["niter"])
+            print(f"lsq {solver}: lanes {k['niter']} / {t['niter']} "
+                  f"iterations (limit {LSQ_LANE_SLACK} apart)", flush=True)
+            if gap > LSQ_LANE_SLACK:
+                failed.append(f"{solver}: the lanes' counts {k['niter']} "
+                              f"and {t['niter']} differ by {gap}")
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    print(json.dumps({"lsq": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("lsq phase: " + "; ".join(failed))
+    return record
+
+
+#: the shifted phase: the Arnoldi relations (20 steps) on the north star's
+#: operator (cgs2, cgs2_1r) and bench.py's Poisson (lanczos) at 4095^2,
+#: float32 through K1, gated in float64 on ||AV_k - V_{k+1} H|| / ||A||
+#: and ||V^H V - I||_2.  Orthogonality of the two-pass schemes: m sqrt(N)
+#: u (u = 2^-24), the float32 inner products' rounding over N terms, 4.9e-3
+#: at 4095^2 (read on the H100: cgs2 3.5e-5, cgs2_1r 3.2e-4, whose
+#: Pythagorean norm loses most); Lanczos never reorthogonalizes: 1e-2
+#: (read 3.8e-4-4.2e-4); relations: two-pass 1e-5 (read 1.3e-7-1.7e-7),
+#: Lanczos on Poisson's lambda_max ~1.3e8, 1e-3 (read 6.4e-5-7.5e-5)
+SH_NX = NS_NX
+SH_ARNOLDI_STEPS = 20
+SH_RELATION_LIMIT = {"cgs2": 1e-5, "cgs2_1r": 1e-5, "lanczos": 1e-3}
+SH_ORTHO_LIMIT = {"cgs2": 5e-3, "cgs2_1r": 5e-3, "lanczos": 1e-2}
+#: multi-shift CG on Poisson: 8 shifts lambda_max x 1e-2 ... 1e-1 (each
+#: member's kappa <= ~100, whose float32 floor lies below tol), tol 1e-4;
+#: shifted_gmres (one cycle of SH_GMRES_M) and restarted_shifted_gmres
+#: (GMRES(SH_RESTART_M)) on the north star's operator, real shifts 0.1 ..
+#: 1 (and 0.01 for the restarted seed), tol 1e-5; each member's true
+#: relative residual recomputed in float64 within 2 tol
+SH_CG_SHIFTS = tuple(np.geomspace(1e-2, 1e-1, 8))
+SH_CG_TOL, SH_GMRES_TOL = 1e-4, 1e-5
+SH_GMRES_SHIFTS = tuple(np.geomspace(0.1, 1.0, 8))
+SH_RESTART_SHIFTS = (0.01,) + SH_GMRES_SHIFTS[1:]
+SH_GMRES_M, SH_RESTART_M, SH_RESTARTS = 60, 20, 20
+SH_TRUE_FACTOR = 2.0
+
+
+def _sh_operators(kind, nx, impl, device):
+    """``(A, A64, norm, b)``: the float32 operator on the lane, its float64
+    plain twin, ``||A||_2`` (Poisson's closed form; the north star's
+    Gershgorin bound) and the right-hand side (ones; padded for the north
+    star)."""
+    import torch
+    from krypy_tpu_torch import ops
+
+    if kind == "poisson":
+        return (ops.poisson_2d(nx, impl=impl, device=device),
+                ops.poisson_2d(nx, impl="torch", device=device),
+                8.0 * (nx + 1) ** 2, torch.ones(nx * nx, device=device))
+    h2 = 1.0 / (nx + 1) ** 2
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=device)
+    return (ops.convection_diffusion_2d(nx, impl=impl, **kw),
+            ops.convection_diffusion_2d(nx, impl="torch", **kw),
+            8.0 + 1.5 / (nx + 1),
+            ops.pad_grid_vec(torch.ones(nx * nx, device=device), nx, nx))
+
+
+def _sh_arnoldi(ortho, nx, impl, device):
+    """The Arnoldi relation of ``SH_ARNOLDI_STEPS`` steps, its residual and
+    the basis's orthogonality computed in float64."""
+    import torch
+    from krypy_tpu_torch import functional as F
+
+    kind = "poisson" if ortho == "lanczos" else "northstar"
+    A, A64, norm, b = _sh_operators(kind, nx, impl, device)
+    rel, launches, wall = _lsq_run(
+        f"shifted arnoldi {ortho} {impl}@{nx}", lambda: F.arnoldi(
+            A, b, maxiter=SH_ARNOLDI_STEPS, ortho=ortho))
+    n = int(rel.niter)
+    V = rel.V[: n + 1].double()
+    H = rel.H[: n + 1, :n].double()
+    AV = torch.stack([A64(v) for v in V[:n]])
+    relation = float(torch.linalg.matrix_norm(AV - H.T @ V)) / norm
+    ortho_err = float(torch.linalg.matrix_norm(
+        V @ V.T - torch.eye(n + 1, dtype=torch.float64, device=device), 2))
+    del V, AV
+    rec = {"niter": n, "relation": relation, "orthogonality": ortho_err,
+           "H_diag": torch.diagonal(H).cpu().tolist(), "wall_s": wall,
+           "launches": launches}
+    print(f"shifted arnoldi {ortho} {impl}@{nx}: {n} steps, ||AV - VH|| / "
+          f"||A|| {relation:.3e} (limit {SH_RELATION_LIMIT[ortho]}), "
+          f"||V^H V - I|| {ortho_err:.3e} (limit {SH_ORTHO_LIMIT[ortho]})",
+          flush=True)
+    if not relation <= SH_RELATION_LIMIT[ortho]:
+        raise AssertionError(f"arnoldi {ortho} {impl}: relation "
+                             f"{relation:.3e}")
+    if not ortho_err <= SH_ORTHO_LIMIT[ortho]:
+        raise AssertionError(f"arnoldi {ortho} {impl}: orthogonality "
+                             f"{ortho_err:.3e}")
+    if impl == "cuda" and launches.get("stencil5_affine", 0) < n:
+        raise AssertionError(f"arnoldi {ortho}: {launches} for {n} steps")
+    return rec
+
+
+def _sh_members(label, r, A64, b, shifts, tol):
+    """Every member's true relative residual, recomputed in float64, within
+    ``SH_TRUE_FACTOR`` tol, and every status CONVERGED."""
+    import torch
+
+    b64 = b.double()
+    bn = float(torch.linalg.vector_norm(b64))
+    rel = []
+    for x, s in zip(r.X, shifts):
+        x = x.double()
+        rel.append(float(torch.linalg.vector_norm(b64 - A64(x) - s * x)) / bn)
+    status = r.status.cpu().tolist()
+    print(f"{label}: {int(r.niter)} iterations, statuses {status}, true "
+          f"residuals max {max(rel):.3e} (limit {SH_TRUE_FACTOR * tol:.1e})",
+          flush=True)
+    if any(status) or not max(rel) <= SH_TRUE_FACTOR * tol:
+        raise AssertionError(f"{label}: statuses {status}, true residuals "
+                             f"{rel}")
+    return {"niter": int(r.niter), "status": status, "true_rel": rel}
+
+
+def _sh_cg(variant, nx, impl, device):
+    """Multi-shift CG on Poisson through K1, 8 shifts > 0."""
+    from krypy_tpu_torch import functional as F
+
+    A, A64, norm, b = _sh_operators("poisson", nx, impl, device)
+    shifts = [norm * s for s in SH_CG_SHIFTS]
+    busy = {}
+    r, launches, wall = _lsq_run(
+        f"shifted shifted_cg {variant} {impl}@{nx}", lambda: F.shifted_cg(
+            A, b, shifts, tol=SH_CG_TOL, maxiter=3000, variant=variant), busy)
+    rec = _sh_members(f"shifted cg {variant} {impl}@{nx}", r, A64, b,
+                      shifts, SH_CG_TOL)
+    # one K1 per iteration, one per member's final residual (and 1r's s_0)
+    want = int(r.niter) + len(shifts) + (variant == "1r")
+    if impl == "cuda" and launches.get("stencil5_affine") != want:
+        raise AssertionError(f"shifted cg {variant}: {launches}, expected "
+                             f"{want} K1 launches")
+    return dict(rec, wall_s=wall, launches=launches, shifts=shifts,
+                busy=busy or None)
+
+
+def _sh_gmres(restarted, nx, impl, device):
+    """shifted_gmres (one cycle) or restarted_shifted_gmres on the north
+    star's operator through K1, real shifts."""
+    from krypy_tpu_torch import functional as F
+
+    import torch
+
+    A, A64, _, b = _sh_operators("northstar", nx, impl, device)
+    # float32 shifts: a float64 one would promote the family (and the
+    # restarted basis build, off K1) to float64
+    if restarted:
+        shifts = torch.tensor(SH_RESTART_SHIFTS, dtype=torch.float32,
+                              device=device)
+        run = lambda: F.restarted_shifted_gmres(
+            A, b, shifts, maxiter=SH_RESTART_M, max_restarts=SH_RESTARTS,
+            tol=SH_GMRES_TOL)
+    else:
+        shifts = torch.tensor(SH_GMRES_SHIFTS, dtype=torch.float32,
+                              device=device)
+        run = lambda: F.shifted_gmres(A, b, shifts, maxiter=SH_GMRES_M,
+                                      tol=SH_GMRES_TOL)
+    name = "restarted_shifted_gmres" if restarted else "shifted_gmres"
+    r, launches, wall = _lsq_run(f"shifted {name} {impl}@{nx}", run)
+    rec = _sh_members(f"shifted {name} {impl}@{nx}", r, A64, b,
+                      shifts.tolist(), SH_GMRES_TOL)
+    return dict(rec, wall_s=wall, launches=launches, shifts=shifts.tolist())
+
+
+def shifted_phase(device):
+    """The Arnoldi and multi-shift lane (``--only shifted``), float32
+    through K1 on the kernel lane and the plain stencil on the plain lane,
+    at ``SH_NX``^2: (a) ``arnoldi`` on the north star's operator with
+    ``cgs2`` and ``cgs2_1r`` and ``lanczos`` on bench.py's Poisson, gated
+    on the relation and the orthogonality in float64; (b) ``shifted_cg``
+    (``classic`` and ``1r``) on Poisson with 8 shifts; (c)
+    ``shifted_gmres`` and ``restarted_shifted_gmres`` on the north star's
+    operator with real shifts; (b) and (c) gated on each member's true
+    relative residual, recomputed.  Launches counted per run.  Prints one
+    JSON line and returns it."""
+    import torch
+
+    t0 = time.perf_counter()
+    nx = SH_NX
+    record = {"device": _smi(), "nx": nx, "runs": {}, "launches": {}}
+    failed = []
+
+    def attempt(key, fn, *args):
+        t = time.perf_counter()
+        try:
+            rec = fn(*args)
+            record["runs"][key] = rec
+            if " cuda@" in key:
+                record["launches"][key] = rec["launches"]
+        except AssertionError as exc:
+            failed.append(f"{key}: {exc}")
+        finally:
+            torch.cuda.empty_cache()
+            print(f"shifted {key}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+
+    for impl in ("cuda", "torch"):
+        for ortho in ("cgs2", "cgs2_1r", "lanczos"):
+            attempt(f"arnoldi {ortho} {impl}@{nx}", _sh_arnoldi, ortho, nx,
+                    impl, device)
+        for variant in ("classic", "1r"):
+            attempt(f"cg {variant} {impl}@{nx}", _sh_cg, variant, nx, impl,
+                    device)
+        attempt(f"shifted_gmres {impl}@{nx}", _sh_gmres, False, nx, impl,
+                device)
+        attempt(f"restarted_shifted_gmres {impl}@{nx}", _sh_gmres, True, nx,
+                impl, device)
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    print(json.dumps({"shifted": record}, default=str), flush=True)
+    if failed:
+        raise AssertionError("shifted phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -6185,7 +6907,8 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
                              "config5", "mesh", "onereduce", "compat",
-                             "recycle", "nonsym", "eigen"),
+                             "recycle", "nonsym", "eigen", "lsq",
+                             "shifted"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -6200,7 +6923,9 @@ def main(argv=None):
                          "lane: the battery, config 5 through "
                          "recycling.RecyclingGmres, checkpoint; or the "
                          "nonsymmetric short recurrences on the north "
-                         "star's system); "
+                         "star's system; or the eigensolvers; or the "
+                         "least-squares and randomized lane; or the "
+                         "Arnoldi and multi-shift lane); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -6253,7 +6978,8 @@ def main(argv=None):
          "baseline": baseline_phase, "kernels": kernels_phase,
          "mesh": mesh_phase, "onereduce": onereduce_phase,
          "compat": compat_phase, "nonsym": nonsym_phase,
-         "eigen": eigen_phase}[args.only](device)
+         "eigen": eigen_phase, "lsq": lsq_phase,
+         "shifted": shifted_phase}[args.only](device)
         return
     last = [t0]
 
@@ -6294,23 +7020,22 @@ def main(argv=None):
     mark("config 4")
     bl_report, c2_counts, c3_counts, c2_rec, c3_rec = baseline_phase(device)
     mark("baseline")
-    c5_jvp, c5_full, c5_lines = config5_phase(device, smi)
+    c5_jvp, c5_full, _ = config5_phase(device, smi)
     mark("config 5")
     onered = onereduce_phase(device, reps=OR_WHOLE_REPS)
     mark("onereduce")
     compat = compat_phase(device)
     mark("compat")
-    # the config-5 phase's counted kernel-lane sequences are the recycle
-    # phase's functional references
-    recycle = recycle_phase(device, smi, functional={
-        line["nx"]: line["lanes"]["cuda"] for line in c5_lines
-        if line["config"] == "5" and line["nx"] in RC_C5_WHOLE_GRIDS},
-        grids=RC_C5_WHOLE_GRIDS)
+    recycle = recycle_phase(device, smi, grids=RC_C5_WHOLE_GRIDS)
     mark("recycle")
     nonsym = nonsym_phase(device)
     mark("nonsym")
     eig = eigen_phase(device)
     mark("eigen")
+    lsq = lsq_phase(device)
+    mark("lsq")
+    shf = shifted_phase(device)
+    mark("shifted")
     worlds = mesh_phase(device)
     mark("mesh")
     if args.profile:
@@ -6424,6 +7149,12 @@ def main(argv=None):
                 if name == "stencil5_affine":
                     rows[-1][f"coarse_launches_nonsym {label}@"
                              f"{NONSYM_NX}"] = used["stencil5_coarse"]
+        # the least-squares, randomized, Arnoldi and multi-shift lanes'
+        # kernel-lane runs (lsq and shifted phases): K1 only
+        for phase, rec in (("lsq", lsq), ("shifted", shf)):
+            for run, used in rec["launches"].items():
+                if used.get(name):
+                    rows[-1][f"launches_{phase} {run}"] = used[name]
         # the eigensolver lane's kernel-lane runs (eigen phase)
         for run, used in eig["launches"].items():
             if used.get(name):

@@ -126,17 +126,20 @@ def northstar_inverse(nx, impl, device="cuda"):
     return inv, A64, counts
 
 
-def poisson_eigenvalues(nx, count):
-    """The ``count`` smallest eigenvalues of ``ops.poisson_2d(nx)``,
-    ``(4/h^2)(sin^2(j pi h/2) + sin^2(k pi h/2))``, h = 1/(nx+1), with
-    their ``(j, k)``: a sorted list of ``(value, j, k)`` (each degenerate
-    pair as its two members)."""
+def poisson_eigenvalues(nx, count, largest=False):
+    """The ``count`` smallest (``largest=True``: largest) eigenvalues of
+    ``ops.poisson_2d(nx)``, ``(4/h^2)(sin^2(j pi h/2) + sin^2(k pi
+    h/2))``, h = 1/(nx+1), with their ``(j, k)``: a list of ``(value, j,
+    k)`` sorted from the end asked for (each degenerate pair as its two
+    members)."""
     h = 1.0 / (nx + 1)
     top = int(math.isqrt(count)) + 3
+    idx = (range(max(1, nx - top + 1), nx + 1) if largest
+           else range(1, min(top, nx) + 1))
     vals = [(4.0 / h ** 2 * (math.sin(j * math.pi * h / 2) ** 2
                               + math.sin(k * math.pi * h / 2) ** 2), j, k)
-            for j in range(1, top + 1) for k in range(1, top + 1)]
-    return sorted(vals)[:count]
+            for j in idx for k in idx]
+    return sorted(vals, reverse=largest)[:count]
 
 
 def cd_eigenvalues(nx, count, wind=(1.0, 0.5), eps=1.0):

@@ -9,9 +9,14 @@ nonsymmetric short recurrences ``bicgstab``, ``tfqmr``, ``qmr`` (with
 ``transpose_matvec``), ``idrs`` and the flexible ``fgmres``, and the
 eigensolvers ``eigsh``, ``eigs``, ``lobpcg`` and the filtered window
 lane ``eigsh_window``, ``window_count``, ``kpm_dos``,
-``estimate_spectrum_bounds``, ``jackson_cheby_coeffs``)."""
+``estimate_spectrum_bounds``, ``jackson_cheby_coeffs``, the
+least-squares solvers ``lsqr`` and ``lsmr``, the randomized ``rsvd``,
+``hutchpp`` and ``nystrom_preconditioner``, ``svds``, the Arnoldi
+relation builder ``arnoldi``, and the multi-shift ``shifted_cg``,
+``shifted_gmres`` and ``restarted_shifted_gmres``)."""
 
 from . import policy
+from .arnoldi import ArnoldiResult, arnoldi
 from .bicgstab import bicgstab
 from .cg import cg
 from .common import (
@@ -47,10 +52,19 @@ from .filtered import (
 from .gmres import FusedDeflation, gmres, restarted_gmres
 from .idr import idrs
 from .lobpcg import LobpcgResult, lobpcg
+from .lsq import lsmr, lsqr
 from .minres import minres
 from .newton import NewtonResult, newton_krylov
 from .qmr import qmr, transpose_matvec
+from .randomized import RsvdResult, hutchpp, nystrom_preconditioner, rsvd
 from .refine import refine_to
+from .shifted import (
+    ShiftedResult,
+    restarted_shifted_gmres,
+    shifted_cg,
+    shifted_gmres,
+)
+from .svd import SvdsResult, svds
 from .tfqmr import tfqmr
 
 __all__ = [
@@ -85,6 +99,20 @@ __all__ = [
     "jackson_cheby_coeffs",
     "lobpcg",
     "LobpcgResult",
+    "lsqr",
+    "lsmr",
+    "RsvdResult",
+    "rsvd",
+    "nystrom_preconditioner",
+    "hutchpp",
+    "svds",
+    "SvdsResult",
+    "arnoldi",
+    "ArnoldiResult",
+    "shifted_cg",
+    "shifted_gmres",
+    "restarted_shifted_gmres",
+    "ShiftedResult",
     "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",

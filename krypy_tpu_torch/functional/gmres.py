@@ -67,7 +67,9 @@ one-reduce product) is a local partial and one all-reduce, through
 :func:`~krypy_tpu_torch.functional.common.mesh_sum`, and
 ``"cgs2_fused"`` runs K9 (:func:`~krypy_tpu_torch.kernels.orthogonalize.
 cgs2_fused_blocks`) on blocks of any length: three all-reduces per
-iteration.  ``"cgs_pallas"``/``"cgs2_pallas"`` run K7's sharded form,
+iteration; a complex system there takes two plain passes over the active
+rows instead, as the JAX package sends it to its jnp sweep (K9 takes real
+bases).  ``"cgs_pallas"``/``"cgs2_pallas"`` run K7's sharded form,
 K4, an all-reduce and K6 per pass (:func:`~krypy_tpu_torch.kernels.
 orthogonalize.cgs_project_blocks`).  The Hessenberg matrix, the rotations
 and the projected right-hand side are replicated, the same bits on every
@@ -206,6 +208,17 @@ def _resolve_ortho(ortho, dtype, device, rows, with_M=False, mesh=None, *,
     if ortho in _PASSES:
         return ortho
     raise ValueError(f"unknown ortho {ortho!r}")
+
+
+def _two_passes(rows, Vk, w, m):
+    """Two classical Gram-Schmidt passes of ``w`` against the active rows
+    ``Vk``: ``(w, h)`` with ``h`` zero-padded to ``m + 1``."""
+    h = torch.zeros(m + 1, dtype=w.dtype, device=w.device)
+    for _ in range(2):
+        coeffs = rows(Vk, w)
+        w = w - coeffs @ Vk
+        h[: Vk.shape[0]] += coeffs
+    return w, h
 
 
 def _check_options(ortho, *, ip, with_M, mixed, dtype, fused_deflation,
@@ -718,6 +731,10 @@ def gmres(
         present."""
         mask = (row_idx[: m + 1] <= k).to(real_dtype)
         if ortho == "cgs2_fused" and mesh is not None:
+            if dtype.is_complex:
+                # K9 takes real bases only: the JAX package's two-pass
+                # sweep over the active rows (its ``fused_force_jnp``)
+                return _two_passes(rows, V[: k + 1], w, m)
             return cgs2_fused_blocks(V, w.contiguous(), mask, mesh=mesh,
                                      rows=k + 1)
         if ortho == "cgs2_fused":

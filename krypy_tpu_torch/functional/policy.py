@@ -72,10 +72,12 @@ HBM_BYTES_PER_S_TABLE = {
 #: measured extra cost per iteration over the time of one vector sweep).
 #: The H100's own ratios are measured by chip_smoke.py's onereduce phase
 #: and recorded in PERF.md beside these; the table is not changed here.
-#: ``shifted_cg``'s entry comes with its solver.
 ONE_REDUCE_EXTRA_SWEEPS = {
     "cg": 12.4,
     "minres": 16.2,
+    # the shifted family shares CG's recurrence; its extra vectors are
+    # per family, not per shift
+    "shifted_cg": 12.4,
     # QMR's (9, N) x (N, 6) cross-Gram; it saves three sync points of four
     "qmr": 87.0,
     # deflated short recurrences (d = 4); MINRES's fold has CG's shape

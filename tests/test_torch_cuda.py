@@ -1689,3 +1689,182 @@ def test_filtered_lane_on_the_card(cuda_device):
     grid, dens = F.kpm_dos(A, 5, bounds=bounds)
     assert abs(np.trapezoid(dens, grid) / (nx * nx) - 1) <= 0.05
     assert not any(kernels.launch_counts().values())
+
+
+def complex_fused_mesh_cases(mesh):
+    """Rank side of :func:`test_complex_cgs2_fused_on_mesh`: a complex
+    rank-local block system solved with ``ortho="cgs2_fused"`` under the
+    mesh, against the one-device solve with the same two plain passes
+    (``ortho="cgs2"``; the one-device ``cgs2_fused`` raises on a complex
+    basis, as K4 takes float32 and float64 only); then a real float32
+    ``cgs2_fused`` solve on the mesh, whose iterations launch K9's K4-K6."""
+    N, P = 64, mesh.size
+    step = N // P
+    rng = np.random.RandomState(6)
+    M = np.diag(1.0 + 3.0 * rng.rand(N)).astype(complex)
+    for i in range(N - 1):
+        if i // step == (i + 1) // step:
+            M[i, i + 1] = 0.5 + 0.25j
+    b_all = rng.randn(N) + 1j * rng.randn(N)
+    blk = parallel.block_of(N, mesh)
+    A_blk = torch.tensor(M[blk, blk], device=mesh.device)
+    kw = dict(tol=1e-10, maxiter=N)
+    with mesh:
+        kernels.reset_launch_counts()
+        res = F.gmres(lambda v: A_blk @ v, parallel.shard_vector(b_all, mesh),
+                      ortho="cgs2_fused", **kw)
+        complex_launches = sum(kernels.launch_counts().values())
+    one = F.gmres(torch.tensor(M, device=mesh.device),
+                  interop.from_numpy(b_all, mesh.device), ortho="cgs2", **kw)
+    x = parallel.gather_vector(res.x, mesh)
+    A = ops.poisson_2d(32, impl="cuda", mesh=mesh, device=mesh.device)
+    b32 = parallel.shard_vector(np.ones(32 * 32, dtype=np.float32), mesh)
+    with mesh:
+        kernels.reset_launch_counts()
+        real = F.gmres(A, b32, tol=1e-4, maxiter=40, ortho="cgs2_fused")
+        counts = kernels.launch_counts()
+    return {"niter": np.array([int(res.niter), int(one.niter)]),
+            "status": np.int64(int(res.status)),
+            "dx": np.float64(float(torch.linalg.vector_norm(x - one.x)
+                                   / torch.linalg.vector_norm(one.x))),
+            "complex_launches": np.int64(complex_launches),
+            "real_niter": np.int64(int(real.niter)),
+            "real_k9": np.array([counts["project_prefix"],
+                                 counts["apply_project"],
+                                 counts["update_prefix"]]),
+            "resnorms": interop.to_numpy(res.resnorms)}
+
+
+def test_complex_cgs2_fused_on_mesh(cuda_device, tmp_path):
+    """``gmres(ortho="cgs2_fused")`` on a complex system on 2 gloo ranks
+    that share the card: it solves (two plain passes over the active rows,
+    the JAX package's jnp sweep, where K9 takes real bases only) with the
+    one-device iterations and the iterate to 1e-9, launching no kernel; a
+    real float32 ``cgs2_fused`` solve on the same mesh still launches
+    K4, K5 and K6 once per iteration."""
+    from test_torch_parallel import run_ranks
+
+    ranks = run_ranks(__file__, "complex_fused_mesh_cases", 2, tmp_path,
+                      device=str(cuda_device), backend="gloo")
+    for r in ranks:
+        n, n_one = r["niter"]
+        assert n == n_one > 0 and int(r["status"]) == F.CONVERGED
+        assert float(r["dx"]) <= 1e-9
+        assert int(r["complex_launches"]) == 0
+        assert list(r["real_k9"]) == [int(r["real_niter"])] * 3
+        assert r["resnorms"].tobytes() == ranks[0]["resnorms"].tobytes()
+
+
+def test_complex_cgs2_fused_on_one_card_raises(cuda_device):
+    """On one device the JAX package sends a complex ``cgs2_fused`` basis
+    to its kernels too (no other route than its VMEM fit check); the port's
+    K4 takes float32 and float64 only, and raises rather than giving
+    way."""
+    A = torch.eye(8, dtype=torch.complex128, device=cuda_device)
+    b = torch.ones(8, dtype=torch.complex128, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or"):
+        F.gmres(A, b, ortho="cgs2_fused", maxiter=4)
+
+
+def _lane_pair(run):
+    """``run(impl)`` on the kernel and the plain lane, launches counted."""
+    out = {}
+    for impl in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        res = run(impl)
+        torch.cuda.synchronize()
+        out[impl] = (res, dict(kernels.launch_counts()))
+    assert not any(out["torch"][1].values())
+    return out
+
+
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr"])
+def test_lsq_north_star_on_the_card(cuda_device, solver):
+    """``lsqr``/``lsmr`` on the north star's float32 operator at 255^2
+    through K1 with ``Ah = northstar.cd_transpose`` (K1 on the swapped
+    coefficients): both lanes converge, within 3 iterations of each other,
+    two K1 launches per iteration and per start and check."""
+    from krypy_tpu_torch.northstar import cd_transpose
+
+    nx, damp = 255, 0.1
+    h2 = (1.0 / (nx + 1)) ** 2
+    b = ops.pad_grid_vec(torch.ones(nx * nx, device=cuda_device), nx, nx)
+
+    def run(impl):
+        A = ops.convection_diffusion_2d(nx, wind=(h2, 0.5 * h2), eps=h2,
+                                        pad_cols=True, impl=impl,
+                                        device=cuda_device)
+        return getattr(F, solver)(A, b, Ah=cd_transpose(nx, impl),
+                                  damp=damp, tol=1e-5, maxiter=2000)
+
+    out = _lane_pair(run)
+    (rk, lk), (rt, _) = out["cuda"], out["torch"]
+    assert int(rk.status) == int(rt.status) == F.CONVERGED
+    assert abs(int(rk.niter) - int(rt.niter)) <= 3
+    assert lk["stencil5_affine"] >= 2 * int(rk.niter) + 2
+    assert rk.x.device == cuda_device
+
+
+def test_randomized_lane_on_the_card(cuda_device):
+    """rsvd, svds, hutchpp and the Nystrom preconditioner on bench.py's
+    float32 Poisson operator at 31^2 through K1, draws from a CUDA
+    generator: svds on the closed form of the largest eigenvalues, rsvd
+    by interlacing, hutchpp within 5 standard errors of the exact trace,
+    and the Nystrom-preconditioned CG converged."""
+    from krypy_tpu_torch import eigen
+
+    nx, k = 31, 6
+    N = nx * nx
+    A = ops.poisson_2d(nx, impl="cuda", device=cuda_device)
+    want = np.array([v for v, _, _ in
+                     eigen.poisson_eigenvalues(nx, k, largest=True)])
+    kernels.reset_launch_counts()
+    r = F.svds(A, k=k, Ah=A, tol=1e-4, maxiter=2000)
+    assert r.converged and r.U.device == cuda_device
+    np.testing.assert_allclose(r.s.cpu().numpy(), want, rtol=1e-5)
+    q = F.rsvd(A, k, Ah=A, n=N, seed=0)
+    assert np.all(q.s.cpu().numpy() <= want * (1 + 1e-5))
+    est, se = F.hutchpp(A, 0, n=N, k=16, n_probes=32)
+    assert abs(float(est) - N * 4.0 * (nx + 1) ** 2) <= 5 * float(se)
+    # mu = 1e-2 lambda_max and tol 1e-4, as the card's lsq phase: below
+    # the float32 floor the preconditioned CG ends in NaN (ROADMAP.md C)
+    mu = 1e-2 * 8.0 * (nx + 1) ** 2
+    P = F.nystrom_preconditioner(A, 20, N, mu=mu, seed=0)
+    b = torch.ones(N, dtype=torch.float32, device=cuda_device)
+    res = F.cg(lambda v: A(v) + mu * v, b, M=P, tol=1e-4, maxiter=2000)
+    assert res.converged
+    assert kernels.launch_counts()["stencil5_affine"] > 0
+
+
+def test_shifted_lane_on_the_card(cuda_device):
+    """arnoldi (cgs2, cgs2_1r), shifted_cg (classic, 1r) and shifted_gmres
+    on float32 operators through K1 at 255^2: the relation's residual, every
+    member's true residual recomputed in float64."""
+    nx = 255
+    N = nx * nx
+    A = ops.poisson_2d(nx, impl="cuda", device=cuda_device)
+    A64 = ops.poisson_2d(nx, device=cuda_device)
+    b = torch.ones(N, dtype=torch.float32, device=cuda_device)
+    for ortho in ("cgs2", "cgs2_1r"):
+        rel = F.arnoldi(A, b, maxiter=20, ortho=ortho)
+        n = int(rel.niter)
+        V = rel.V[: n + 1].double()
+        AV = torch.stack([A64(v) for v in V[:n]])
+        err = torch.linalg.matrix_norm(AV - rel.H[: n + 1, :n].double().T @ V)
+        assert float(err) <= 1e-5 * 8 * (nx + 1) ** 2 * math.sqrt(n)
+    # the shifted phase's shifts and tol: each member's kappa <= ~100,
+    # whose float32 floor lies below tol
+    shifts = 8.0 * (nx + 1) ** 2 * np.geomspace(1e-2, 1e-1, 8)
+    for variant in ("classic", "1r"):
+        r = F.shifted_cg(A, b, shifts, tol=1e-4, maxiter=3000,
+                         variant=variant)
+        assert bool((r.status == F.CONVERGED).all())
+        for i, s in enumerate(shifts):
+            x = r.X[i].double()
+            res = b.double() - A64(x) - s * x
+            assert float(torch.linalg.vector_norm(res)
+                         / torch.linalg.vector_norm(b.double())) <= 2e-4
+    kernels.reset_launch_counts()
+    g = F.shifted_gmres(A, b, shifts, maxiter=60, tol=1e-4)
+    assert kernels.launch_counts()["stencil5_affine"] == int(g.niter)
+    assert bool((g.status == F.CONVERGED).all())

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import scipy.linalg
 import torch
+from threadpoolctl import threadpool_limits
 
 import torch_eigen_cases as ec
 from krypy_tpu import functional as JF, ops as jops
@@ -615,11 +616,14 @@ def test_closed_forms_against_dense_eigenvalues():
                         eigen.cd_eigenvalues)):
         D = torch.stack([op(e) for e in torch.eye(N, dtype=torch.float64)],
                         dim=1).numpy()
-        if closed is eigen.poisson_eigenvalues:
-            ev = np.linalg.eigvalsh(D)
-        else:
-            ev = np.linalg.eigvals(D)
-            assert np.abs(ev.imag).max() <= 1e-8 * np.abs(ev).max()
+        # one BLAS thread: the suite's workers share the host's cores, and
+        # a full pool in each of them makes this dense solve ~15x slower
+        with threadpool_limits(1):
+            if closed is eigen.poisson_eigenvalues:
+                ev = np.linalg.eigvalsh(D)
+            else:
+                ev = np.linalg.eigvals(D)
+                assert np.abs(ev.imag).max() <= 1e-8 * np.abs(ev).max()
         want = np.sort(ev.real)[:8]
         got = np.array([v for v, _, _ in closed(nx, 8)])
         np.testing.assert_allclose(got, want, rtol=1e-9)

@@ -109,6 +109,26 @@ EIG_LOBPCG_TOL = 1e-6
 #: Grams and the residual norms
 LOBPCG_FUSED_REDUCES = 4
 
+#: the least-squares and multi-shift cases on the mesh, float64: the JAX
+#: package's sharded cases (tests/test_lsq.py's diagonal, tests/
+#: test_shifted.py's Poisson and shifts) at the parity grid, lsqr/lsmr
+#: also on Poisson through K8's plain version with ``damp`` (~55
+#: iterations, well short of the space's dimension, near which the order
+#: of the sums steers the count: damp 100 takes 139 to tol 1e-10 and the
+#: 4-rank mesh 138; so does a tol near the float64 floor of the explicit
+#: normal-equations check, 1e-10 at damp 300: 71 against 72; below damp
+#: ~20 LSQR's oscillating ||A^T r|| estimate trips its stagnation window
+#: in both packages)
+LS_DIAG_N, LS_TOL, LS_DAMP, LS_POISSON_TOL = 1024, 1e-5, 300.0, 1e-8
+SH_SHIFTS = (0.0, 0.5, 2.0, 10.0)
+SH_TOL, SH_GM_SHIFTS, SH_GM_TOL, SH_GM_MAXITER = 1e-10, 16, 1e-4, 60
+#: all-reduces per multi-shift CG iteration: classic's two, 1r's one
+SH_REDUCES = {"classic": 2, "1r": 1}
+#: the worlds that run the least-squares, multi-shift and complex
+#: cgs2_fused cases (the 2-rank world: the 4-rank one would add ~14 s to
+#: the suite's longest fixture)
+LANE16_WORLDS = (2,)
+
 #: seconds: each collective, and the whole world
 DIST_TIMEOUT, WORLD_TIMEOUT = 60, 240
 
@@ -241,6 +261,91 @@ def _ns_solve(name, mesh=None):
                         M=lambda v: F.cg(A, v, M=Mj, tol=0.0,
                                          maxiter=NS_INNER).x)
     return getattr(F, name)(A, b, M=Mj, tol=NS_TOL[name], maxiter=400)
+
+
+def _ls_problem(name, mesh=None):
+    """A least-squares case on the mesh or, with ``mesh=None``, on one
+    device: ``(A, Ah, b, kwargs)``.  ``"diag"`` is tests/test_lsq.py's
+    sharded diagonal, ``"poisson"`` the parity grid's Poisson operator
+    (its own adjoint) with ``LS_DAMP``."""
+    dev = "cpu" if mesh is None else mesh.device
+    if name == "diag":
+        d = np.linspace(1.0, 10.0, LS_DIAG_N)
+        d = torch.tensor(d) if mesh is None else parallel.shard_vector(d,
+                                                                      mesh)
+        b = np.ones(LS_DIAG_N)
+        A = lambda v: d * v
+        kw = dict(tol=LS_TOL, maxiter=200)
+    else:
+        A = ops.poisson_2d(GM_NX, impl="cuda", mesh=mesh, device=dev)
+        b = np.random.RandomState(5).randn(GM_NX * GM_NX)
+        kw = dict(tol=LS_POISSON_TOL, damp=LS_DAMP, maxiter=400)
+    b = torch.tensor(b) if mesh is None else parallel.shard_vector(b, mesh)
+    return A, A, b, kw
+
+
+def _shifted_problem(mesh=None):
+    """The multi-shift cases' Poisson operator and right-hand side."""
+    dev = "cpu" if mesh is None else mesh.device
+    A = ops.poisson_2d(GM_NX, impl="cuda", mesh=mesh, device=dev)
+    b = np.random.RandomState(8).randn(GM_NX * GM_NX)
+    return A, torch.tensor(b) if mesh is None else parallel.shard_vector(
+        b, mesh)
+
+
+def _complex_uneven(P):
+    """The uneven block matrix made complex (still rank-local) and a
+    complex right-hand side: ``cgs2_fused``'s complex case."""
+    M = _uneven_matrix(P) * (1.0 + 0.5j)
+    rng = np.random.RandomState(6)
+    return M, rng.randn(UNEVEN_N) + 1j * rng.randn(UNEVEN_N)
+
+
+def _lane16_cases(out, mesh):
+    """The least-squares and multi-shift cases, and the complex
+    ``cgs2_fused`` routing, on this rank."""
+    gather = interop.gather_to_numpy
+    with mesh:
+        for name in ("diag", "poisson"):
+            A, Ah, b, kw = _ls_problem(name, mesh)
+            for solver in ("lsqr", "lsmr"):
+                _result(out, f"ls_{solver}_{name}",
+                        getattr(F, solver)(A, b, Ah=Ah, **kw), mesh)
+        A, b = _shifted_problem(mesh)
+        for variant in ("classic", "1r", "auto"):
+            parallel.reset_collective_counts()
+            res = F.shifted_cg(A, b, SH_SHIFTS, tol=SH_TOL, maxiter=400,
+                               variant=variant)
+            out[f"scg_{variant}_reduces"] = np.int64(
+                parallel.collective_counts()["all_reduce_sum"])
+            out[f"scg_{variant}_X"] = gather(res.X, mesh, axis=1)
+            out[f"scg_{variant}_res"] = interop.to_numpy(res.resnorms)
+            out[f"scg_{variant}_niter"] = np.int64(res.niter)
+            out[f"scg_{variant}_status"] = interop.to_numpy(res.status)
+        shifts = np.linspace(0.0, 100.0, SH_GM_SHIFTS)
+        res = F.shifted_gmres(A, b, shifts, maxiter=SH_GM_MAXITER,
+                              tol=SH_GM_TOL)
+        out["sgm_X"] = gather(res.X, mesh, axis=1)
+        out["sgm_res"] = interop.to_numpy(res.resnorms)
+        out["sgm_niter"] = np.int64(res.niter)
+        out["sgm_status"] = interop.to_numpy(res.status)
+
+        # a complex cgs2_fused solve: the two plain passes, K9 never
+        blk = parallel.block_of(UNEVEN_N, mesh)
+        M, rhs = _complex_uneven(mesh.size)
+        A_blk = torch.tensor(M[blk, blk])
+        gmres_module = importlib.import_module(
+            "krypy_tpu_torch.functional.gmres")
+        k9, calls = gmres_module.cgs2_fused_blocks, []
+        gmres_module.cgs2_fused_blocks = \
+            lambda *a, **k: calls.append(1) or k9(*a, **k)
+        try:
+            res = F.gmres(lambda v: A_blk @ v, parallel.shard_vector(rhs, mesh),
+                          tol=GM_TOL, maxiter=UNEVEN_N, ortho="cgs2_fused")
+        finally:
+            gmres_module.cgs2_fused_blocks = k9
+        _result(out, "gmres_complex", res, mesh)
+        out["gmres_complex_k9_calls"] = np.int64(len(calls))
 
 
 def _result(out, key, res, mesh):
@@ -411,6 +516,8 @@ def rank_cases(mesh):
     out["mesh_sizes"] = np.array(sizes + [parallel.active_mesh() is None])
 
     _eig_cases(out, mesh)
+    if P in LANE16_WORLDS:
+        _lane16_cases(out, mesh)
 
     # the dryrun's deflation and recycling lanes (nx = 4P, ny = 8)
     nx, ny = 4 * P, 8
@@ -888,6 +995,111 @@ def test_nonsym_on_mesh_matches_one_device(worlds, name, P):
                                atol=1e-8 * np.max(np.abs(x)))
     assert all(q[f"{key}_resnorms"].tobytes()
                == r[f"{key}_resnorms"].tobytes() for q in ranks)
+
+
+def _mesh_close(r, key, res, rtol=1e-8):
+    """The one-device iteration count and status, the residual history
+    within ``rtol`` (the same bits on every rank is checked by the
+    callers), the iterate to ``1e-8`` of its largest entry."""
+    assert int(r[f"{key}_niter"]) == int(res.niter)
+    assert int(r[f"{key}_status"]) == int(res.status)
+    np.testing.assert_allclose(r[f"{key}_resnorms"],
+                               interop.to_numpy(res.resnorms),
+                               rtol=rtol, atol=1e-14)
+    x = interop.to_numpy(res.x).reshape(-1)
+    np.testing.assert_allclose(r[f"{key}_x"], x, rtol=0,
+                               atol=1e-8 * np.max(np.abs(x)))
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+@pytest.mark.parametrize("name", ["diag", "poisson"])
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr"])
+def test_lsq_on_mesh_matches_one_device(worlds, solver, name, P):
+    """``lsqr``/``lsmr`` under ``with mesh:`` (the two norms of an
+    iteration each a local partial and one all-reduce): tests/test_lsq.py's
+    sharded diagonal, and Poisson through K8's plain version with
+    ``damp``, against the same solve on one device (the histories within
+    the mesh limit of PERF.md §2); every rank's history is the same
+    bits."""
+    A, Ah, b, kw = _ls_problem(name)
+    res = getattr(F, solver)(A, b, Ah=Ah, **kw)
+    assert int(res.status) == F.CONVERGED
+    ranks = worlds[P]
+    key = f"ls_{solver}_{name}"
+    _mesh_close(ranks[0], key, res, rtol=NS_HISTORY_RTOL)
+    assert all(q[f"{key}_resnorms"].tobytes()
+               == ranks[0][f"{key}_resnorms"].tobytes() for q in ranks)
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+@pytest.mark.parametrize("variant", ["classic", "1r", "auto"])
+def test_shifted_cg_on_mesh_matches_one_device(worlds, variant, P):
+    """Multi-shift CG under ``with mesh:`` against one device: counts,
+    per-shift statuses, the explicit residuals and the iterates; classic
+    makes 2 all-reduces per iteration and 1r one, whatever the number of
+    shifts (4 and 5 more per solve: the length, the two initial norms,
+    1r's initial delta and the final residuals); ``auto`` picks 1r on
+    these shards (the CPU row of the price model) and gives its iterates
+    bit for bit, as tests/test_shifted.py asserts of the JAX package."""
+    A, b = _shifted_problem()
+    one = "1r" if variant == "auto" else variant
+    res = F.shifted_cg(A, b, SH_SHIFTS, tol=SH_TOL, maxiter=400,
+                       variant=one)
+    assert interop.to_numpy(res.status).tolist() == [F.CONVERGED] * len(
+        SH_SHIFTS)
+    ranks = worlds[P]
+    r = ranks[0]
+    key = f"scg_{variant}"
+    assert int(r[f"{key}_niter"]) == int(res.niter)
+    assert r[f"{key}_status"].tolist() == interop.to_numpy(
+        res.status).tolist()
+    np.testing.assert_allclose(r[f"{key}_res"], interop.to_numpy(
+        res.resnorms), rtol=1e-6, atol=1e-14)
+    X = interop.to_numpy(res.X)
+    np.testing.assert_allclose(r[f"{key}_X"], X, rtol=0,
+                               atol=1e-8 * np.max(np.abs(X)))
+    fixed = {"classic": 4, "1r": 5}[one]
+    assert int(r[f"{key}_reduces"]) == \
+        fixed + SH_REDUCES[one] * int(res.niter)
+    if variant == "auto":
+        assert r["scg_auto_X"].tobytes() == r["scg_1r_X"].tobytes()
+    assert all(q[f"{key}_X"].tobytes() == r[f"{key}_X"].tobytes()
+               for q in ranks)
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+def test_shifted_gmres_on_mesh_matches_one_device(worlds, P):
+    """tests/test_shifted.py's sharded family (Poisson, shifts 0..100,
+    m = 60, tol 1e-4) at the parity grid: the one-device Krylov
+    dimension, statuses, residuals and iterates."""
+    A, b = _shifted_problem()
+    res = F.shifted_gmres(A, b, np.linspace(0.0, 100.0, SH_GM_SHIFTS),
+                          maxiter=SH_GM_MAXITER, tol=SH_GM_TOL)
+    assert bool((res.status == F.CONVERGED).all())
+    r = worlds[P][0]
+    assert int(r["sgm_niter"]) == int(res.niter)
+    assert r["sgm_status"].tolist() == interop.to_numpy(res.status).tolist()
+    np.testing.assert_allclose(r["sgm_res"], interop.to_numpy(res.resnorms),
+                               rtol=1e-6, atol=1e-14)
+    X = interop.to_numpy(res.X)
+    np.testing.assert_allclose(r["sgm_X"], X, rtol=0,
+                               atol=1e-8 * np.max(np.abs(X)))
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+def test_complex_cgs2_fused_on_mesh_takes_two_passes(worlds, P):
+    """A complex system with ``ortho="cgs2_fused"`` under ``with mesh:``
+    orthogonalizes by two plain passes over the active rows (the JAX
+    package's ``fused_force_jnp``), never through K9, which takes real
+    bases; it matches the one-device ``cgs2_fused`` solve."""
+    M, rhs = _complex_uneven(P)
+    res = F.gmres(torch.tensor(M), torch.tensor(rhs), tol=GM_TOL,
+                  maxiter=UNEVEN_N, ortho="cgs2_fused")
+    assert int(res.status) == F.CONVERGED
+    ranks = worlds[P]
+    _mesh_close(ranks[0], "gmres_complex", res)
+    assert all(int(q["gmres_complex_k9_calls"]) == 0 for q in ranks)
+    assert all(int(q["gmres_uneven_k9_calls"]) > 0 for q in ranks)
 
 
 @pytest.mark.parametrize("P", WORLDS)

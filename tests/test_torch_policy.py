@@ -69,7 +69,8 @@ def test_the_solvers_tables_are_jax_ratios():
     for name, ratio in policy.ONE_REDUCE_EXTRA_SWEEPS.items():
         assert jpolicy.ONE_REDUCE_EXTRA_SWEEPS[name] == ratio
     assert set(policy.ONE_REDUCE_EXTRA_SWEEPS) == {
-        "cg", "minres", "qmr", "deflated_cg", "deflated_minres", "idrs"}
+        "cg", "minres", "qmr", "deflated_cg", "deflated_minres", "idrs",
+        "shifted_cg"}
 
 
 @pytest.mark.parametrize("which", ["sync", "hbm"])

@@ -11,9 +11,10 @@ Schrödinger residual, recycled Jacobian solves, K1 under
 share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
+                           --funm-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
                                   mesh,onereduce,compat,recycle,
-                                  nonsym,eigen,lsq,shifted}]
+                                  nonsym,eigen,lsq,shifted,funm}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -323,6 +324,21 @@ before printing its last line):
    operator with real shifts, each member's true residual recomputed in
    float64; K1's launches counted per run on both phases' kernel lanes
    and listed on the ``kernels`` line; one JSON line;
+11i. the funm phase (``--only funm``): float32 at 4095^2 on both lanes
+   (the plain stencil on the plain lane), each run's applications of A
+   and M counted and K1-K3's launches held to them: ``chebyshev`` with
+   bench.py's padded V-cycle and ``spectral_bounds``; the Chebyshev
+   preconditioner (degree 8) as CG's M at 1023^2 against plain CG;
+   ``expm_multiply``, ``inv_sqrt_multiply`` and ``slq_logdet`` of
+   Poisson against their DST closed forms; the Arnoldi
+   ``expm_multiply`` on the north star's operator against its float64
+   run; ``block_cg`` (four columns, backward errors, steps at or below
+   the worst single column's) and ``block_gmres``; ``sketched_gmres``
+   and its restarted driver on one shared sketch, ``sketched_eigs``
+   (reported residuals against float64, values inside the closed-form
+   spectrum); the lanes against each other; one JSON line.
+   ``--funm-faults`` runs its kernel lane with each gate also read on a
+   planted fault, which must fail it;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -349,7 +365,10 @@ before printing its last line):
    all-reduces, against ``policy.fused_sharded_wins`` for the shard),
    LSQR on the Poisson operator for 60 iterations and multi-shift CG with
    ``variant="auto"`` (8 shifts, 20 iterations; its pick against
-   ``policy.prefer_one_reduce``) and with ``variant="1r"``,
+   ``policy.prefer_one_reduce``) and with ``variant="1r"``, Chebyshev
+   with Jacobi (ONE all-reduce per check block), block CG, a Lanczos
+   ``expm_multiply`` (its correction tail the history) and sketched
+   GMRES on a sketch every rank draws alike,
    launch and collective counts zeroed just before each and read just
    after.  Gated against
    one device: iteration and matvec counts equal, residual histories
@@ -912,10 +931,10 @@ def ortho_phase(device):
                 pair = name == "apply_project"
                 report[name]["times"][rows] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None if pair else lib_ms,
+                    library_ms=lib_ms,
                     timed_by=dict(ms=ms_src, plain_ms=plain_src,
-                                  library_ms=None if pair else lib_src))
-                lib_label = ("mv+addmv pair" if pair
+                                  library_ms=lib_src))
+                lib_label = ("addmv+mv pair" if pair
                              else "mv" if name == "project_prefix"
                              else "addmv")
                 print(f"timing {name:14s} rows={rows:2d} N={N} device_ms "
@@ -1719,10 +1738,20 @@ MESH_CG_SEED = 12
 #: product) must land above them (LSQR 5.6e-4 and 2.0e-3).  The
 #: multi-shift CG's final per-shift residuals: 4x above its largest sound
 #: reading (1.2e-4, 4 ranks, both variants within it), 2x below its
-#: halo fault's (1.04e-3; its unreduced product reads 0.79 and 2e5)
+#: halo fault's (1.04e-3; its unreduced product reads 0.79 and 2e5).
+#: Chebyshev: 3e-6, 18x above its largest sound reading (1.7e-7 on 2
+#: gloo ranks, 8.5e-8 on 4), 10x below its halo fault (3.2e-5; reduce
+#: 1.4e-4); the Lanczos expm_multiply and sketched GMRES: 3e-5, 5x above
+#: the expm's 4-rank reading (5.8e-6; 2 ranks 1.4e-7, sketched GMRES
+#: 3.8e-7), 24x below their smallest fault reading (7.3e-4); block CG:
+#: its float32 tail reads 1.3e-4 / 3.6e-4 sound on 2 / 4 ranks, its halo
+#: fault 0.20 (its products are (k,)-vectors: the reduce fault, which
+#: leaves 0-dim partials unreduced, does not reach it)
 MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4,
              "gmres_1r": 3e-6, "cg_1r": 2e-4, "gmres_auto": 3e-6,
-             "lsqr": 5e-6, "shifted_cg_auto": 5e-4, "shifted_cg_1r": 5e-4}
+             "lsqr": 5e-6, "shifted_cg_auto": 5e-4, "shifted_cg_1r": 5e-4,
+             "chebyshev": 3e-6, "block_cg": 3e-3, "funm_krylov": 3e-5,
+             "sketched_gmres": 3e-5}
 #: the least-squares and multi-shift lane on the mesh: LSQR on the Poisson
 #: operator (its own adjoint) for MESH_LSQ_ITERS iterations (tol below
 #: reach, the stagnation window past them), and multi-shift CG with
@@ -1742,6 +1771,22 @@ MESH_SHIFTED_FIXED = {"classic": 4, "1r": 5}
 #: two initial norms, the initial delta and the final explicit residual
 MESH_1R_FIXED = {"gmres_1r": 5, "cg_1r": 4,
                  "shifted_cg_1r": MESH_SHIFTED_FIXED["1r"]}
+#: the Chebyshev, matrix-function, block and sketched lane on the mesh,
+#: none reaching its tolerance: Chebyshev with Jacobi on Poisson (its
+#: bounds the Jacobi-scaled spectrum's closed form) for MESH_CHEB_ITERS
+#: steps, checking every MESH_CHEB_EVERY (the stagnation guard off), ONE
+#: all-reduce per check plus the two initial norms; block CG (Jacobi,
+#: B = [CG's b, ones]) for MESH_BLOCK_ITERS steps; exp(-t A) b of Poisson
+#: by Lanczos (maxdim MESH_FUNM_DIM, t lambda_max = MESH_FUNM_TLAM: its
+#: correction tail, the "history", sits near 1e-2, far above float32's
+#: rounding); sketched GMRES (Jacobi as M) on the convection-diffusion
+#: operator for MESH_SGM_ITERS iterations with a sketch every process
+#: draws alike on cuda:0 from MESH_SKETCH_SEED
+MESH_CHEB_ITERS, MESH_CHEB_EVERY = 128, 16
+MESH_CHEB_FIXED = 2
+MESH_BLOCK_ITERS = 30
+MESH_FUNM_DIM, MESH_FUNM_TLAM = 20, 100.0
+MESH_SGM_ITERS, MESH_SKETCH_SEED = 25, 17
 #: the faults ``--mesh-faults`` plants, one world each
 MESH_FAULTS = ("halo", "reduce")
 
@@ -1829,6 +1874,28 @@ def _mesh_solves(device, mesh=None):
             maxiter=MESH_SHIFTED_ITERS, stagnation_window=0,
             variant="1r")],
     }
+    # the Chebyshev, matrix-function, block and sketched lane
+    h = 1.0 / (nx + 1)
+    lam_max = 8.0 / h ** 2 * math.cos(math.pi * h / 2) ** 2
+    cheb_bounds = (2 * math.sin(math.pi * h / 2) ** 2,
+                   2 * math.cos(math.pi * h / 2) ** 2)
+    sketch = F.kron_sketch(N, 8 * (MESH_SGM_ITERS + 1), seed=torch.Generator(
+        device=device).manual_seed(MESH_SKETCH_SEED))
+    runs.update({
+        "chebyshev": lambda: [F.chebyshev(
+            lap, b_cg, M=ops.jacobi_preconditioner(lap),
+            lmin=cheb_bounds[0], lmax=cheb_bounds[1], tol=MESH_TOL,
+            maxiter=MESH_CHEB_ITERS, check_every=MESH_CHEB_EVERY,
+            stagnation_window=0)],
+        "block_cg": lambda: [F.block_cg(
+            lap, torch.stack([b_cg, b], 1), M=ops.jacobi_preconditioner(lap),
+            tol=MESH_TOL, maxiter=MESH_BLOCK_ITERS)],
+        "funm_krylov": lambda: [F.expm_multiply(
+            lap, b_cg, -MESH_FUNM_TLAM / lam_max, maxdim=MESH_FUNM_DIM)],
+        "sketched_gmres": lambda: [F.sketched_gmres(
+            cd, b, M=Ml, tol=MESH_TOL, maxiter=MESH_SGM_ITERS,
+            sketch=sketch)],
+    })
     out = {}
     for name, run in runs.items():
         torch.cuda.synchronize()
@@ -1836,19 +1903,35 @@ def _mesh_solves(device, mesh=None):
         parallel.reset_collective_counts()
         results = run()
         torch.cuda.synchronize()
+        hist = [_mesh_history(name, r) for r in results]
         out[name] = {
             "launches": kernels.launch_counts(),
             "collectives": parallel.collective_counts(),
-            "resnorms": [r.resnorms[: len(r.resnorms)
-                                    if name in ("gmres", "gmres_1r")
-                                    else int(r.niter) + 1].tolist()
-                         for r in results],
-            "status": [r.status.tolist() for r in results],
-            "niter": [int(r.niter) for r in results],
+            "resnorms": [h for h, _, _ in hist],
+            "status": [st for _, st, _ in hist],
+            "niter": [n for _, _, n in hist],
         }
     out["recycling"]["deflated_width"] = (
         None if rec._U is None else int(rec._U.shape[1]))
     return out
+
+
+def _mesh_history(name, r):
+    """``(history, status, niter)`` of one mesh-phase result: the residual
+    history (GMRES's whole buffer; Chebyshev's one entry per check block;
+    block CG's columns, step after step; the matrix function's finite
+    correction tail, its status 0 and its Krylov dimension)."""
+    if name == "funm_krylov":
+        c = r.corrections.tolist()
+        return [v for v in c if math.isfinite(v)], 0, int(r.m)
+    if name == "chebyshev":
+        n = int(r.niter) // MESH_CHEB_EVERY + 1
+    elif name in ("gmres", "gmres_1r"):
+        n = len(r.resnorms)
+    else:
+        n = int(r.niter) + 1
+    return (r.resnorms[:n].reshape(-1).tolist(), r.status.tolist(),
+            int(r.niter))
 
 
 def _mesh_device_ms(fn, floor_ms, reps=10):
@@ -2197,16 +2280,32 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
             print(f"{tag}: timing K8 {name} per shard device_ms={ms:.5f} "
                   f"({src}) host_ms={v['host_ms']:.4f} bound={b8_ms:.5f}; "
                   f"by event {v['device_ms_by_event']}", flush=True)
+        # K8's library yardstick: one cuDNN convolution (TF32 off) of the
+        # rank's block with its two halo rows, zero-padded in the columns
+        torch.backends.cudnn.allow_tf32 = False
+        halo_blk = torch.zeros(n_loc // nx + 2, nx, device=device)
+        halo_blk[1:-1] = x_loc.view(-1, nx)
+        cc, cu, cd, cl, cr = co
+        wt = torch.tensor([[0.0, cu, 0.0], [cl, cc, cr], [0.0, cd, 0.0]],
+                          device=device).view(1, 1, 3, 3)
+        library = {"stencil5_sharded": lambda: torch.nn.functional.conv2d(
+            halo_blk.view(1, 1, -1, nx), wt, padding=(0, 1))}
         for name, (kern, pl, b_ms, b_by) in timings.items():
             ms, src = _mesh_device_ms(kern, b_ms)
             plain_ms, plain_src = _mesh_device_ms(pl, b_ms)
+            lib_ms, lib_src = (_mesh_device_ms(library[name], b_ms)
+                               if name in library else (None, None))
             rec["times"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by,
+                                      bound_by=b_by, library_ms=lib_ms,
                                       timed_by=dict(ms=src,
-                                                    plain_ms=plain_src))
+                                                    plain_ms=plain_src,
+                                                    library_ms=lib_src))
             print(f"{tag}: timing {name} per shard device_ms kernel={ms:.5f} "
                   f"({src}) plain={plain_ms:.5f} ({plain_src}) "
-                  f"bound={b_ms:.5f} ({b_by})", flush=True)
+                  + ("" if lib_ms is None else
+                     f"conv2d={lib_ms:.5f} ({lib_src}) ")
+                  + f"bound={b_ms:.5f} ({b_by})", flush=True)
+        del halo_blk
         # K9's floor as the composition it is: the bounds of its three
         # sweeps, K4 (V, w read), K5 and K6 (V, w read, w' written)
         rec["times"]["cgs2_fused_sharded"]["three_sweep_floor_ms"] = bound(
@@ -2357,7 +2456,10 @@ def _check_mesh_world(backend, P, ranks, ref):
         rel = _history_rel(got, want)
         launches, coll = r0[name]["launches"], r0[name]["collectives"]
         matvecs = one["launches"]["stencil5_affine"]
-        iters = sum(r0[name]["niter"]) if name.startswith("shifted") else \
+        # (the recorded count where a history is not one entry per
+        # iteration: per shift, per check block, per column, corrections)
+        iters = sum(r0[name]["niter"]) if name.startswith("shifted") or \
+            name in ("chebyshev", "block_cg", "funm_krylov") else \
             sum(len(h) - 1 for h in got)
         print(f"{tag} {name}: {iters} iterations, {matvecs} matvecs as on "
               f"one device; residual history max rel diff {rel:.3e} "
@@ -2382,6 +2484,13 @@ def _check_mesh_world(backend, P, ranks, ref):
                     f"{iters} iterations of {MESH_CYCLES} cycles: expected "
                     f"one K9 and three all-reduces per iteration plus "
                     f"{per_cycle} per cycle")
+        if name == "chebyshev":
+            blocks = len(got[0]) - 1
+            if coll["all_reduce_sum"] != blocks + MESH_CHEB_FIXED:
+                raise AssertionError(
+                    f"{tag} chebyshev: {coll['all_reduce_sum']} all-reduces "
+                    f"in {blocks} check blocks: expected ONE per block plus "
+                    f"{MESH_CHEB_FIXED}")
         if name in MESH_1R_FIXED:
             fixed = MESH_1R_FIXED[name] * (MESH_CYCLES if name == "gmres_1r"
                                            else 1)
@@ -5659,6 +5768,11 @@ def nonsym_phase(device):
 EIGEN_NX = NS_NX
 EIGEN_LANE_NX = NX
 EIGEN_WINDOW_NX = 255
+#: the default run's grid of the block-Lanczos and Krylov-Schur lane pairs
+#: (their plain lanes at 1023^2 took 48.2 and 33.7 s on the H100; ``--only
+#: eigen`` keeps them at ``EIGEN_LANE_NX``): their kernel lanes still run
+#: at ``EIGEN_LANE_NX`` for the gates across runs there
+EIGEN_PAIR_NX = 511
 #: eigsh's tolerance, and its inverse's: float64 refinement to 1e-9 (the
 #: float64 residual floor of a smooth right-hand side at 4095^2 is ~8e-10)
 EIGEN_TOL = 1e-8
@@ -5718,7 +5832,8 @@ def _eigen_vcycle_levels(nx, device):
     return nlev
 
 
-def _eigen_identity(label, launches, nlev, k1=0, vcycles=0, prefix=0):
+def _eigen_identity(label, launches, nlev, k1=0, vcycles=0, prefix=0,
+                    phase="eigen"):
     """The kernel lane's launches against the counted applications: ``k1``
     float32 operator applications (one K1 each), ``vcycles`` V-cycles
     (``nlev + 1`` K1, ``nlev`` K2, ``nlev`` K3 and one coarse form each)
@@ -5731,11 +5846,11 @@ def _eigen_identity(label, launches, nlev, k1=0, vcycles=0, prefix=0):
             "apply_project": prefix, "update_prefix": prefix}
     got = {k: launches.get(k, 0) for k in want}
     other = {k: c for k, c in launches.items() if c and k not in want}
-    print(f"eigen {label}: launches {got} against the applications {want}",
-          flush=True)
+    print(f"{phase} {label}: launches {got} against the applications "
+          f"{want}", flush=True)
     if got != want or other:
-        raise AssertionError(f"eigen {label}: launches {got} {other} do not "
-                             f"match the applications {want}")
+        raise AssertionError(f"{phase} {label}: launches {got} {other} do "
+                             f"not match the applications {want}")
     return got
 
 
@@ -6036,7 +6151,7 @@ def _eigen_lanes_agree(what, runs, count_key, witness=None):
     return dev
 
 
-def eigen_phase(device):
+def eigen_phase(device, pair_nx=EIGEN_LANE_NX):
     """The eigensolver lane (``--only eigen``), float64 outer work over the
     float32 kernel lane: (a) eigsh, the 6 smallest pairs of bench.py's
     Poisson operator at ``EIGEN_NX``^2 by shift-invert block Lanczos
@@ -6045,7 +6160,9 @@ def eigen_phase(device):
     eigs, the 4 nearest 0 of the north star's operator (``inv`` its
     refined GMRES: K1-K6); each gated on the closed forms and its launches
     held to its counted applications.  Every run also at
-    ``EIGEN_LANE_NX``^2 on both lanes (theta equal, counts within 1;
+    ``EIGEN_LANE_NX``^2 on both lanes (eigsh's and eigs' lane pairs at
+    ``pair_nx``^2, their kernel lanes also at ``EIGEN_LANE_NX``; theta
+    equal, counts within 1;
     LOBPCG's within its lanes' own spread under another float32 rounding
     of M, converged witnesses only), the first Lanczos sweep of (a)'s
     ``cgs2_1r`` kernel lane there under the profiler for its busy share;
@@ -6054,11 +6171,13 @@ def eigen_phase(device):
     Prints one JSON line and returns it."""
     t0 = time.perf_counter()
     record = {"device": _smi(), "nx": EIGEN_NX, "lane_nx": EIGEN_LANE_NX,
-              "window_nx": EIGEN_WINDOW_NX, "reduced_from": {}, "runs": {},
-              "launches": {}, "lanes": {}}
+              "pair_nx": pair_nx, "window_nx": EIGEN_WINDOW_NX,
+              "reduced_from": {}, "runs": {}, "launches": {}, "lanes": {}}
+    if pair_nx != EIGEN_LANE_NX:
+        record["reduced_from"]["eigsh, eigs lane pairs"] = EIGEN_LANE_NX
     failed = []
     levels = {nx: _eigen_vcycle_levels(nx, device)
-              for nx in (EIGEN_NX, EIGEN_LANE_NX)}
+              for nx in {EIGEN_NX, EIGEN_LANE_NX, pair_nx}}
 
     def attempt(key, fn, *args, **kw):
         t = time.perf_counter()
@@ -6075,19 +6194,33 @@ def eigen_phase(device):
                   flush=True)
 
     runs = {}
+    moved = pair_nx != EIGEN_LANE_NX
     for nx, lanes in ((EIGEN_NX, ("cuda",)),
                       (EIGEN_LANE_NX, ("cuda", "torch"))):
         nlev = levels[nx]
         for impl in lanes:
-            runs["eigsh", impl, nx] = attempt(
-                f"eigsh {impl}@{nx}", _eigen_eigsh, nx, impl, device, nlev)
+            # (the lane pairs moved to pair_nx: their plain lanes run there)
+            paired = not (moved and nx == EIGEN_LANE_NX and impl == "torch")
+            if paired:
+                runs["eigsh", impl, nx] = attempt(
+                    f"eigsh {impl}@{nx}", _eigen_eigsh, nx, impl, device,
+                    nlev)
             runs["eigsh_1r", impl, nx] = attempt(
                 f"eigsh cgs2_1r {impl}@{nx}", _eigen_eigsh, nx, impl,
                 device, nlev, ortho="cgs2_1r")
             runs["lobpcg", impl, nx] = attempt(
                 f"lobpcg {impl}@{nx}", _eigen_lobpcg, nx, impl, device, nlev)
-            runs["eigs", impl, nx] = attempt(
-                f"eigs {impl}@{nx}", _eigen_eigs, nx, impl, device, nlev)
+            if paired:
+                runs["eigs", impl, nx] = attempt(
+                    f"eigs {impl}@{nx}", _eigen_eigs, nx, impl, device,
+                    nlev)
+    for impl in ("cuda", "torch") if moved else ():
+        runs["eigsh", impl, pair_nx] = attempt(
+            f"eigsh {impl}@{pair_nx}", _eigen_eigsh, pair_nx, impl, device,
+            levels[pair_nx])
+        runs["eigs", impl, pair_nx] = attempt(
+            f"eigs {impl}@{pair_nx}", _eigen_eigs, pair_nx, impl, device,
+            levels[pair_nx])
     # once: in float64 both lanes take the plain stencil (no kernel)
     attempt(f"window cuda@{EIGEN_WINDOW_NX}", _eigen_window,
             EIGEN_WINDOW_NX, "cuda", device)
@@ -6140,7 +6273,7 @@ def eigen_phase(device):
 
     for what, key in (("eigsh", "cycles"), ("eigsh_1r", "cycles"),
                       ("lobpcg", "niter"), ("eigs", "cycles")):
-        nx = EIGEN_LANE_NX
+        nx = pair_nx if what in ("eigsh", "eigs") else EIGEN_LANE_NX
         pair = {impl: runs.get((what, impl, nx)) for impl in ("cuda",
                                                               "torch")}
         if all(pair.values()):
@@ -6791,6 +6924,764 @@ def shifted_phase(device):
     return record
 
 
+#: the funm phase (``--only funm``): the Chebyshev, matrix-function, block
+#: and sketched lanes at the north star's grid, float32 through K1-K3 on
+#: the kernel lane and the plain stencil on the plain lane.  Operators:
+#: bench.py's padded Poisson with its padded V-cycle (Chebyshev, block CG),
+#: the unpadded Poisson through K1 (the Hermitian matrix functions: a
+#: padded probe would add the pad columns' null space to SLQ's quadrature),
+#: the north star's padded h^2-scaled operator with its scaled V-cycle
+#: (Arnoldi expm, block GMRES, the sketched lane).  Solves gated on a
+#: residual use a right-hand side b = A x* of a seeded random x*: with a
+#: smooth b the float32 iterate's own rounding, amplified by the
+#: operator's lambda_max, puts the float64 residual near 0.1 at 4095^2
+#: (ROADMAP.md C); block CG's columns (ones, random, a sine mode,
+#: linspace) are gated on the normwise backward error ||b - A x|| /
+#: (||A|| ||x|| + ||b||) instead, block GMRES's (ones, random) too
+FUNM_NX = NS_NX
+#: (b) runs at bench.py's grid: plain float32 CG at 4095^2 (kappa ~7e6)
+#: is no useful yardstick
+FUNM_PREC_NX = NX
+FUNM_SEED = 17
+FUNM_CHEB = dict(tol=1e-5, check_every=8, maxiter=400)
+FUNM_BOUND_STEPS = 24
+FUNM_PREC_DEGREE, FUNM_PREC_TOL, FUNM_PREC_MAXITER = 8, 1e-3, 6000
+#: exp(-t A) b with t lambda_max = FUNM_EXPM_TLAM; Lanczos dimension of
+#: the Hermitian matrix functions and SLQ; inv_sqrt's tolerance (its
+#: shifted CG runs to tol/10) and iteration cap: the members of the
+#: smallest shifts (kappa ~6.5e6) converge at ~1.2e-3 per float32
+#: iteration, and their float32 floor leaves the closed form 6.7e-3 away
+#: after 8354 iterations (51.7 s a lane; 0.138 at 1500, 2.4e-2 at 3000:
+#: on the H100, ROADMAP.md C); SLQ's probes and gate
+FUNM_EXPM_TLAM, FUNM_MAXDIM = 20.0, 30
+FUNM_ISQRT_TOL, FUNM_ISQRT_MAXITER = 1e-4, 3000
+FUNM_SLQ_PROBES, FUNM_SLQ_SE = 16, 5.0
+#: Arnoldi exp(t A) b on the north star's scaled operator (lambda_max ~8)
+FUNM_ARN_T = -1.0
+#: block CG's rank floor: float32's Gram noise (~sqrt(eps) of lambda_max
+#: for directions the V-cycle makes nearly dependent) kept at the default
+#: 1e-12 costs 2 steps at 4095^2 (11 against the single columns' worst 9;
+#: 1e-6: 10; 1e-4: 9 on the H100, ROADMAP.md C)
+FUNM_BLOCK_TOL, FUNM_BLOCK_MAXITER, FUNM_BLOCK_FLOOR = 1e-5, 100, 1e-4
+FUNM_BGM_TOL, FUNM_BGM_MAXITER = 1e-5, 40
+FUNM_SGM = dict(tol=1e-4, maxiter=40, k_ortho=2)
+FUNM_SGM_RESTARTS, FUNM_SGM_CYCLE = 8, 2
+FUNM_SEIG = dict(k=4, maxiter=80, which="lm")
+#: gate limits, each above the sound reading and below the planted
+#: fault's (``--funm-faults``; PERF.md lists both): the closed forms
+#: (relative 2-norm), the Arnoldi expm against its float64 run and the
+#: lanes against each other, the lanes' iteration counts, sketched_eigs'
+#: reported residual against the recomputed one (relative), its lanes'
+#: values (relative) and the slack of the spectrum's range (relative)
+FUNM_EXPM_RTOL, FUNM_ISQRT_RTOL = 1e-4, 5e-2
+FUNM_ARN_F64_RTOL, FUNM_ARN_LANE_RTOL = 1e-4, 1e-4
+FUNM_LANE_SLACK = 1
+FUNM_SEIG_RES_RTOL, FUNM_SEIG_THETA_RTOL, FUNM_SEIG_RANGE = 1e-2, 1e-4, 1e-4
+
+
+def _funm_gate(gates, name, reading, limit, fault=None, above=False):
+    """Record one gate: ``reading`` must be at or below ``limit`` (at or
+    above it, ``above``); ``fault`` is the reading of the planted fault
+    (``--funm-faults``), which must fail the gate.  Returns the failure
+    message or None."""
+    ok = reading >= limit if above else reading <= limit
+    caught = None if fault is None else not (
+        fault >= limit if above else fault <= limit)
+    gates[name] = dict(reading=reading, limit=limit, fault=fault,
+                       fault_caught=caught)
+    print(f"funm gate {name}: {reading!r} ({'>=' if above else '<='} "
+          f"{limit!r}: {'ok' if ok else 'FAILED'})"
+          + ("" if fault is None else
+             f"; planted fault {fault!r} ({'caught' if caught else 'MISSED'})"),
+          flush=True)
+    if not ok:
+        return f"{name}: {reading!r} against {limit!r}"
+    if caught is False:
+        return f"{name}: the planted fault {fault!r} passes {limit!r}"
+    return None
+
+
+def _funm_poisson(nx, impl, device, padded=True):
+    """bench.py's Poisson (padded, with its padded V-cycle) or the
+    unpadded one through K1, float32, and its float64 plain twin
+    (unpadded)."""
+    from krypy_tpu_torch import ops
+
+    A64 = ops.poisson_2d(nx, device=device)
+    if not padded:
+        return ops.poisson_2d(nx, impl=impl, device=device), None, A64
+    A = ops.poisson_2d(nx, pad_cols=True, impl=impl, device=device)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl,
+        device=device)
+    return A, M, A64
+
+
+def _funm_northstar(nx, impl, device):
+    """The north star's padded h^2-scaled float32 operator, its scaled
+    padded V-cycle, and the operator's float64 plain twin (padded)."""
+    from krypy_tpu_torch import ops
+
+    h2 = 1.0 / (nx + 1) ** 2
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=device)
+    A = ops.convection_diffusion_2d(nx, impl=impl, **kw)
+    A64 = ops.convection_diffusion_2d(nx, impl="torch", **kw)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl=impl,
+        scale=1.0 / h2, device=device)
+    return A, M, A64
+
+
+def _funm_rough_rhs(nx, A64, device, padded, seed=FUNM_SEED):
+    """``b = A x*`` in float64 for a seeded random ``x*`` (padded with
+    zeros where the operator is), as float32."""
+    import torch
+    from krypy_tpu_torch import ops
+
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        nx * nx)).to(device)
+    if padded:
+        x = ops.pad_grid_vec(x, nx, nx)
+    return A64(x).float()
+
+
+def _funm_counted(A, M=None):
+    """``A`` and ``M`` wrapped to count their applications."""
+    from krypy_tpu_torch import eigen
+
+    counts = {"A": 0, "M": 0}
+    out = eigen._counted(A, counts, "A")
+    for attr in ("shape", "diag"):
+        if hasattr(A, attr):
+            setattr(out, attr, getattr(A, attr))
+    return out, None if M is None else eigen._counted(M, counts, "M"), \
+        counts
+
+
+def _funm_identity(label, launches, impl, nlev, counts):
+    """The kernel lane's K1-K3 launches against the counted applications
+    (one K1 per operator application, a V-cycle's per application of
+    ``M``); the plain lane launches nothing."""
+    if impl != "cuda":
+        if launches:
+            raise AssertionError(f"funm {label}: the plain lane launched "
+                                 f"{launches}")
+        return
+    _eigen_identity(label, launches, nlev, k1=counts["A"],
+                    vcycles=counts["M"], phase="funm")
+
+
+def _funm_eta(A64, b, x, norm_a):
+    """Per column: the float64 relative residual and the normwise
+    backward error ``||b - A x|| / (||A|| ||x|| + ||b||)``."""
+    import torch
+
+    rel, eta = [], []
+    for j in range(b.shape[1]):
+        bj, xj = b[:, j].double(), x[:, j].double()
+        r = float(torch.linalg.vector_norm(bj - A64(xj)))
+        nb = float(torch.linalg.vector_norm(bj))
+        rel.append(r / nb)
+        eta.append(r / (norm_a * float(torch.linalg.vector_norm(xj)) + nb))
+    return rel, eta
+
+
+def _funm_true_rel(A64, b, x):
+    import torch
+
+    b64 = b.double()
+    return float(torch.linalg.vector_norm(b64 - A64(x.double()))
+                 / torch.linalg.vector_norm(b64))
+
+
+def _funm_cheb(nx, impl, device, faults):
+    """(a) Chebyshev on bench.py's Poisson with the padded V-cycle,
+    bounds from ``spectral_bounds`` (24 steps on M A)."""
+    from krypy_tpu_torch import functional as F, ops
+
+    A, M, A64 = _funm_poisson(nx, impl, device)
+    nlev = _eigen_vcycle_levels(nx, device)
+    b = _funm_rough_rhs(nx, lambda v: ops.pad_grid_vec(A64(
+        ops.unpad_grid_vec(v, nx, nx)), nx, nx), device, True)
+    Ac, Mc, counts = _funm_counted(A, M)
+
+    def run():
+        lo, hi = F.spectral_bounds(Ac, b, M=Mc, steps=FUNM_BOUND_STEPS)
+        return lo, hi, F.chebyshev(Ac, b, M=Mc, lmin=lo, lmax=hi,
+                                   **FUNM_CHEB)
+
+    (lo, hi, r), launches, wall = _lsq_run(f"funm chebyshev {impl}@{nx}",
+                                           run)
+    _funm_identity("chebyshev", launches, impl, nlev, counts)
+    ce = FUNM_CHEB["check_every"]
+    blocks = int(r.niter) // ce
+    want = {"A": FUNM_BOUND_STEPS + 1 + blocks * (ce + 1),
+            "M": FUNM_BOUND_STEPS + 1 + blocks * ce}
+    if counts != want:
+        raise AssertionError(f"funm chebyshev: applications {counts}, the "
+                             f"recurrence makes {want}")
+    unpad = lambda v: ops.unpad_grid_vec(v, nx, nx)  # noqa: E731
+    rel = _funm_true_rel(A64, unpad(b), unpad(r.x))
+    gates, fail = {}, []
+    fault = None
+    if faults:
+        # the iterate one check block short of the solve's
+        short = F.chebyshev(A, b, M=M, lmin=lo, lmax=hi, **dict(
+            FUNM_CHEB, maxiter=int(r.niter) - ce))
+        fault = _funm_true_rel(A64, unpad(b), unpad(short.x))
+    fail.append(_funm_gate(gates, f"chebyshev true residual {impl}", rel,
+                           FUNM_CHEB["tol"], fault))
+    if int(r.status) != 0:
+        fail.append(f"chebyshev status {int(r.status)}")
+    rec = dict(lmin=lo, lmax=hi, niter=int(r.niter), status=int(r.status),
+               true_rel=rel, resnorms=r.resnorms[: blocks + 1].tolist(),
+               applications=counts, launches=launches, wall_s=wall,
+               gates=gates)
+    if faults:
+        # a wrong bound (lmin ten times too small): its count, for the
+        # lanes' count gate
+        slow = F.chebyshev(A, b, M=M, lmin=lo / 10, lmax=hi, **FUNM_CHEB)
+        rec["fault_niter_lmin_over_10"] = int(slow.niter)
+    return rec, [f for f in fail if f]
+
+
+def _funm_prec(nx, impl, device, faults):
+    """(b) ``ops.chebyshev_preconditioner`` (degree 8, ``lmin`` the closed
+    form's, ``lmax`` from ``.diag``) as ``M`` of CG on bench.py's Poisson
+    at 1023^2, seeded random b, against plain CG."""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A = ops.poisson_2d(nx, pad_cols=True, impl=impl, device=device)
+    lmin = eigen.poisson_eigenvalues(nx, 1)[0][0]
+    b = ops.pad_grid_vec(torch.from_numpy(np.random.default_rng(
+        FUNM_SEED).standard_normal(nx * nx, dtype=np.float32)).to(device),
+        nx, nx)
+    Ac, _, counts = _funm_counted(A)
+    M = ops.chebyshev_preconditioner(Ac, degree=FUNM_PREC_DEGREE, lmin=lmin)
+    kw = dict(tol=FUNM_PREC_TOL, maxiter=FUNM_PREC_MAXITER)
+    plain, l_plain, w_plain = _lsq_run(f"funm cg {impl}@{nx}",
+                                       lambda: F.cg(Ac, b, **kw))
+    a_plain = dict(counts)
+    counts.update(A=0)
+    pre, l_pre, w_pre = _lsq_run(f"funm cg+chebyshev {impl}@{nx}",
+                                 lambda: F.cg(Ac, b, M=M, **kw))
+    _funm_identity("cg", l_plain, impl, 0, a_plain)
+    _funm_identity("cg+chebyshev", l_pre, impl, 0, counts)
+    gates, fail = {}, []
+    fault = None
+    if faults:
+        # degree 1: the preconditioner r / theta, a scaled identity
+        M1 = ops.chebyshev_preconditioner(A, degree=1, lmin=lmin)
+        fault = int(F.cg(A, b, M=M1, **kw).niter) - int(plain.niter)
+    fail.append(_funm_gate(gates, f"cg+chebyshev minus plain cg "
+                           f"iterations {impl}", int(pre.niter)
+                           - int(plain.niter), -1, fault))
+    # (plain float32 CG on this kappa ~4e5 system with a random b stalls
+    # short of tol: it is the yardstick, its count the cap)
+    if int(pre.status) != 0:
+        fail.append(f"cg+chebyshev status {int(pre.status)}")
+    return dict(lmin=lmin, lmax=float(2.0 * torch.max(A.diag)),
+                degree=FUNM_PREC_DEGREE, niter_plain=int(plain.niter),
+                status_plain=int(plain.status),
+                niter=int(pre.niter), applications=dict(
+                    plain=a_plain["A"], preconditioned=counts["A"]),
+                launches=l_pre, launches_plain_cg=l_plain, wall_s=w_pre,
+                wall_plain_s=w_plain, gates=gates), [f for f in fail if f]
+
+
+def _funm_dst(nx, b):
+    """The orthonormal 2-D DST-I of ``b`` (Poisson's eigenbasis), float64
+    on the host, and the eigenvalues in the same layout."""
+    import scipy.fft
+
+    h = 1.0 / (nx + 1)
+    lam1 = 4.0 / h ** 2 * np.sin(np.arange(1, nx + 1) * np.pi * h / 2) ** 2
+    B = scipy.fft.dstn(b.reshape(nx, nx), type=1, norm="ortho")
+    return B, lam1[:, None] + lam1[None, :]
+
+
+def _funm_closed(nx, x, want_hat):
+    """``x`` (a tensor) against the closed form given by its DST
+    coefficients, relative 2-norm, float64."""
+    import scipy.fft
+
+    want = scipy.fft.idstn(want_hat, type=1, norm="ortho").reshape(-1)
+    got = x.double().cpu().numpy()
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _funm_hermitian(nx, impl, device, faults):
+    """(c) on the unpadded Poisson through K1, seeded random b:
+    ``expm_multiply`` and ``inv_sqrt_multiply`` against their DST closed
+    forms, ``slq_logdet`` against the exact sum."""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F
+
+    A, _, _ = _funm_poisson(nx, impl, device, padded=False)
+    bh = np.random.default_rng(FUNM_SEED).standard_normal(
+        nx * nx, dtype=np.float32)
+    b = torch.from_numpy(bh).to(device)
+    B, lam = _funm_dst(nx, bh.astype(np.float64))
+    lmin = eigen.poisson_eigenvalues(nx, 1)[0][0]
+    lmax = eigen.poisson_eigenvalues(nx, 1, largest=True)[0][0]
+    t = FUNM_EXPM_TLAM / lmax
+    recs, fail = {}, []
+
+    Ac, _, counts = _funm_counted(A)
+    gates = {}
+    r, launches, wall = _lsq_run(f"funm expm_multiply {impl}@{nx}",
+                                 lambda: F.expm_multiply(Ac, b, -t,
+                                                         maxdim=FUNM_MAXDIM))
+    _funm_identity("expm_multiply", launches, impl, 0, counts)
+    err = _funm_closed(nx, r.x, np.exp(-t * lam) * B)
+    fault = None
+    if faults:
+        # a Krylov space too small for the semigroup
+        fault = _funm_closed(nx, F.expm_multiply(A, b, -t, maxdim=8).x,
+                             np.exp(-t * lam) * B)
+    fail.append(_funm_gate(gates, f"expm_multiply closed form {impl}", err,
+                           FUNM_EXPM_RTOL, fault))
+    recs["expm_multiply"] = dict(
+        t=t, t_lambda_max=FUNM_EXPM_TLAM, m=r.m, rel_err=err,
+        corrections=[c for c in r.corrections.tolist() if math.isfinite(c)],
+        applications=dict(counts),
+        launches=launches, wall_s=wall, gates=gates)
+
+    counts.update(A=0)
+    gates = {}
+    (x, info), launches, wall = _lsq_run(
+        f"funm inv_sqrt_multiply {impl}@{nx}", lambda: F.inv_sqrt_multiply(
+            Ac, b, lmin=lmin, lmax=lmax, tol=FUNM_ISQRT_TOL,
+            maxiter=FUNM_ISQRT_MAXITER))
+    _funm_identity("inv_sqrt_multiply", launches, impl, 0, counts)
+    want = B / np.sqrt(lam)
+    err = _funm_closed(nx, x, want)
+    fault = None
+    if faults:
+        # Lanczos with 30 steps instead of the quadrature: it cannot
+        # resolve lambda^-1/2 over kappa ~7e6
+        fault = _funm_closed(nx, F.funm_krylov(
+            A, b, lambda w: 1.0 / torch.sqrt(w), maxdim=FUNM_MAXDIM).x, want)
+    fail.append(_funm_gate(gates, f"inv_sqrt_multiply closed form {impl}",
+                           err, FUNM_ISQRT_RTOL, fault))
+    recs["inv_sqrt_multiply"] = dict(
+        rel_err=err, inner_iters=int(info["inner_iters"]),
+        shift_status=info["shift_status"].tolist(), lmin=lmin, lmax=lmax,
+        applications=dict(counts), launches=launches, wall_s=wall,
+        gates=gates)
+    del x, info
+
+    counts.update(A=0)
+    gates = {}
+    (est, se), launches, wall = _lsq_run(
+        f"funm slq_logdet {impl}@{nx}", lambda: F.slq_logdet(
+            Ac, FUNM_SEED, n_probes=FUNM_SLQ_PROBES, maxdim=FUNM_MAXDIM))
+    _funm_identity("slq_logdet", launches, impl, 0, counts)
+    exact = float(np.sum(np.log(lam)))
+    est, se = float(est), float(se)
+    dev = abs(est - exact) / se
+    fault = None
+    if faults:
+        # the estimate of log det(1.01 A): N log 1.01 off
+        fault = abs(est + lam.size * math.log(1.01) - exact) / se
+    fail.append(_funm_gate(gates, f"slq_logdet standard errors {impl}", dev,
+                           FUNM_SLQ_SE, fault))
+    recs["slq_logdet"] = dict(estimate=est, stderr=se, exact=exact,
+                              deviation_in_stderr=dev,
+                              applications=dict(counts), launches=launches,
+                              wall_s=wall, gates=gates)
+    return recs, [f for f in fail if f]
+
+
+def _funm_arnoldi(nx, impl, device, ref, faults):
+    """(c) ``expm_multiply(hermitian=False)`` on the north star's operator
+    (seeded random padded b), against its float64 run on the plain
+    stencil (``ref``, computed once and shared by the lanes)."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+
+    A, _, A64 = _funm_northstar(nx, impl, device)
+    b = ops.pad_grid_vec(torch.from_numpy(np.random.default_rng(
+        FUNM_SEED + 1).standard_normal(nx * nx, dtype=np.float32)).to(
+        device), nx, nx)
+    if "x64" not in ref:
+        ref["x64"] = F.expm_multiply(A64, b.double(), FUNM_ARN_T,
+                                     hermitian=False, maxdim=FUNM_MAXDIM).x
+    Ac, _, counts = _funm_counted(A)
+    r, launches, wall = _lsq_run(
+        f"funm expm_multiply arnoldi {impl}@{nx}", lambda: F.expm_multiply(
+            Ac, b, FUNM_ARN_T, hermitian=False, maxdim=FUNM_MAXDIM))
+    _funm_identity("expm_multiply arnoldi", launches, impl, 0, counts)
+    x64 = ref["x64"]
+    err = float(torch.linalg.vector_norm(r.x.double() - x64)
+                / torch.linalg.vector_norm(x64))
+    gates, fail = {}, []
+    fault = None
+    if faults:
+        small = F.expm_multiply(A, b, FUNM_ARN_T, hermitian=False, maxdim=8)
+        fault = float(torch.linalg.vector_norm(small.x.double() - x64)
+                      / torch.linalg.vector_norm(x64))
+    fail.append(_funm_gate(gates, f"expm arnoldi against float64 {impl}",
+                           err, FUNM_ARN_F64_RTOL, fault))
+    ref[impl] = r.x.double()
+    return dict(t=FUNM_ARN_T, m=r.m, rel_err_float64=err,
+                corrections=[c for c in r.corrections.tolist()
+                             if math.isfinite(c)], applications=counts,
+                launches=launches, wall_s=wall, gates=gates), \
+        [f for f in fail if f]
+
+
+def _funm_block_cg(nx, impl, device, faults):
+    """(d) ``block_cg`` on bench.py's Poisson with the padded V-cycle,
+    four right-hand sides (ones, seeded random, the (1, 2) sine mode,
+    linspace), against ``block_cg`` on each column alone (single-vector
+    CG with the same stopping rule)."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+
+    A, M, A64 = _funm_poisson(nx, impl, device)
+    nlev = _eigen_vcycle_levels(nx, device)
+    N = nx * nx
+    g = np.arange(1, nx + 1) / (nx + 1)
+    cols = [np.ones(N), np.random.default_rng(FUNM_SEED).standard_normal(N),
+            np.outer(np.sin(np.pi * g), np.sin(2 * np.pi * g)).reshape(-1),
+            np.linspace(0.0, 1.0, N)]
+    B = torch.stack([ops.pad_grid_vec(torch.from_numpy(c.astype(np.float32))
+                                      .to(device), nx, nx) for c in cols], 1)
+    Ac, Mc, counts = _funm_counted(A, M)
+    kw = dict(tol=FUNM_BLOCK_TOL, maxiter=FUNM_BLOCK_MAXITER,
+              floor_ratio=FUNM_BLOCK_FLOOR)
+    r, launches, wall = _lsq_run(f"funm block_cg {impl}@{nx}",
+                                 lambda: F.block_cg(Ac, B, M=Mc, **kw))
+    _funm_identity("block_cg", launches, impl, nlev, counts)
+    k, it = B.shape[1], int(r.niter)
+    if counts != {"A": k * (it + 1), "M": k * (it + 1)}:
+        raise AssertionError(f"funm block_cg: applications {counts} for "
+                             f"{it} steps of {k} columns")
+    singles = [int(F.block_cg(A, B[:, j:j + 1], M=M, **kw).niter)
+               for j in range(k)]
+    unpad = lambda X: torch.stack([ops.unpad_grid_vec(X[:, j], nx, nx)  # noqa
+                                   for j in range(X.shape[1])], 1)
+    norm_a = 8.0 * (nx + 1) ** 2
+    rel, eta = _funm_eta(A64, unpad(B), unpad(r.x), norm_a)
+    gates, fail = {}, []
+    fault_eta = fault_count = None
+    if faults:
+        # the columns' solutions swapped (0 <-> 1); a rank guard that
+        # drops every direction (floor_ratio 1), capped past the singles
+        swapped = r.x[:, [1, 0, 2, 3]]
+        fault_eta = max(_funm_eta(A64, unpad(B), unpad(swapped), norm_a)[1])
+        fault_count = int(F.block_cg(
+            A, B, M=M, tol=FUNM_BLOCK_TOL, maxiter=max(singles) + 3,
+            floor_ratio=1.0).niter) - max(singles)
+    fail.append(_funm_gate(gates, f"block_cg backward error {impl}",
+                           max(eta), FUNM_BLOCK_TOL, fault_eta))
+    fail.append(_funm_gate(gates, f"block_cg steps minus worst single "
+                           f"column {impl}", it - max(singles), 0,
+                           fault_count))
+    if int(r.status) != 0:
+        fail.append(f"block_cg status {int(r.status)}")
+    return dict(niter=it, status=int(r.status), singles=singles,
+                true_rel=rel, backward_error=eta,
+                resnorms_last=r.resnorms[it].tolist(), applications=counts,
+                launches=launches, wall_s=wall, gates=gates), \
+        [f for f in fail if f]
+
+
+def _funm_block_gmres(nx, impl, device, faults):
+    """(d) ``block_gmres`` on the north star's operator, k = 2 (ones and
+    seeded random), ``Ml`` the scaled V-cycle."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+
+    A, M, A64 = _funm_northstar(nx, impl, device)
+    nlev = _eigen_vcycle_levels(nx, device)
+    N = nx * nx
+    B = torch.stack([ops.pad_grid_vec(torch.from_numpy(c).to(device), nx, nx)
+                     for c in (np.ones(N, np.float32),
+                               np.random.default_rng(FUNM_SEED).standard_normal(
+                                   N, dtype=np.float32))], 1)
+    Ac, Mc, counts = _funm_counted(A, M)
+    r, launches, wall = _lsq_run(
+        f"funm block_gmres {impl}@{nx}", lambda: F.block_gmres(
+            Ac, B, Ml=Mc, tol=FUNM_BGM_TOL, maxiter=FUNM_BGM_MAXITER))
+    _funm_identity("block_gmres", launches, impl, nlev, counts)
+    k, it = B.shape[1], int(r.niter)
+    # Ml B, then Ml A per column of each step's panel
+    if counts != {"A": k * it, "M": k * (it + 1)}:
+        raise AssertionError(f"funm block_gmres: applications {counts} for "
+                             f"{it} steps of {k} columns")
+    norm_a = 8.0 + 1.5 / (nx + 1)
+    rel, eta = _funm_eta(A64, B, r.x, norm_a)
+    gates, fail = {}, []
+    fault = None
+    if faults:
+        fault = max(_funm_eta(A64, B, r.x[:, [1, 0]], norm_a)[1])
+    fail.append(_funm_gate(gates, f"block_gmres backward error {impl}",
+                           max(eta), FUNM_BGM_TOL, fault))
+    if int(r.status) != 0:
+        fail.append(f"block_gmres status {int(r.status)}")
+    return dict(niter=it, status=int(r.status), true_rel=rel,
+                backward_error=eta, applications=counts, launches=launches,
+                wall_s=wall, gates=gates), [f for f in fail if f]
+
+
+def _funm_sketch(nx, impl, device, shared, faults):
+    """(e) ``sketched_gmres`` and ``restarted_sketched_gmres`` (the V-cycle
+    as the right preconditioner ``M``) on the north star's operator with
+    ``b = A x*``, and ``sketched_eigs`` (k = 4, ``"lm"``), each on the one
+    sketch ``shared`` holds for both lanes."""
+    import torch
+    from krypy_tpu_torch import eigen, functional as F, ops
+
+    A, M, A64 = _funm_northstar(nx, impl, device)
+    nlev = _eigen_vcycle_levels(nx, device)
+    Np = A.shape[0]
+    b = _funm_rough_rhs(nx, A64, device, True)
+    if "gmres" not in shared:
+        gen = torch.Generator(device=device).manual_seed(FUNM_SEED)
+        shared["gmres"] = F.kron_sketch(
+            Np, 8 * (FUNM_SGM["maxiter"] + 1), seed=gen)
+        shared["eigs"] = F.kron_sketch(
+            Np, 8 * (FUNM_SEIG["maxiter"] + 1), seed=gen)
+    recs, fail = {}, []
+
+    Ac, Mc, counts = _funm_counted(A, M)
+    gates = {}
+    r, launches, wall = _lsq_run(
+        f"funm sketched_gmres {impl}@{nx}", lambda: F.sketched_gmres(
+            Ac, b, M=Mc, sketch=shared["gmres"], **FUNM_SGM))
+    _funm_identity("sketched_gmres", launches, impl, nlev, counts)
+    it = int(r.niter)
+    # one A M per iteration; r0; three assembled candidates' M and A
+    if counts != {"A": it + 4, "M": it + 3}:
+        raise AssertionError(f"funm sketched_gmres: applications {counts} "
+                             f"for {it} iterations")
+    rel = _funm_true_rel(A64, b, r.x)
+    fault = None
+    if faults:
+        fault = _funm_true_rel(A64, b, F.sketched_gmres(
+            A, b, M=M, sketch=shared["gmres"], **dict(
+                FUNM_SGM, maxiter=max(1, it // 2))).x)
+    fail.append(_funm_gate(gates, f"sketched_gmres true residual {impl}",
+                           rel, FUNM_SGM["tol"], fault))
+    fault = None
+    if faults:
+        # a starved embedding (d = maxiter + 2) of the unpreconditioned
+        # Krylov space, which then fills all maxiter columns
+        fault = float(F.sketched_gmres(A, b, sketch=F.kron_sketch(
+            Np, FUNM_SGM["maxiter"] + 1, seed=torch.Generator(
+                device=device).manual_seed(FUNM_SEED)), **FUNM_SGM)
+            .distortion)
+    fail.append(_funm_gate(gates, f"sketched_gmres distortion {impl}",
+                           float(r.distortion), 4.0, fault))
+    recs["sketched_gmres"] = dict(
+        niter=it, status=int(r.status), true_rel=rel,
+        distortion=float(r.distortion), sketch_d=r.sketch_d,
+        resnorms=r.resnorms[: it + 1].tolist(), applications=dict(counts),
+        launches=launches, wall_s=wall, gates=gates)
+
+    counts.update(A=0, M=0)
+    gates = {}
+    r, launches, wall = _lsq_run(
+        f"funm restarted_sketched_gmres {impl}@{nx}",
+        lambda: F.restarted_sketched_gmres(
+            Ac, b, M=Mc, sketch=shared["gmres"], tol=FUNM_SGM["tol"],
+            maxiter=FUNM_SGM_CYCLE, max_restarts=FUNM_SGM_RESTARTS,
+            k_ortho=FUNM_SGM["k_ortho"]))
+    _funm_identity("restarted_sketched_gmres", launches, impl, nlev, counts)
+    rel = _funm_true_rel(A64, b, r.x)
+    fault = None
+    if faults:
+        # its first cycle alone
+        fault = _funm_true_rel(A64, b, F.restarted_sketched_gmres(
+            A, b, M=M, sketch=shared["gmres"], tol=FUNM_SGM["tol"],
+            maxiter=FUNM_SGM_CYCLE, max_restarts=0,
+            k_ortho=FUNM_SGM["k_ortho"]).x)
+    fail.append(_funm_gate(gates, f"restarted_sketched_gmres true residual "
+                           f"{impl}", rel, FUNM_SGM["tol"], fault))
+    fail.append(_funm_gate(gates, f"restarted_sketched_gmres distortion "
+                           f"{impl}", float(r.distortion), 4.0))
+    recs["restarted_sketched_gmres"] = dict(
+        niter=int(r.niter), status=int(r.status), true_rel=rel,
+        distortion=float(r.distortion), applications=dict(counts),
+        launches=launches, wall_s=wall, gates=gates)
+    for name in ("sketched_gmres", "restarted_sketched_gmres"):
+        if recs[name]["status"] != 0:
+            fail.append(f"{name} status {recs[name]['status']}")
+
+    counts.update(A=0, M=0)
+    gates = {}
+    v0 = ops.pad_grid_vec(torch.cos(torch.arange(
+        nx * nx, dtype=torch.float64, device=device) * 0.7391) + 0.01, nx,
+        nx).float()
+    r, launches, wall = _lsq_run(
+        f"funm sketched_eigs {impl}@{nx}", lambda: F.sketched_eigs(
+            Ac, v0=v0, sketch=shared["eigs"], **FUNM_SEIG))
+    _funm_identity("sketched_eigs", launches, impl, 0, counts)
+    m, k = FUNM_SEIG["maxiter"], FUNM_SEIG["k"]
+    # the basis, then each Ritz vector's parts (one where they are real)
+    per = 2 if r.U.is_complex() else 1
+    if counts["A"] != m + per * k:
+        raise AssertionError(f"funm sketched_eigs: {counts['A']} "
+                             f"applications, expected {m} + {per} x {k}")
+    theta = r.theta.cpu().numpy()
+
+    def recomputed(U, th):
+        out = []
+        for j in range(U.shape[1]):
+            u = U[:, j].to(torch.complex128)
+            u = u / torch.linalg.vector_norm(u)
+            Au = torch.complex(A64(u.real.contiguous()),
+                               A64(u.imag.contiguous()))
+            out.append(float(torch.linalg.vector_norm(Au - th[j] * u))
+                       / max(abs(th[j]), 1e-300))
+        return np.array(out)
+
+    rec64 = recomputed(r.U, theta)
+    rep = r.pair_resnorms.double().cpu().numpy()
+    dev_res = float(np.max(np.abs(rep - rec64) / rec64))
+    fault = None
+    if faults:
+        # the start vector returned in place of the Ritz vectors
+        fault = float(np.max(np.abs(rep - recomputed(
+            v0[:, None].expand(-1, k), theta)) / rec64))
+    fail.append(_funm_gate(gates, f"sketched_eigs reported residual against "
+                           f"float64 {impl}", dev_res, FUNM_SEIG_RES_RTOL,
+                           fault))
+    h2 = 1.0 / (nx + 1) ** 2
+    lo = h2 * eigen.cd_eigenvalues(nx, 1)[0][0]
+    hi = h2 * eigen.cd_eigenvalues(nx, 1, largest=True)[0][0]
+    outside = float(max(np.max((lo - theta.real) / lo),
+                        np.max((theta.real - hi) / hi), 0.0))
+    fault = None
+    if faults:
+        outside_f = theta.real * 1.01
+        fault = float(max(np.max((lo - outside_f) / lo),
+                          np.max((outside_f - hi) / hi), 0.0))
+    fail.append(_funm_gate(gates, f"sketched_eigs outside the spectrum "
+                           f"{impl}", outside, FUNM_SEIG_RANGE, fault))
+    recs["sketched_eigs"] = dict(
+        theta=[complex(t) for t in theta], pair_resnorms=rep.tolist(),
+        recomputed_float64=rec64.tolist(), spectrum=[lo, hi],
+        applications=dict(counts), launches=launches, wall_s=wall,
+        gates=gates)
+    shared[f"theta {impl}"] = theta
+    return recs, [f for f in fail if f]
+
+
+def funm_phase(device, faults=False):
+    """The Chebyshev, matrix-function, block and sketched lanes (``--only
+    funm``), float32 through K1-K3 on the kernel lane and the plain
+    stencil on the plain lane, at ``FUNM_NX``^2: (a) ``chebyshev`` with
+    the V-cycle and ``spectral_bounds``; (b) ``ops.chebyshev_preconditioner``
+    as CG's ``M`` at ``FUNM_PREC_NX``^2 (``reduced_from``); (c)
+    ``expm_multiply``, ``inv_sqrt_multiply`` and ``slq_logdet`` of Poisson
+    against their closed forms, the Arnoldi ``expm_multiply`` on the north
+    star's operator against its float64 run; (d) ``block_cg`` and
+    ``block_gmres``; (e) ``sketched_gmres``, ``restarted_sketched_gmres``
+    and ``sketched_eigs``.  Each run's applications of ``A`` and ``M`` are
+    counted and the kernel lane's K1-K3 launches held to them; the lanes'
+    counts within ``FUNM_LANE_SLACK`` (Chebyshev: one check block), the
+    Arnoldi lanes and sketched_eigs' values to each other.  With
+    ``faults`` (``--funm-faults``) the kernel lane only, each gate also
+    read on its planted fault, which must fail it.  Prints one JSON line
+    and returns it."""
+    import torch
+
+    t0 = time.perf_counter()
+    nx = FUNM_NX
+    record = {"device": _smi(), "nx": nx,
+              "reduced_from": {"chebyshev_preconditioner cg": {
+                  "nx": FUNM_PREC_NX, "from": nx, "why": "plain float32 CG "
+                  "at 4095^2 (kappa ~7e6) is no useful yardstick"}},
+              "runs": {}, "launches": {}, "gates": {}}
+    failed = []
+    arn_ref, shared = {}, {}
+
+    def attempt(key, fn, *args):
+        t = time.perf_counter()
+        try:
+            rec, fails = fn(*args)
+            record["runs"][key] = rec
+            subs = rec.items() if all(isinstance(v, dict) and "launches" in v
+                                      for v in rec.values()) \
+                else [(None, rec)]
+            for sub, r in subs:
+                label = key if sub is None else f"{sub} {key.split(' ', 1)[1]}"
+                if " cuda@" in label:
+                    record["launches"][label] = r["launches"]
+                record["gates"].update(r.get("gates", {}))
+            failed.extend(f"{key}: {f}" for f in fails)
+            return rec
+        except AssertionError as exc:
+            failed.append(f"{key}: {exc}")
+        finally:
+            torch.cuda.empty_cache()
+            print(f"funm {key}: {time.perf_counter() - t:.1f} s", flush=True)
+
+    lanes = ("cuda",) if faults else ("cuda", "torch")
+    runs = {}
+    for impl in lanes:
+        runs["cheb", impl] = attempt(f"chebyshev {impl}@{nx}", _funm_cheb,
+                                     nx, impl, device, faults)
+        attempt(f"chebyshev_preconditioner {impl}@{FUNM_PREC_NX}",
+                _funm_prec, FUNM_PREC_NX, impl, device, faults)
+        attempt(f"hermitian {impl}@{nx}", _funm_hermitian, nx, impl, device,
+                faults)
+        runs["arn", impl] = attempt(f"expm_multiply arnoldi {impl}@{nx}",
+                                    _funm_arnoldi, nx, impl, device, arn_ref,
+                                    faults)
+        runs["bcg", impl] = attempt(f"block_cg {impl}@{nx}", _funm_block_cg,
+                                    nx, impl, device, faults)
+        runs["bgm", impl] = attempt(f"block_gmres {impl}@{nx}",
+                                    _funm_block_gmres, nx, impl, device,
+                                    faults)
+        runs["sk", impl] = attempt(f"sketch {impl}@{nx}", _funm_sketch, nx,
+                                   impl, device, shared, faults)
+    gates = record["gates"]
+    if len(lanes) == 2 or faults:
+        def lanes_gate(name, reading, limit, fault=None):
+            msg = _funm_gate(gates, name, reading, limit, fault)
+            if msg:
+                failed.append(msg)
+
+        k, t = runs.get(("cheb", "cuda")), runs.get(("cheb", "torch"))
+        if k and (t or faults):
+            gap = abs(k["niter"] - (t or k)["niter"])
+            lanes_gate("chebyshev lanes' iterations apart", gap,
+                       FUNM_CHEB["check_every"],
+                       abs(k["niter"] - k["fault_niter_lmin_over_10"])
+                       if faults else None)
+        for key, name in (("bcg", "block_cg"), ("bgm", "block_gmres")):
+            k, t = runs.get((key, "cuda")), runs.get((key, "torch"))
+            if k and t:
+                lanes_gate(f"{name} lanes' steps apart",
+                           abs(k["niter"] - t["niter"]), FUNM_LANE_SLACK)
+        k, t = arn_ref.get("cuda"), arn_ref.get("torch")
+        if k is not None and t is not None:
+            lanes_gate("expm arnoldi lanes apart", float(
+                torch.linalg.vector_norm(k - t) / torch.linalg.vector_norm(t)),
+                FUNM_ARN_LANE_RTOL)
+        k, t = shared.get("theta cuda"), shared.get("theta torch")
+        if k is not None and t is not None:
+            lanes_gate("sketched_eigs lanes' values apart", float(np.max(
+                np.abs(np.sort_complex(k) - np.sort_complex(t))
+                / np.abs(np.sort_complex(t)))), FUNM_SEIG_THETA_RTOL)
+    del arn_ref, shared
+    record["phase_s"] = time.perf_counter() - t0
+    record["failed"] = failed
+    if faults:
+        missed = [n for n, g in gates.items() if g["fault_caught"] is False]
+        record["faults_missed"] = missed
+    print(json.dumps({"funm_faults" if faults else "funm": record},
+                     default=str), flush=True)
+    if failed:
+        raise AssertionError("funm phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -6816,6 +7707,8 @@ KERNELS = {
 LIBRARY = {
     "stencil5_affine": "torch.nn.functional.conv2d",
     "project_prefix": "torch.mv",
+    # no one call computes K5: the pair of calls
+    "apply_project": "torch.addmv then torch.mv (two calls)",
     "update_prefix": "torch.addmv",
     "cgs_project": "torch.mv then torch.addmv (two calls)",
 }
@@ -6861,7 +7754,10 @@ def _mesh_rows(worlds, halo):
                               "float64, every rank of every world",
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "library": None, "timed_by": t["timed_by"],
+            "library_ms": t.get("library_ms"),
+            "library": "torch.nn.functional.conv2d on the block with its "
+                       "two halo rows" if k8 else None,
+            "timed_by": t["timed_by"],
             "per_shard_of": f"{MESH_WORLDS[-1][0]} P={MESH_WORLDS[-1][1]} "
                             "rank 0, all ranks on one card",
             "ms_by_world": {f"{b} P={P}": ranks[0]["times"][name]["ms"]
@@ -6904,11 +7800,15 @@ def main(argv=None):
                     help="run ONLY the mesh phase's solves with planted "
                          "faults, against its residual-history limits; "
                          "prints no result line")
+    ap.add_argument("--funm-faults", action="store_true",
+                    help="run ONLY the funm phase's kernel lane with each "
+                         "gate also read on a planted fault, which must "
+                         "fail it; prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
                              "config5", "mesh", "onereduce", "compat",
                              "recycle", "nonsym", "eigen", "lsq",
-                             "shifted"),
+                             "shifted", "funm"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -6925,7 +7825,8 @@ def main(argv=None):
                          "nonsymmetric short recurrences on the north "
                          "star's system; or the eigensolvers; or the "
                          "least-squares and randomized lane; or the "
-                         "Arnoldi and multi-shift lane); "
+                         "Arnoldi and multi-shift lane; or the Chebyshev, "
+                         "matrix-function, block and sketched lanes); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -6967,6 +7868,9 @@ def main(argv=None):
     if args.mesh_faults:
         mesh_fault_phase(device)
         return
+    if args.funm_faults:
+        funm_phase(device, faults=True)
+        return
     if args.only == "config5":
         config5_phase(device, smi)
         return
@@ -6979,7 +7883,7 @@ def main(argv=None):
          "mesh": mesh_phase, "onereduce": onereduce_phase,
          "compat": compat_phase, "nonsym": nonsym_phase,
          "eigen": eigen_phase, "lsq": lsq_phase,
-         "shifted": shifted_phase}[args.only](device)
+         "shifted": shifted_phase, "funm": funm_phase}[args.only](device)
         return
     last = [t0]
 
@@ -7030,12 +7934,14 @@ def main(argv=None):
     mark("recycle")
     nonsym = nonsym_phase(device)
     mark("nonsym")
-    eig = eigen_phase(device)
+    eig = eigen_phase(device, pair_nx=EIGEN_PAIR_NX)
     mark("eigen")
     lsq = lsq_phase(device)
     mark("lsq")
     shf = shifted_phase(device)
     mark("shifted")
+    fnm = funm_phase(device)
+    mark("funm")
     worlds = mesh_phase(device)
     mark("mesh")
     if args.profile:
@@ -7149,9 +8055,10 @@ def main(argv=None):
                 if name == "stencil5_affine":
                     rows[-1][f"coarse_launches_nonsym {label}@"
                              f"{NONSYM_NX}"] = used["stencil5_coarse"]
-        # the least-squares, randomized, Arnoldi and multi-shift lanes'
-        # kernel-lane runs (lsq and shifted phases): K1 only
-        for phase, rec in (("lsq", lsq), ("shifted", shf)):
+        # the least-squares, randomized, Arnoldi, multi-shift, Chebyshev,
+        # matrix-function, block and sketched lanes' kernel-lane runs (lsq,
+        # shifted and funm phases): K1, and K1-K3 of the V-cycles
+        for phase, rec in (("lsq", lsq), ("shifted", shf), ("funm", fnm)):
             for run, used in rec["launches"].items():
                 if used.get(name):
                     rows[-1][f"launches_{phase} {run}"] = used[name]

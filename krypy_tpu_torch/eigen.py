@@ -142,15 +142,17 @@ def poisson_eigenvalues(nx, count, largest=False):
     return sorted(vals, reverse=largest)[:count]
 
 
-def cd_eigenvalues(nx, count, wind=(1.0, 0.5), eps=1.0):
-    """The ``count`` eigenvalues nearest 0 of the north star's float64
-    operator ``ops.convection_diffusion_2d(nx, wind=wind, eps=eps)``: a
-    Kronecker sum of two tridiagonal Toeplitz matrices whose off-diagonal
-    products ``cu cd`` and ``cl cr`` are positive, so the spectrum is real,
-    ``cc - 2 sqrt(cu cd) cos(j pi h) - 2 sqrt(cl cr) cos(k pi h)``, here in
-    its cancellation-free form ``(sqrt(-cu) - sqrt(-cd))^2 + 4 sqrt(cu cd)
-    sin^2(j pi h/2)`` plus the same in k; a sorted list of ``(value, j,
-    k)``."""
+def cd_eigenvalues(nx, count, wind=(1.0, 0.5), eps=1.0, largest=False):
+    """The ``count`` eigenvalues nearest 0 (``largest=True``: the largest)
+    of the north star's float64 operator ``ops.convection_diffusion_2d(nx,
+    wind=wind, eps=eps)``: a Kronecker sum of two tridiagonal Toeplitz
+    matrices whose off-diagonal products ``cu cd`` and ``cl cr`` are
+    positive, so the spectrum is real, ``cc - 2 sqrt(cu cd) cos(j pi h) -
+    2 sqrt(cl cr) cos(k pi h)``, here in its cancellation-free form
+    ``(sqrt(-cu) - sqrt(-cd))^2 + 4 sqrt(cu cd) sin^2(j pi h/2)`` plus the
+    same in k; a list of ``(value, j, k)`` sorted from the end asked for.
+    The operator is linear in ``(wind, eps)``: scaling both scales the
+    spectrum."""
     h = 1.0 / (nx + 1)
     wx, wy = wind
     cu, cd = -eps / h ** 2 - wx / h, -eps / h ** 2
@@ -163,9 +165,11 @@ def cd_eigenvalues(nx, count, wind=(1.0, 0.5), eps=1.0):
             j * math.pi * h / 2) ** 2
 
     top = int(math.isqrt(count)) + 3
+    idx = (range(max(1, nx - top + 1), nx + 1) if largest
+           else range(1, min(top, nx) + 1))
     vals = [(axis(cu, cd, j) + axis(cl, cr, k), j, k)
-            for j in range(1, top + 1) for k in range(1, top + 1)]
-    return sorted(vals)[:count]
+            for j in idx for k in idx]
+    return sorted(vals, reverse=largest)[:count]
 
 
 def poisson_window(nx):

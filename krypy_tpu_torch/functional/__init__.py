@@ -12,13 +12,22 @@ lane ``eigsh_window``, ``window_count``, ``kpm_dos``,
 ``estimate_spectrum_bounds``, ``jackson_cheby_coeffs``, the
 least-squares solvers ``lsqr`` and ``lsmr``, the randomized ``rsvd``,
 ``hutchpp`` and ``nystrom_preconditioner``, ``svds``, the Arnoldi
-relation builder ``arnoldi``, and the multi-shift ``shifted_cg``,
-``shifted_gmres`` and ``restarted_shifted_gmres``)."""
+relation builder ``arnoldi``, the multi-shift ``shifted_cg``,
+``shifted_gmres`` and ``restarted_shifted_gmres``, Chebyshev iteration
+``chebyshev`` with ``spectral_bounds``, the matrix functions
+``funm_krylov``, ``funm_krylov_arnoldi``, ``expm_multiply``,
+``inv_sqrt_multiply``, ``slq_trace`` and ``slq_logdet``, the block
+solvers ``block_cg`` and ``block_gmres``, and the sketched lane
+``KronSketch``, ``kron_sketch``, ``sketch_apply``, ``sketched_gmres``,
+``restarted_sketched_gmres`` and ``sketched_eigs``; still to port: the
+s-step lane ``sstep``)."""
 
 from . import policy
 from .arnoldi import ArnoldiResult, arnoldi
 from .bicgstab import bicgstab
+from .block import block_cg, block_gmres
 from .cg import cg
+from .chebyshev import chebyshev, spectral_bounds
 from .common import (
     BREAKDOWN,
     CONVERGED,
@@ -41,6 +50,14 @@ from .deflation import (
 from .eigh import EigshResult, eigsh
 from .eigs import EigsResult, eigs
 from .fgmres import fgmres
+from .funm import (
+    expm_multiply,
+    funm_krylov,
+    funm_krylov_arnoldi,
+    inv_sqrt_multiply,
+    slq_logdet,
+    slq_trace,
+)
 from .filtered import (
     WindowResult,
     eigsh_window,
@@ -58,6 +75,15 @@ from .newton import NewtonResult, newton_krylov
 from .qmr import qmr, transpose_matvec
 from .randomized import RsvdResult, hutchpp, nystrom_preconditioner, rsvd
 from .refine import refine_to
+from .sketch import (
+    KronSketch,
+    SketchedSolveResult,
+    kron_sketch,
+    restarted_sketched_gmres,
+    sketch_apply,
+    sketched_eigs,
+    sketched_gmres,
+)
 from .shifted import (
     ShiftedResult,
     restarted_shifted_gmres,
@@ -113,6 +139,23 @@ __all__ = [
     "shifted_gmres",
     "restarted_shifted_gmres",
     "ShiftedResult",
+    "chebyshev",
+    "spectral_bounds",
+    "funm_krylov",
+    "funm_krylov_arnoldi",
+    "expm_multiply",
+    "inv_sqrt_multiply",
+    "slq_trace",
+    "slq_logdet",
+    "block_cg",
+    "block_gmres",
+    "KronSketch",
+    "SketchedSolveResult",
+    "kron_sketch",
+    "sketch_apply",
+    "sketched_gmres",
+    "restarted_sketched_gmres",
+    "sketched_eigs",
     "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",

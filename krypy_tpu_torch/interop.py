@@ -18,7 +18,10 @@ solve's internals and its records of chosen widths
 (:func:`auto_state_to_numpy`, :func:`auto_state_from_numpy`), since it
 chooses widths from measured walls, which two runs do not share.  The
 data of a fused one-reduce deflation crosses as its numpy rows
-(:func:`fused_deflation_from_numpy`).  A solver of the
+(:func:`fused_deflation_from_numpy`).  A sketch of the sketched lane
+crosses as its numpy factors ``S1``, ``S2`` and ``signs``
+(:func:`kron_sketch_from_numpy`), since torch cannot redraw what
+``jax.random`` drew.  A solver of the
 reference-compatible lane (``linsys``, ``deflation``) crosses back as its
 results (:func:`compat_solver_to_numpy`): its inputs come as numpy
 already, so nothing needs carrying in.
@@ -38,7 +41,7 @@ __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
            "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
            "gather_to_numpy", "nls_to_numpy", "auto_state_to_numpy",
            "auto_state_from_numpy", "fused_deflation_from_numpy",
-           "compat_solver_to_numpy"]
+           "compat_solver_to_numpy", "kron_sketch_from_numpy"]
 
 
 def from_numpy(arr, device):
@@ -185,3 +188,16 @@ def compat_solver_to_numpy(solver):
             val = np.asarray(val)
         out[name] = val
     return out
+
+
+def kron_sketch_from_numpy(S1, S2, signs, N=None, *, device):
+    """A :class:`~krypy_tpu_torch.functional.sketch.KronSketch` from the
+    JAX package's draw (its ``S1``, ``S2`` and ``signs`` as numpy; ``N``
+    defaults to ``len(signs)``) on ``device``, same dtypes.  On a mesh the
+    sketch stays whole on every rank."""
+    from .functional.sketch import KronSketch
+
+    signs = np.asarray(signs)
+    return KronSketch(S1=from_numpy(S1, device), S2=from_numpy(S2, device),
+                      signs=from_numpy(signs, device),
+                      N=int(signs.shape[0] if N is None else N))

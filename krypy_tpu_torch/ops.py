@@ -49,6 +49,7 @@ __all__ = [
     "convection_diffusion_2d",
     "shifted_laplacian_2d",
     "jacobi_preconditioner",
+    "chebyshev_preconditioner",
     "nls_residual_2d",
     "nls_jacobian_sequence",
     "poisson_dst_solver",
@@ -415,6 +416,50 @@ def jacobi_preconditioner(op_or_diag):
 
     matvec.diag = inv
     matvec.shape = (d.shape[0], d.shape[0])
+    return matvec
+
+
+def chebyshev_preconditioner(op, degree=8, lmin=None, lmax=None):
+    r"""Chebyshev polynomial preconditioner :math:`M \approx A^{-1}` for an
+    SPD operator with spectrum in ``[lmin, lmax]``: each application runs
+    ``degree - 1`` operator applications and no inner product (the
+    Chebyshev semi-iteration, Saad alg. 12.1: an SPD polynomial in A, so a
+    valid CG preconditioner).
+
+    ``lmax`` defaults to ``2 max(op.diag)`` (Gershgorin for the stencils;
+    on a mesh ``.diag`` is the rank's block, whose maximum is the whole
+    diagonal's for the constant-diagonal stencils) and ``lmin`` to
+    ``lmax * 1e-4``.
+    """
+    if lmax is None:
+        d = getattr(op, "diag", None)
+        if d is None:
+            raise ValueError("lmax required when op has no .diag")
+        lmax = float(2.0 * torch.max(torch.as_tensor(d)))
+    if lmin is None:
+        lmin = lmax * 1e-4
+
+    # plain Python floats: the recurrence stays in the iterate's dtype (a
+    # float64 0-dim tensor would not promote a float32 iterate in torch,
+    # but a numpy float64 scalar in the JAX package would)
+    theta = float(lmax + lmin) / 2.0
+    delta = float(lmax - lmin) / 2.0
+    sigma = theta / delta
+
+    def matvec(r):
+        rho = 1.0 / sigma
+        z = r / theta
+        d_vec = z
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d_vec = rho_new * rho * d_vec + (2.0 * rho_new / delta) * (
+                r - op(z))
+            z = z + d_vec
+            rho = rho_new
+        return z
+
+    matvec.shape = getattr(op, "shape", None)
+    matvec.degree = degree
     return matvec
 
 

@@ -1868,3 +1868,166 @@ def test_shifted_lane_on_the_card(cuda_device):
     g = F.shifted_gmres(A, b, shifts, maxiter=60, tol=1e-4)
     assert kernels.launch_counts()["stencil5_affine"] == int(g.niter)
     assert bool((g.status == F.CONVERGED).all())
+
+
+def test_chebyshev_lane_on_the_card(cuda_device):
+    """``chebyshev`` with the padded V-cycle on bench.py's float32 Poisson
+    at 255^2 through K1-K3 (bounds from ``spectral_bounds``), and
+    ``ops.chebyshev_preconditioner`` as CG's ``M``: the true residual
+    recomputed in float64, one V-cycle per step, fewer CG iterations than
+    plain CG, one K1 per operator application."""
+    from krypy_tpu_torch import eigen
+
+    nx = 255
+    A = ops.poisson_2d(nx, pad_cols=True, impl="cuda", device=cuda_device)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        device=cuda_device)
+    A64 = ops.poisson_2d(nx, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        nx * nx)).to(cuda_device)
+    b = ops.pad_grid_vec(A64(x), nx, nx).float()
+    lo, hi = F.spectral_bounds(A, b, M=M)
+    kernels.reset_launch_counts()
+    r = F.chebyshev(A, b, M=M, lmin=lo, lmax=hi, tol=1e-5, check_every=8)
+    assert r.converged and r.x.device == cuda_device
+    assert kernels.launch_counts()["stencil5_coarse"] == 1 + int(r.niter)
+    xs = ops.unpad_grid_vec(r.x, nx, nx).double()
+    bs = ops.unpad_grid_vec(b, nx, nx).double()
+    assert float(torch.linalg.vector_norm(bs - A64(xs))
+                 / torch.linalg.vector_norm(bs)) <= 1e-5
+    lmin = eigen.poisson_eigenvalues(nx, 1)[0][0]
+    P = ops.chebyshev_preconditioner(A, degree=8, lmin=lmin)
+    rhs = ops.pad_grid_vec(torch.randn(nx * nx, device=cuda_device), nx, nx)
+    plain = F.cg(A, rhs, tol=1e-3, maxiter=3000)
+    kernels.reset_launch_counts()
+    pre = F.cg(A, rhs, M=P, tol=1e-3, maxiter=3000)
+    assert pre.converged and int(pre.niter) < int(plain.niter)
+    assert kernels.launch_counts()["stencil5_affine"] >= 7 * int(pre.niter)
+
+
+def test_funm_lane_on_the_card(cuda_device):
+    """``expm_multiply`` and ``inv_sqrt_multiply`` of the float32 Poisson
+    operator at 127^2 through K1 against their DST closed forms,
+    ``slq_logdet`` within 5 standard errors of the exact sum, the Arnoldi
+    ``expm_multiply`` of the north star's operator against its float64
+    run."""
+    import scipy.fft
+
+    from krypy_tpu_torch import eigen
+
+    nx = 127
+    A = ops.poisson_2d(nx, impl="cuda", device=cuda_device)
+    h = 1.0 / (nx + 1)
+    lam1 = 4.0 / h ** 2 * np.sin(np.arange(1, nx + 1) * np.pi * h / 2) ** 2
+    lam = lam1[:, None] + lam1[None, :]
+    bh = np.random.default_rng(17).standard_normal(nx * nx).astype(
+        np.float32)
+    B = scipy.fft.dstn(bh.reshape(nx, nx).astype(np.float64), type=1,
+                       norm="ortho")
+    b = torch.from_numpy(bh).to(cuda_device)
+    t = 20.0 / lam.max()
+
+    def err(x, hat):
+        want = scipy.fft.idstn(hat, type=1, norm="ortho").reshape(-1)
+        return np.linalg.norm(x.double().cpu().numpy() - want) / \
+            np.linalg.norm(want)
+
+    kernels.reset_launch_counts()
+    r = F.expm_multiply(A, b, -t, maxdim=30)
+    assert kernels.launch_counts()["stencil5_affine"] == 30
+    assert err(r.x, np.exp(-t * lam) * B) <= 1e-4
+    x, _ = F.inv_sqrt_multiply(A, b, lmin=float(lam.min()),
+                               lmax=float(lam.max()), tol=1e-4)
+    assert err(x, B / np.sqrt(lam)) <= 1e-3
+    est, se = F.slq_logdet(A, 17, n_probes=16, maxdim=30)
+    assert abs(float(est) - np.sum(np.log(lam))) <= 5 * float(se)
+    h2 = h * h
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=cuda_device)
+    cd = ops.convection_diffusion_2d(nx, impl="cuda", **kw)
+    cd64 = ops.convection_diffusion_2d(nx, **kw)
+    v = ops.pad_grid_vec(b, nx, nx)
+    got = F.expm_multiply(cd, v, -1.0, hermitian=False, maxdim=30).x
+    want = F.expm_multiply(cd64, v.double(), -1.0, hermitian=False,
+                           maxdim=30).x
+    assert float(torch.linalg.vector_norm(got.double() - want)
+                 / torch.linalg.vector_norm(want)) <= 1e-4
+
+
+def test_block_lane_on_the_card(cuda_device):
+    """``block_cg`` with the padded V-cycle on bench.py's Poisson and
+    ``block_gmres`` (V-cycle as ``Ml``) on the north star's operator at
+    255^2, float32 through K1-K3: per-column backward errors in float64,
+    k K1 launches per step."""
+    nx = 255
+    N = nx * nx
+    A = ops.poisson_2d(nx, pad_cols=True, impl="cuda", device=cuda_device)
+    A64 = ops.poisson_2d(nx, device=cuda_device)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        device=cuda_device)
+    cols = [torch.ones(N), torch.linspace(0.0, 1.0, N)]
+    B = torch.stack([ops.pad_grid_vec(c.to(cuda_device), nx, nx)
+                     for c in cols], 1)
+    r = F.block_cg(A, B, M=M, tol=1e-5, maxiter=100)
+    assert r.converged and r.x.shape == B.shape
+    for j in range(2):
+        xj = ops.unpad_grid_vec(r.x[:, j], nx, nx).double()
+        bj = cols[j].double().to(cuda_device)
+        eta = torch.linalg.vector_norm(bj - A64(xj)) / (
+            8.0 * (nx + 1) ** 2 * torch.linalg.vector_norm(xj)
+            + torch.linalg.vector_norm(bj))
+        assert float(eta) <= 1e-5
+    h2 = 1.0 / (nx + 1) ** 2
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=cuda_device)
+    cd = ops.convection_diffusion_2d(nx, impl="cuda", **kw)
+    Ml = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        scale=1.0 / h2, device=cuda_device)
+    kernels.reset_launch_counts()
+    g = F.block_gmres(cd, B, Ml=Ml, tol=1e-5, maxiter=40)
+    assert g.converged
+    assert kernels.launch_counts()["stencil5_coarse"] == 2 * (
+        int(g.niter) + 1)
+
+
+def test_sketch_lane_on_the_card(cuda_device):
+    """``sketched_gmres``/``restarted_sketched_gmres`` (V-cycle as ``M``)
+    and ``sketched_eigs`` on the north star's operator at 255^2 through
+    K1-K3, the sketch drawn on the card: the float64 true residual of
+    ``b = A x*``, the distortion certificate, the pairs' residuals
+    recomputed in float64 against the reported ones."""
+    nx = 255
+    h2 = 1.0 / (nx + 1) ** 2
+    kw = dict(wind=(h2, 0.5 * h2), eps=h2, pad_cols=True, device=cuda_device)
+    A = ops.convection_diffusion_2d(nx, impl="cuda", **kw)
+    A64 = ops.convection_diffusion_2d(nx, **kw)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        scale=1.0 / h2, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        nx * nx)).to(cuda_device)
+    b = A64(ops.pad_grid_vec(x, nx, nx)).float()
+    S = F.kron_sketch(A.shape[0], 8 * 41, seed=torch.Generator(
+        device=cuda_device).manual_seed(17))
+    assert S.S1.device == cuda_device
+    for r in (F.sketched_gmres(A, b, M=M, tol=1e-4, maxiter=40, sketch=S),
+              F.restarted_sketched_gmres(A, b, M=M, tol=1e-4, maxiter=2,
+                                         max_restarts=8, sketch=S)):
+        assert r.converged and float(r.distortion) < 4.0
+        rel = torch.linalg.vector_norm(b.double() - A64(r.x.double())) / \
+            torch.linalg.vector_norm(b.double())
+        assert float(rel) <= 1e-4
+    v0 = ops.pad_grid_vec(torch.cos(torch.arange(
+        nx * nx, dtype=torch.float64, device=cuda_device) * 0.7391) + 0.01,
+        nx, nx).float()
+    e = F.sketched_eigs(A, k=4, v0=v0, maxiter=80, seed=torch.Generator(
+        device=cuda_device).manual_seed(17))
+    for j in range(4):
+        u = e.U[:, j].to(torch.complex128)
+        u = u / torch.linalg.vector_norm(u)
+        Au = torch.complex(A64(u.real.contiguous()),
+                           A64(u.imag.contiguous()))
+        res = float(torch.linalg.vector_norm(Au - e.theta[j].item() * u)) \
+            / abs(e.theta[j].item())
+        assert abs(res - float(e.pair_resnorms[j])) <= 1e-2 * res

@@ -128,6 +128,19 @@ SH_REDUCES = {"classic": 2, "1r": 1}
 #: cgs2_fused cases (the 2-rank world: the 4-rank one would add ~14 s to
 #: the suite's longest fixture)
 LANE16_WORLDS = (2,)
+#: the Chebyshev, matrix-function, block and sketched cases on the mesh
+#: (the JAX package's sharded cases of tests/test_chebyshev.py,
+#: test_funm.py, test_block.py and test_sketch.py), float64 at the parity
+#: grid through K8's plain version: Chebyshev with Jacobi on Poisson
+#: (closed-form bounds of the Jacobi-scaled spectrum, check_every 8),
+#: block CG and block GMRES on Poisson with B = [ones, linspace],
+#: exp(-t A) b of Poisson by Lanczos and of the convection-diffusion
+#: operator by Arnoldi, sketched GMRES on Poisson with a sketch the port
+#: draws on every rank from one seed; run in LANE16_WORLDS
+FL_T, FL_CD_T, FL_MAXDIM = 1e-3, 1e-2, 24
+FL_CHEB = dict(tol=1e-5, maxiter=400, check_every=8)
+FL_BCG_TOL, FL_BGM_TOL = 1e-6, 1e-5
+FL_SKETCH_SEED, FL_SKETCH_M = 3, 30
 
 #: seconds: each collective, and the whole world
 DIST_TIMEOUT, WORLD_TIMEOUT = 60, 240
@@ -348,6 +361,81 @@ def _lane16_cases(out, mesh):
         out["gmres_complex_k9_calls"] = np.int64(len(calls))
 
 
+def _fl_problem(mesh=None):
+    """The slice-17 cases' operators and right-hand sides (the rank's
+    blocks on a mesh): Poisson, Jacobi, the convection-diffusion
+    operator, b random, B = [ones, linspace]."""
+    dev = "cpu" if mesh is None else mesh.device
+    N = GM_NX * GM_NX
+    lap = ops.poisson_2d(GM_NX, impl="cuda", mesh=mesh, device=dev)
+    cd = ops.convection_diffusion_2d(GM_NX, impl="cuda", mesh=mesh,
+                                     device=dev)
+    b = np.random.RandomState(17).randn(N)
+    B = np.stack([np.ones(N), np.linspace(0.0, 1.0, N)], axis=1)
+    if mesh is None:
+        return lap, cd, torch.tensor(b), torch.tensor(B)
+    blk = parallel.block_of(N, mesh)
+    return lap, cd, parallel.shard_vector(b, mesh), torch.tensor(B[blk])
+
+
+def _fl_bounds():
+    """Jacobi-scaled Poisson's spectrum: [2 sin^2(pi h/2), 2 cos^2(pi
+    h/2)]."""
+    h = 1.0 / (GM_NX + 1)
+    return (float(2 * np.sin(np.pi * h / 2) ** 2),
+            float(2 * np.cos(np.pi * h / 2) ** 2))
+
+
+def _fl_sketch(N):
+    """The sketched case's embedding, drawn alike on every rank."""
+    return F.kron_sketch(N, 8 * (FL_SKETCH_M + 1), dtype=torch.float64,
+                         seed=torch.Generator().manual_seed(FL_SKETCH_SEED))
+
+
+def _fl_solves(lap, cd, b, B):
+    """Every slice-17 solve, with the all-reduces each made: ``{key:
+    (result, all-reduces)}``."""
+    lmin, lmax = _fl_bounds()
+    runs = {
+        "cheb": lambda: F.chebyshev(lap, b, M=ops.jacobi_preconditioner(lap),
+                                    lmin=lmin, lmax=lmax, **FL_CHEB),
+        "bcg": lambda: F.block_cg(lap, B, tol=FL_BCG_TOL, maxiter=600),
+        "bgm": lambda: F.block_gmres(lap, B, tol=FL_BGM_TOL, maxiter=200),
+        "funm": lambda: F.expm_multiply(lap, b, -FL_T, maxdim=FL_MAXDIM),
+        "arnoldi_expm": lambda: F.expm_multiply(
+            cd, b, -FL_CD_T / (GM_NX + 1) ** 2, hermitian=False,
+            maxdim=FL_MAXDIM),
+        "sgm": lambda: F.sketched_gmres(
+            lap, b, tol=1e-5, maxiter=FL_SKETCH_M,
+            sketch=_fl_sketch(GM_NX * GM_NX)),
+    }
+    out = {}
+    for key, run in runs.items():
+        parallel.reset_collective_counts()
+        res = run()
+        out[key] = (res, parallel.collective_counts()["all_reduce_sum"])
+    return out
+
+
+def _funm_lane_cases(out, mesh):
+    """The Chebyshev, matrix-function, block and sketched cases on this
+    rank."""
+    lap, cd, b, B = _fl_problem(mesh)
+    with mesh:
+        for key, (res, reduces) in _fl_solves(lap, cd, b, B).items():
+            axis = 0 if res.x.ndim == 2 else -1
+            out[f"fl_{key}_x"] = interop.gather_to_numpy(res.x, mesh,
+                                                          axis=axis)
+            out[f"fl_{key}_reduces"] = np.int64(reduces)
+            if key in ("funm", "arnoldi_expm"):
+                out[f"fl_{key}_res"] = interop.to_numpy(res.corrections)
+                out[f"fl_{key}_niter"] = np.int64(res.m)
+            else:
+                out[f"fl_{key}_res"] = interop.to_numpy(res.resnorms)
+                out[f"fl_{key}_niter"] = np.int64(res.niter)
+                out[f"fl_{key}_status"] = np.int64(res.status)
+
+
 def _result(out, key, res, mesh):
     """Store a solve's gathered x, its residual history and counts."""
     out[f"{key}_x"] = interop.gather_to_numpy(res.x, mesh)
@@ -518,6 +606,7 @@ def rank_cases(mesh):
     _eig_cases(out, mesh)
     if P in LANE16_WORLDS:
         _lane16_cases(out, mesh)
+        _funm_lane_cases(out, mesh)
 
     # the dryrun's deflation and recycling lanes (nx = 4P, ny = 8)
     nx, ny = 4 * P, 8
@@ -1084,6 +1173,106 @@ def test_shifted_gmres_on_mesh_matches_one_device(worlds, P):
     X = interop.to_numpy(res.X)
     np.testing.assert_allclose(r["sgm_X"], X, rtol=0,
                                atol=1e-8 * np.max(np.abs(X)))
+
+
+@functools.lru_cache(maxsize=None)
+def _fl_jax(P):
+    """The slice-17 solves of the JAX package under ``with mesh:`` on
+    ``make_mesh(P)`` (sharded inputs, one jit per solve) and the port's on
+    one device: ``{key: (jax result, port result, port all-reduces)}``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as Pspec
+    from krypy_tpu import functional as JF, ops as jops, parallel as jp
+    from krypy_tpu.functional import sketch as jsk
+
+    mesh = _jmesh(P)
+    lap_t, cd_t, b_t, B_t = _fl_problem()
+    one = _fl_solves(lap_t, cd_t, b_t, B_t)
+    lap = _jax_operator("poisson", GM_NX, GM_NX, mesh)
+    cd = _jax_operator("convdiff", GM_NX, GM_NX, mesh)
+    b = jp.shard_vector(jnp.asarray(b_t.numpy()), mesh)
+    B = jax.device_put(jnp.asarray(B_t.numpy()),
+                       NamedSharding(mesh, Pspec("n", None)))
+    S = _fl_sketch(GM_NX * GM_NX)
+    sk = jsk.KronSketch(S1=jnp.asarray(S.S1.numpy()),
+                        S2=jnp.asarray(S.S2.numpy()),
+                        signs=jnp.asarray(S.signs.numpy()), N=S.N)
+    lmin, lmax = _fl_bounds()
+    Mj = jops.jacobi_preconditioner(lap)
+    with mesh:
+        want = {
+            "cheb": jax.jit(lambda v: JF.chebyshev(
+                lap, v, M=Mj, lmin=lmin, lmax=lmax, **FL_CHEB))(b),
+            "bcg": jax.jit(lambda V: JF.block_cg(
+                lap, V, tol=FL_BCG_TOL, maxiter=600))(B),
+            "bgm": jax.jit(lambda V: JF.block_gmres(
+                lap, V, tol=FL_BGM_TOL, maxiter=200))(B),
+            "funm": jax.jit(lambda v: JF.expm_multiply(
+                lap, v, -FL_T, maxdim=FL_MAXDIM))(b),
+            "arnoldi_expm": JF.expm_multiply(
+                cd, b, -FL_CD_T / (GM_NX + 1) ** 2, hermitian=False,
+                maxdim=FL_MAXDIM),
+            "sgm": jax.jit(lambda v: JF.sketched_gmres(
+                lap, v, tol=1e-5, maxiter=FL_SKETCH_M, sketch=sk))(b),
+        }
+    return {k: (want[k],) + one[k] for k in want}
+
+
+#: the slice-17 solves' all-reduces beyond their per-iteration ones:
+#: Chebyshev's two initial norms (then ONE per block of check_every
+#: steps), the matrix functions' length and norm
+FL_FIXED = {"cheb": 2}
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+@pytest.mark.parametrize("key", ["cheb", "bcg", "bgm", "funm",
+                                 "arnoldi_expm", "sgm"])
+def test_funm_lane_on_mesh_matches_jax(worlds, key, P):
+    """Chebyshev (one all-reduce per block of ``check_every`` steps, as
+    tests/test_collectives.py pins the JAX form), ``block_cg``,
+    ``block_gmres``, ``funm_krylov`` (the Hermitian ``expm_multiply``),
+    the Arnoldi ``expm_multiply`` and ``sketched_gmres`` (a sketch drawn
+    alike on every rank; each rank sketches its band of the reshape and
+    all-reduces once) under ``with mesh:`` against the JAX package on
+    ``make_mesh(P)``: counts (Krylov dimensions) and statuses equal,
+    iterates to ``1e-10`` of their largest entry, histories (the
+    matrix functions' correction tails: ``1e-9`` of ||x||, as on one
+    device) to ``1e-8``; against the port on one device the same, and
+    every rank's history the same bits."""
+    want, one, one_reduces = _fl_jax(P)[key]
+    ranks = worlds[P]
+    r = ranks[0]
+    x = r[f"fl_{key}_x"]
+    scale = np.abs(np.asarray(want.x)).max()
+    for ref in (want, one):
+        xr = np.asarray(ref.x if not isinstance(ref.x, torch.Tensor)
+                        else ref.x.numpy())
+        np.testing.assert_allclose(x.reshape(xr.shape), xr, rtol=0,
+                                   atol=1e-10 * scale)
+        if key in ("funm", "arnoldi_expm"):
+            assert int(r[f"fl_{key}_niter"]) == ref.m
+            got = np.asarray(ref.corrections if not isinstance(
+                ref.corrections, torch.Tensor) else ref.corrections.numpy())
+            np.testing.assert_allclose(r[f"fl_{key}_res"], got, rtol=1e-8,
+                                       atol=1e-9 * np.linalg.norm(xr))
+        else:
+            assert int(r[f"fl_{key}_niter"]) == int(ref.niter)
+            # (sketched GMRES's one cycle of 30 ends short of tol here)
+            assert int(r[f"fl_{key}_status"]) == int(ref.status) == (
+                F.MAXITER if key == "sgm" else F.CONVERGED)
+            got = np.asarray(ref.resnorms if not isinstance(
+                ref.resnorms, torch.Tensor) else ref.resnorms.numpy())
+            np.testing.assert_allclose(r[f"fl_{key}_res"], got, rtol=1e-8,
+                                       atol=1e-14)
+    assert all(q[f"fl_{key}_res"].tobytes() == r[f"fl_{key}_res"].tobytes()
+               for q in ranks)
+    reduces = int(r[f"fl_{key}_reduces"])
+    if key == "cheb":
+        blocks = int(r["fl_cheb_niter"]) // FL_CHEB["check_every"]
+        assert reduces == FL_FIXED["cheb"] + blocks
+    # one device makes no all-reduce
+    assert one_reduces == 0 and reduces > 0
 
 
 @pytest.mark.parametrize("P", LANE16_WORLDS)

@@ -183,8 +183,9 @@ def test_port_sources_import_no_jax_by_ast(name):
     compatible lane's ``linsys``, ``deflation``, ``arnoldi``, ``utils``,
     ``_convenience``, ``core.projections``, ``pseudospectra``,
     ``checkpoint`` and the ``recycling`` package, and the functional
-    lane's ``lsq``, ``randomized``, ``svd``, ``arnoldi`` and ``shifted``
-    among them) and of the
+    lane's ``lsq``, ``randomized``, ``svd``, ``arnoldi``, ``shifted``,
+    ``chebyshev``, ``funm``, ``block`` and ``sketch`` among them) and of
+    the
     chip smoke script finds no import of jax or the JAX package."""
     root = os.path.join(REPO, name)
     paths = ([os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
@@ -198,11 +199,77 @@ def test_port_sources_import_no_jax_by_ast(name):
             "recycling/factories", "recycling/evaluators",
             "recycling/linsys", "functional/lsq", "functional/randomized",
             "functional/svd", "functional/arnoldi",
-            "functional/shifted")} <= names
+            "functional/shifted", "functional/chebyshev", "functional/funm",
+            "functional/block", "functional/sketch")} <= names
     for p in paths:
         with open(p) as fh:
             tree = ast.parse(fh.read(), p)
         assert not _jax_imports(tree), (p, _jax_imports(tree))
+
+
+def _public_surface(path, names=None):
+    """The public surface of a module by its AST: for each name of its
+    ``__all__`` (or of ``names``), a function's positional and
+    keyword-only parameters with their defaults as source (``jnp.``/
+    ``torch.`` dtypes read alike), or a NamedTuple's fields with their
+    defaults."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    defs = {n.name: n for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    if names is None:
+        names = next(ast.literal_eval(n.value) for n in tree.body
+                     if isinstance(n, ast.Assign) and any(
+                         getattr(t, "id", None) == "__all__"
+                         for t in n.targets))
+
+    def src(node):
+        return None if node is None else re.sub(
+            r"^(jnp|torch|np)\.", "", ast.unparse(node))
+
+    out = {}
+    for name in names:
+        node = defs[name]
+        if isinstance(node, ast.FunctionDef):
+            a = node.args
+            pos = a.posonlyargs + a.args
+            dflt = [None] * (len(pos) - len(a.defaults)) + a.defaults
+            out[name] = ([(p.arg, src(d)) for p, d in zip(pos, dflt)],
+                         [(p.arg, src(d)) for p, d in zip(
+                             a.kwonlyargs, a.kw_defaults)],
+                         a.vararg is not None, a.kwarg is not None)
+        else:
+            out[name] = [(f.target.id, src(f.value)) for f in node.body
+                         if isinstance(f, ast.AnnAssign)]
+    return list(names), out
+
+
+@pytest.mark.parametrize("module,extra", [
+    ("functional/chebyshev", ()),
+    ("functional/funm", ("FunmResult",)),
+    ("functional/block", ()),
+    ("functional/sketch", ("padded_kron_sketch",)),
+    ("ops", ("chebyshev_preconditioner",)),
+])
+def test_funm_lane_names_and_signatures_match_jax_by_ast(module, extra):
+    """The public names of the Chebyshev, matrix-function, block and
+    sketched modules (and ``ops.chebyshev_preconditioner``), their
+    parameters, defaults and result fields, as the JAX modules declare
+    them, read from both sources' ASTs."""
+    jpath = os.path.join(REPO, "krypy_tpu", f"{module}.py")
+    tpath = os.path.join(REPO, "krypy_tpu_torch", f"{module}.py")
+    if module == "ops":
+        jnames, jsurf = _public_surface(jpath, extra)
+        tnames, tsurf = _public_surface(tpath, extra)
+        assert "chebyshev_preconditioner" in _public_surface(tpath)[0]
+    else:
+        jnames, jsurf = _public_surface(jpath)
+        tnames, tsurf = _public_surface(tpath)
+        assert jnames == tnames
+        for name in extra:
+            jsurf.update(_public_surface(jpath, [name])[1])
+            tsurf.update(_public_surface(tpath, [name])[1])
+    assert jsurf == tsurf
 
 
 def _imports_of(tree, banned):

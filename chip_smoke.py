@@ -11,10 +11,10 @@ Schrödinger residual, recycled Jacobian solves, K1 under
 share the card.
 
     python3 chip_smoke.py [--profile DIR | --witness | --mesh-faults |
-                           --funm-faults |
+                           --funm-faults | --sstep-faults |
                            --only {stencil,ortho,baseline,kernels,config5,
                                   mesh,onereduce,compat,recycle,
-                                  nonsym,eigen,lsq,shifted,funm}]
+                                  nonsym,eigen,lsq,shifted,funm,sstep}]
 
 Phases, each of which raises on failure (the script then exits non-zero
 before printing its last line):
@@ -339,6 +339,23 @@ before printing its last line):
    spectrum); the lanes against each other; one JSON line.
    ``--funm-faults`` runs its kernel lane with each gate also read on a
    planted fault, which must fail it;
+11j. the sstep phase (``--only sstep``): at 4095^2 on both lanes, float32
+   inner solves and float64 refinement to 1e-8: ``ca_cg`` (s = 4, the
+   padded V-cycle, one block a cycle) beside ``cg`` on bench.py's
+   Poisson, their inner iterations in blocks apart, and ``ca_cg`` with
+   bench.py's 12-iteration budget recorded; ``ca_gmres`` (monomial s = 4, Newton and
+   Chebyshev s = 8) and ``restarted_ca_gmres`` on the north star's system,
+   each basis' orthogonality; the GMRES-polynomial preconditioner (degree
+   8) of the V-cycle-preconditioned north-star operator as Mr of GMRES
+   and CA-GMRES beside the same solves without it, its roots against the
+   float64 build; K1-K3 (and K4-K6) held to the counted applications;
+   then the gallery: DIA at 4095^2 against K1 and scipy, CSR CG with block
+   Jacobi and SPAI-preconditioned GMRES at 1023^2; one JSON line.
+   ``--sstep-faults`` runs its kernel lane with each gate also read on a
+   planted fault (the block solves by their diagonals, a Gram-Schmidt
+   pass dropped, one refinement cycle short, the seed or degree not
+   passed through, a diagonal's offset moved by one, blocks of one,
+   Jacobi in SPAI's place), which must fail it;
 12. the mesh phase: single-device references in this process (K1's
    matvec and K4 -> K5 -> K6 at 4096^2, and the main path below), then
    worlds of rank processes (``--mesh-rank``), all on ``cuda:0`` (NCCL
@@ -368,7 +385,11 @@ before printing its last line):
    ``policy.prefer_one_reduce``) and with ``variant="1r"``, Chebyshev
    with Jacobi (ONE all-reduce per check block), block CG, a Lanczos
    ``expm_multiply`` (its correction tail the history) and sketched
-   GMRES on a sketch every rank draws alike,
+   GMRES on a sketch every rank draws alike, ``ca_cg`` (3 all-reduces a
+   block) and the Newton ``ca_gmres`` (5 + s a block), and CG on the
+   DIA form (one periodic halo exchange an application) and the CSR form
+   (one all-gather an application, block Jacobi) of scipy's Poisson at
+   1024^2,
    launch and collective counts zeroed just before each and read just
    after.  Gated against
    one device: iteration and matvec counts equal, residual histories
@@ -1747,11 +1768,17 @@ MESH_CG_SEED = 12
 #: its float32 tail reads 1.3e-4 / 3.6e-4 sound on 2 / 4 ranks, its halo
 #: fault 0.20 (its products are (k,)-vectors: the reduce fault, which
 #: leaves 0-dim partials unreduced, does not reach it)
+#: The s-step and gallery entries, on the H100 (sound on 2 / 4 gloo
+#: ranks; halo and reduce faults on 2): the Newton ca_gmres 1.9e-4 /
+#: 3.0e-5, 4.5e-3, inf; ca_cg at s = 2 3.3e-5 / 5.2e-5, 5.1e-3, 7.2e-4;
+#: DIA CG 1.4e-6 / 8.8e-7, 6.2e-2, 9.0e-2 and CSR CG 2.2e-6 / 5.8e-7,
+#: (no halo), 9.6e-2, CG's limit
 MESH_RTOL = {"gmres": 3e-6, "cg": 2e-4, "recycling": 2e-4,
              "gmres_1r": 3e-6, "cg_1r": 2e-4, "gmres_auto": 3e-6,
              "lsqr": 5e-6, "shifted_cg_auto": 5e-4, "shifted_cg_1r": 5e-4,
              "chebyshev": 3e-6, "block_cg": 3e-3, "funm_krylov": 3e-5,
-             "sketched_gmres": 3e-5}
+             "sketched_gmres": 3e-5, "ca_cg": 1e-3, "ca_gmres_newton": 1.5e-3,
+             "dia_cg": 2e-4, "csr_cg": 2e-4}
 #: the least-squares and multi-shift lane on the mesh: LSQR on the Poisson
 #: operator (its own adjoint) for MESH_LSQ_ITERS iterations (tol below
 #: reach, the stagnation window past them), and multi-shift CG with
@@ -1787,6 +1814,27 @@ MESH_CHEB_FIXED = 2
 MESH_BLOCK_ITERS = 30
 MESH_FUNM_DIM, MESH_FUNM_TLAM = 20, 100.0
 MESH_SGM_ITERS, MESH_SKETCH_SEED = 25, 17
+#: the s-step lane and the unstructured gallery on the mesh: ca_cg (s = 2,
+#: Jacobi) on Poisson for MESH_SS_CG_ITERS steps and ca_gmres (Newton,
+#: s = 4, Jacobi on the left, its 8-step warm-up) on the
+#: convection-diffusion operator for MESH_SS_GM_ITERS steps, none reaching
+#: its tolerance (no stagnation window); CG for MESH_CG_ITERS iterations
+#: on the float32 five-point Poisson at MESH_GAL_NX^2 from scipy, as a DIA
+#: operator with Jacobi (one periodic halo exchange per application) and
+#: as a CSR operator with block Jacobi (block MESH_GAL_BLOCK, rank-local:
+#: one all-gather per application).  All-reduces per block (MESH_SS_BLOCK)
+#: and per solve (MESH_SS_FIXED: the two initial norms and ca_cg's ten
+#: power-iteration norms, ca_gmres's 24 in its warm-up).  ca_cg at s = 4
+#: is no mesh check: its float32 monomial blocks are steered by rounding
+#: (ROADMAP.md C), so that on 2 gloo ranks on the H100 the sound history
+#: read 1.24e-2 against one device and the planted faults 1.07e-2 (halo)
+#: and 1.17e-2 (reduce); at s = 2 sound 3.3e-5 and halo 5.1e-3
+MESH_SS_S = {"ca_cg": 2, "ca_gmres_newton": 4}
+MESH_SS_CG_ITERS, MESH_SS_GM_ITERS = 40, 24
+MESH_SS_BLOCK = {"ca_cg": 3,
+                 "ca_gmres_newton": 5 + MESH_SS_S["ca_gmres_newton"]}
+MESH_SS_FIXED = {"ca_cg": 12, "ca_gmres_newton": 26}
+MESH_GAL_NX, MESH_GAL_BLOCK = 1024, 32
 #: the faults ``--mesh-faults`` plants, one world each
 MESH_FAULTS = ("halo", "reduce")
 
@@ -1881,6 +1929,40 @@ def _mesh_solves(device, mesh=None):
                    2 * math.cos(math.pi * h / 2) ** 2)
     sketch = F.kron_sketch(N, 8 * (MESH_SGM_ITERS + 1), seed=torch.Generator(
         device=device).manual_seed(MESH_SKETCH_SEED))
+    # the s-step lane, and the gallery from scipy (its operators' mesh forms)
+    gal = _ss_scipy("poisson", MESH_GAL_NX).astype(np.float32)
+    gal_blk = slice(None) if mesh is None else parallel.block_of(
+        MESH_GAL_NX ** 2, mesh)
+    b_gal = torch.from_numpy(rhs[: MESH_GAL_NX ** 2][gal_blk]).to(device)
+    applied = {"dia_cg": 0, "csr_cg": 0}
+
+    def counted(op, key):
+        def mv(x):
+            applied[key] += 1
+            return op(x)
+
+        mv.shape, mv.diag = op.shape, op.diag
+        return mv
+
+    dia = ops.dia_from_scipy(gal, device=device, mesh=mesh)
+    csr = ops.sparse_from_scipy(gal, device=device, mesh=mesh)
+    runs.update({
+        "ca_cg": lambda: [F.ca_cg(
+            lap, b_cg, s=MESH_SS_S["ca_cg"],
+            M=ops.jacobi_preconditioner(lap), tol=MESH_TOL,
+            maxiter=MESH_SS_CG_ITERS, stagnation_window=0)],
+        "ca_gmres_newton": lambda: [F.ca_gmres(
+            cd, b, s=MESH_SS_S["ca_gmres_newton"], basis="newton", Ml=Ml,
+            tol=MESH_TOL, maxiter=MESH_SS_GM_ITERS, stagnation_window=0)],
+        "dia_cg": lambda: [F.cg(
+            counted(dia, "dia_cg"), b_gal, M=ops.jacobi_preconditioner(dia),
+            tol=MESH_TOL, maxiter=MESH_CG_ITERS)],
+        "csr_cg": lambda: [F.cg(
+            counted(csr, "csr_cg"), b_gal,
+            M=ops.block_jacobi_preconditioner(csr, MESH_GAL_BLOCK,
+                                              mesh=mesh),
+            tol=MESH_TOL, maxiter=MESH_CG_ITERS)],
+    })
     runs.update({
         "chebyshev": lambda: [F.chebyshev(
             lap, b_cg, M=ops.jacobi_preconditioner(lap),
@@ -1913,6 +1995,8 @@ def _mesh_solves(device, mesh=None):
         }
     out["recycling"]["deflated_width"] = (
         None if rec._U is None else int(rec._U.shape[1]))
+    for key, n in applied.items():
+        out[key]["applications"] = n
     return out
 
 
@@ -1926,6 +2010,8 @@ def _mesh_history(name, r):
         return [v for v in c if math.isfinite(v)], 0, int(r.m)
     if name == "chebyshev":
         n = int(r.niter) // MESH_CHEB_EVERY + 1
+    elif name in MESH_SS_S:
+        n = int(r.niter) // MESH_SS_S[name] + 1
     elif name in ("gmres", "gmres_1r"):
         n = len(r.resnorms)
     else:
@@ -2055,6 +2141,19 @@ def _plant(fault):
             return handle if async_op else handle.wait()
 
         kst.halo_exchange = zeroed
+        # the DIA operator's periodic exchange (bound when it is built)
+        from krypy_tpu_torch import parallel
+
+        periodic = parallel.halo_exchange
+
+        def zeroed_periodic(first, last, mesh=None, *args, **kw):
+            rows = periodic(first, last, mesh, *args, **kw)
+            if kw.get("periodic"):
+                for t in rows:
+                    t.zero_()
+            return rows
+
+        parallel.halo_exchange = zeroed_periodic
     elif fault == "reduce":
         mesh_sum = common.mesh_sum
 
@@ -2167,13 +2266,14 @@ def mesh_rank(backend, P, rank, workdir, plant=None):
         if P > 1:
             # the planted halo fault of --mesh-faults reaches the rows K8's
             # kernel reads: the rows next to a neighbour change, no other
-            exchange = kst.halo_exchange
+            exchange, periodic = kst.halo_exchange, parallel.halo_exchange
             _plant("halo")
             try:
                 yz = parallel.gather_vector(kst.stencil5_sharded(
                     x_loc, nx=nx, ny=nx, coeffs=co, mesh=mesh), mesh)
             finally:
                 kst.halo_exchange = exchange
+                parallel.halo_exchange = periodic
             moved = torch.nonzero((yz != want).view(nx, nx).any(1))
             edges = sorted(r * (nx // P) + d for r in range(1, P)
                            for d in (-1, 0))
@@ -2459,7 +2559,8 @@ def _check_mesh_world(backend, P, ranks, ref):
         # (the recorded count where a history is not one entry per
         # iteration: per shift, per check block, per column, corrections)
         iters = sum(r0[name]["niter"]) if name.startswith("shifted") or \
-            name in ("chebyshev", "block_cg", "funm_krylov") else \
+            name in ("chebyshev", "block_cg", "funm_krylov") + tuple(
+                MESH_SS_BLOCK) else \
             sum(len(h) - 1 for h in got)
         print(f"{tag} {name}: {iters} iterations, {matvecs} matvecs as on "
               f"one device; residual history max rel diff {rel:.3e} "
@@ -2468,11 +2569,33 @@ def _check_mesh_world(backend, P, ranks, ref):
         if not rel <= MESH_RTOL[name]:
             raise AssertionError(f"{tag} {name}: residual histories differ "
                                  f"by {rel:.3e} > {MESH_RTOL[name]}")
-        if launches["stencil5_sharded"] != matvecs or \
+        if name in ("dia_cg", "csr_cg"):
+            # no stencil: the DIA operator's one periodic exchange, the CSR
+            # operator's one all-gather per application, no other
+            n_app = r0[name]["applications"]
+            want = {"dia_cg": {"halo_exchange": n_app, "all_gather": 0},
+                    "csr_cg": {"halo_exchange": 0, "all_gather": n_app}}[name]
+            if n_app != one["applications"] or launches.get(
+                    "stencil5_sharded", 0) or any(
+                    coll[k] != v for k, v in want.items()):
+                raise AssertionError(
+                    f"{tag} {name}: {n_app} applications (one device "
+                    f"{one['applications']}), collectives {coll}, K8 "
+                    f"{launches.get('stencil5_sharded', 0)}: expected "
+                    f"{want} and no K8")
+        elif launches["stencil5_sharded"] != matvecs or \
                 coll["halo_exchange"] != matvecs:
             raise AssertionError(f"{tag} {name}: {matvecs} matvecs on one "
                                  f"device, K8 {launches['stencil5_sharded']}"
                                  f" and {coll['halo_exchange']} exchanges")
+        if name in MESH_SS_BLOCK:
+            blocks = len(got[0]) - 1
+            want_ar = MESH_SS_FIXED[name] + MESH_SS_BLOCK[name] * blocks
+            if coll["all_reduce_sum"] != want_ar:
+                raise AssertionError(
+                    f"{tag} {name}: {coll['all_reduce_sum']} all-reduces in "
+                    f"{blocks} blocks: expected {MESH_SS_BLOCK[name]} per "
+                    f"block plus {MESH_SS_FIXED[name]}")
         if name == "gmres":
             per_cycle = 4  # the global N, two initial norms, the final one
             if launches["cgs2_fused_sharded"] != iters or \
@@ -6979,17 +7102,18 @@ FUNM_LANE_SLACK = 1
 FUNM_SEIG_RES_RTOL, FUNM_SEIG_THETA_RTOL, FUNM_SEIG_RANGE = 1e-2, 1e-4, 1e-4
 
 
-def _funm_gate(gates, name, reading, limit, fault=None, above=False):
+def _funm_gate(gates, name, reading, limit, fault=None, above=False,
+               phase="funm"):
     """Record one gate: ``reading`` must be at or below ``limit`` (at or
     above it, ``above``); ``fault`` is the reading of the planted fault
-    (``--funm-faults``), which must fail the gate.  Returns the failure
-    message or None."""
+    (``--funm-faults``), which must fail the gate; ``phase`` labels the
+    printed line.  Returns the failure message or None."""
     ok = reading >= limit if above else reading <= limit
     caught = None if fault is None else not (
         fault >= limit if above else fault <= limit)
     gates[name] = dict(reading=reading, limit=limit, fault=fault,
                        fault_caught=caught)
-    print(f"funm gate {name}: {reading!r} ({'>=' if above else '<='} "
+    print(f"{phase} gate {name}: {reading!r} ({'>=' if above else '<='} "
           f"{limit!r}: {'ok' if ok else 'FAILED'})"
           + ("" if fault is None else
              f"; planted fault {fault!r} ({'caught' if caught else 'MISSED'})"),
@@ -7058,17 +7182,17 @@ def _funm_counted(A, M=None):
         counts
 
 
-def _funm_identity(label, launches, impl, nlev, counts):
+def _funm_identity(label, launches, impl, nlev, counts, phase="funm"):
     """The kernel lane's K1-K3 launches against the counted applications
     (one K1 per operator application, a V-cycle's per application of
     ``M``); the plain lane launches nothing."""
     if impl != "cuda":
         if launches:
-            raise AssertionError(f"funm {label}: the plain lane launched "
+            raise AssertionError(f"{phase} {label}: the plain lane launched "
                                  f"{launches}")
         return
     _eigen_identity(label, launches, nlev, k1=counts["A"],
-                    vcycles=counts["M"], phase="funm")
+                    vcycles=counts["M"], phase=phase)
 
 
 def _funm_eta(A64, b, x, norm_a):
@@ -7682,6 +7806,609 @@ def funm_phase(device, faults=False):
     return record
 
 
+#: the sstep phase (``--only sstep``): the s-step lane and the unstructured
+#: gallery at the north star's grid, float32 inner solves through K1-K3
+#: on the kernel lane and the plain stencil on the plain lane, float64
+#: refinement to SS_TOL.  (a) ``ca_cg`` (s = 4, bench.py's padded V-cycle
+#: as M, one block a refinement cycle) inside ``refine_to`` on bench.py's
+#: Poisson, beside ``cg`` with bench.py's inner budget (tol 1e-4, 12
+#: iterations, stagnation window 4; ``ca_cg`` with that budget raises the
+#: residual after its first block: ROADMAP.md C); (b) ``ca_gmres`` on the
+#: north star's h^2-scaled
+#: operator with its scaled V-cycle as Ml (24 steps a call, tol 1e-3):
+#: monomial s = 4, Newton s = 8 and Chebyshev s = 8 (their shifts from one
+#: ``newton_shifts`` call per lane), then ``restarted_ca_gmres`` (Newton,
+#: s = 8, 3 cycles of 24 steps); (c) ``gmres_polynomial_preconditioner``
+#: (degree 8) of the V-cycle-preconditioned north-star operator as Mr of
+#: ``gmres(ortho="cgs2_fused")`` (GMRES(25)) and of ``ca_gmres`` (Newton,
+#: s = 4), one float32 solve each to tol 1e-3 beside the same solve
+#: without it; (d) the gallery on scipy matrices (CSR first, so that the
+#: DIA layout reads a canonical matrix): the DIA forms of the five-point
+#: Poisson and of the convection-diffusion operator at SS_NX^2 against K1
+#: (float32) and scipy (float64, bit for bit), CG with block Jacobi (block
+#: 32) beside point Jacobi on the CSR Poisson at SS_GAL_NX^2, and SPAI as
+#: Mr of GMRES on the CSR convection-diffusion operator at SS_GAL_NX^2
+#: (its host setup over every column takes ~7 s at 1023^2 on an 8-core
+#: x86 CPU, ~110 s at 4095^2 by the same rate: cut to 1023^2)
+SS_NX = NS_NX
+SS_GAL_NX = NX
+SS_TOL = 1e-8
+SS_CG_S = 4
+SS_CG_INNER = dict(tol=1e-4, maxiter=12, stagnation_window=4)
+SS_GM_BASES = (("monomial", 4), ("newton", 8), ("chebyshev", 8))
+SS_GM_INNER = dict(tol=1e-3, maxiter=24)
+SS_RESTARTED = dict(s=8, maxiter=24, max_restarts=2, tol=1e-3)
+SS_POLY_DEGREE, SS_POLY_S = 8, 4
+SS_POLY_GMRES = dict(tol=1e-3, maxiter=25)
+SS_POLY_CA = dict(tol=1e-3, maxiter=24)
+SS_GAL_CG = dict(tol=1e-6, maxiter=4000)
+SS_GAL_BLOCK = 32
+SS_SPAI_ITERS = 60
+SS_SEED = 18
+#: gate limits (each also read on its planted fault with
+#: ``--sstep-faults``): the first inner CA-CG solve's relative M-norm
+#: residual after its block (CG's after s iterations 2.4e-4; float32's
+#: monomial block 2.1e-3 on the kernel lane at 4095^2 on the H100, the
+#: block solves by their diagonals 2.4); the
+#: monomial basis' orthogonality ||V^T V - I||_max of one CA-GMRES call
+#: to the inner tolerance (float32: 2.9e-3 at 127^2 on an x86 CPU,
+#: 0.25 with a Gram-Schmidt pass dropped); the polynomial preconditioner's
+#: roots against the float64 build from the same seed, relative to the
+#: largest; the float32 DIA against K1, relative to the largest output
+SS_CG_FIRST_LIMIT = 1e-2
+SS_ORTH_LIMIT = 3e-2
+#: SPAI-preconditioned GMRES(60)'s final residual over Jacobi's at 1023^2
+#: (0.930 on the H100: the convection-diffusion operator's constant
+#: diagonal makes Jacobi a scaling; its planted fault, a solve with
+#: Jacobi in SPAI's place, reads its own ratio)
+SS_SPAI_RATIO = 0.97
+SS_ROOT_RTOL = 1e-5
+SS_DIA_K1_RTOL = 1e-5
+
+
+def _ss_gate(gates, failed, name, reading, limit, fault=None, above=False):
+    msg = _funm_gate(gates, name, reading, limit, fault, above, "sstep")
+    if msg:
+        failed.append(msg)
+
+
+def _ss_refined(label, A64, b, inner, impl, nlev, counts, iters,
+                setup=None):
+    """One refined solve (after ``setup()``, inside the counted run), its
+    launches held to the counted applications; returns its record."""
+    import torch
+
+    def go():
+        if setup is not None:
+            setup()
+        return _ss_refine(A64, b, inner)
+
+    (res, info), launches, wall = _lsq_run(f"sstep {label}", go)
+    _funm_identity(label, launches, impl, nlev, counts, "sstep")
+    rel = float(torch.linalg.vector_norm(b - A64(res.x))
+                / torch.linalg.vector_norm(b))
+    hist = res.resnorms.tolist()
+    print(f"sstep {label}: {info['cycles']} cycles, inner iterations "
+          f"{iters}, true residual {rel:.3e}, outer {hist}", flush=True)
+    return dict(cycles=info["cycles"], inner_iters=list(iters),
+                inner_total=sum(iters), true_rel=rel, outer=hist,
+                applications=dict(counts), launches=launches, wall_s=wall,
+                status=int(res.status))
+
+
+def _ss_refine(A64, b, inner):
+    from krypy_tpu_torch import functional as F
+
+    return F.refine_to(A64, b, inner, tol=SS_TOL, max_cycles=12)
+
+
+def _ss_cacg(nx, impl, device, nlev, faults):
+    """(a) ``ca_cg`` (one block of s a refinement cycle) and ``cg``
+    (bench.py's inner budget) inside ``refine_to`` on bench.py's Poisson
+    (ones) with the padded V-cycle."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+
+    A, M, A64 = _funm_poisson(nx, impl, device)
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    recs, gates, fail = {}, {}, []
+
+    def run(kind, tag, budget):
+        Ac, Mc, counts = _funm_counted(A, M)
+        iters, first = [], []
+
+        def inner(r32):
+            r = ops.pad_grid_vec(r32, nx, nx)
+            res = (F.ca_cg(Ac, r, s=SS_CG_S, M=Mc, **budget)
+                   if kind == "ca_cg" else F.cg(Ac, r, M=Mc, **budget))
+            iters.append(int(res.niter))
+            if not first:
+                first.append(res.resnorms.tolist())
+            return res._replace(x=ops.unpad_grid_vec(res.x, nx, nx))
+
+        rec = _ss_refined(f"{tag} {impl}@{nx}", A64, b, inner, impl, nlev,
+                          counts, iters)
+        rec["first_inner_resnorms"] = [v for v in first[0] if v == v]
+        return rec
+
+    one_block = dict(SS_CG_INNER, maxiter=SS_CG_S)
+    recs["ca_cg"] = run("ca_cg", "ca_cg", one_block)
+    recs["cg"] = run("cg", "cg", SS_CG_INNER)
+    k, c = recs["ca_cg"], recs["cg"]
+    k["blocks_apart_from_cg"] = (k["inner_total"] - c["inner_total"]) \
+        / SS_CG_S
+    first = k["first_inner_resnorms"][1]
+    k["cg_at_s"] = c["first_inner_resnorms"][SS_CG_S]
+    fault_first = fault_rel = None
+    if faults:
+        # the block solves (conjugation and Gram) by their diagonals only
+        keep = torch.linalg.solve_ex
+
+        def diagonal(W, B, **kw):
+            d = torch.diagonal(W)
+            X = B / (d if B.ndim == 1 else d[:, None])
+            return X, torch.zeros((), dtype=torch.int32, device=W.device)
+
+        torch.linalg.solve_ex = diagonal
+        try:
+            bad = run("ca_cg", "ca_cg fault", one_block)
+        finally:
+            torch.linalg.solve_ex = keep
+        fault_first = bad["first_inner_resnorms"][1]
+        fault_rel = k["outer"][-2]
+    _ss_gate(gates, fail, f"ca_cg refined true residual {impl}",
+             k["true_rel"], SS_TOL, fault_rel)
+    _ss_gate(gates, fail, f"ca_cg first block's M-norm residual {impl}",
+             first, SS_CG_FIRST_LIMIT, fault_first)
+    return dict(recs, gates=gates), fail
+
+
+def _ss_northstar(nx, impl, device):
+    """The north star's h^2-scaled padded float32 operator, its scaled
+    V-cycle, its unscaled float64 operator, the inner scale and b."""
+    import torch
+    from krypy_tpu_torch import ops
+
+    A, M, _ = _funm_northstar(nx, impl, device)
+    cd64 = ops.convection_diffusion_2d(nx, wind=(1.0, 0.5), eps=1.0,
+                                       device=device)
+    h2 = float(np.float32(1.0 / (nx + 1) ** 2))
+    b = torch.ones(nx * nx, dtype=torch.float64, device=device)
+    return A, M, cd64, h2, b
+
+
+def _ss_orthogonality(V, K):
+    """||V_{K+1} V_{K+1}^T - I||_max of a basis' first K + 1 rows, in
+    float64 from the float32 rows."""
+    import torch
+
+    W = V[: K + 1].double()
+    G = W @ W.T
+    return float((G - torch.eye(K + 1, dtype=G.dtype, device=G.device))
+                 .abs().max())
+
+
+def _ss_cagmres(nx, impl, device, nlev, faults):
+    """(b) ``ca_gmres`` with each basis and ``restarted_ca_gmres`` inside
+    ``refine_to`` on the north star's system, the V-cycle as Ml; the
+    monomial basis' orthogonality in one call to the inner tolerance."""
+    from krypy_tpu_torch import functional as F, ops
+    from krypy_tpu_torch.functional import sstep
+
+    A, M, cd64, h2, b = _ss_northstar(nx, impl, device)
+    rs0 = ops.pad_grid_vec((b * h2).float(), nx, nx)
+    recs, gates, fail = {}, {}, []
+    for basis, s in SS_GM_BASES + (("restarted", SS_RESTARTED["s"]),):
+        Ac, Mc, counts = _funm_counted(A, M)
+        iters, box = [], {"shifts": None}
+
+        def setup(basis=basis, s=s, box=box):
+            # the Newton and Chebyshev shifts, once per lane
+            if basis in ("newton", "chebyshev"):
+                box["shifts"] = F.newton_shifts(Ac, rs0, s, Ml=Mc)
+
+        def inner(r32, basis=basis, s=s, box=box):
+            rs = ops.pad_grid_vec(r32 * h2, nx, nx)
+            if basis == "restarted":
+                res = F.restarted_ca_gmres(Ac, rs, Ml=Mc, basis="newton",
+                                           **SS_RESTARTED)
+            else:
+                res = F.ca_gmres(Ac, rs, s=s, basis=basis,
+                                 shifts=box["shifts"], Ml=Mc, **SS_GM_INNER)
+            iters.append(int(res.niter))
+            return res._replace(x=ops.unpad_grid_vec(res.x, nx, nx))
+
+        label = ("restarted_ca_gmres newton" if basis == "restarted"
+                 else f"ca_gmres {basis}") + f" s={s}"
+        rec = _ss_refined(f"{label} {impl}@{nx}", cd64, b, inner, impl, nlev,
+                          counts, iters, setup)
+        rec["s"] = s
+        shifts = box["shifts"]
+        if shifts is not None:
+            rec["shifts"] = [[float(z.real), float(z.imag)] for z in shifts]
+        recs[label] = rec
+        _ss_gate(gates, fail, f"{label} refined true residual {impl}",
+                 rec["true_rel"], SS_TOL,
+                 rec["outer"][-2] if faults else None)
+        if basis != "monomial" or impl != "cuda":
+            continue
+        # one call's basis to the inner tolerance, its orthogonality
+        one, internal = F.ca_gmres(A, rs0, s=s, basis=basis, Ml=M,
+                                   return_internal=True, **SS_GM_INNER)
+        orth = _ss_orthogonality(internal["V"], int(one.niter))
+        del internal
+        fault = None
+        if faults:
+            # every second Gram-Schmidt pass dropped
+            keep, calls = sstep._gs_pass, []
+
+            def one_pass(V, Z, C, k, rows, proj, upd):
+                calls.append(1)
+                return Z if len(calls) % 2 == 0 else keep(
+                    V, Z, C, k, rows, proj, upd)
+
+            sstep._gs_pass = one_pass
+            try:
+                res, bad = F.ca_gmres(A, rs0, s=s, basis=basis, Ml=M,
+                                      return_internal=True, **SS_GM_INNER)
+                fault = _ss_orthogonality(bad["V"], int(res.niter))
+                del bad
+            finally:
+                sstep._gs_pass = keep
+        rec["orthogonality"] = dict(reading=orth, steps=int(one.niter))
+        _ss_gate(gates, fail, f"{label} basis orthogonality {impl}", orth,
+                 SS_ORTH_LIMIT, fault)
+    return dict(recs, gates=gates), fail
+
+
+def _ss_roots_apart(got, want):
+    """The largest distance from a root of ``want`` to its nearest unused
+    root of ``got`` (greedy matching; a conjugate pair's members are not
+    told apart by their rounded real parts), relative to the largest."""
+    left = list(np.asarray(got, complex))
+    dist = 0.0
+    for w in np.asarray(want, complex):
+        j = int(np.argmin([abs(g - w) for g in left]))
+        dist = max(dist, abs(left.pop(j) - w))
+    return dist / float(np.max(np.abs(want)))
+
+
+def _ss_poly(nx, impl, device, nlev, faults):
+    """(c) the GMRES-polynomial preconditioner of the V-cycle-preconditioned
+    north-star operator as Mr of GMRES (cgs2_fused) and CA-GMRES (Newton),
+    beside the same solves without it; its roots against the float64 build
+    from the same seed."""
+    from krypy_tpu_torch import functional as F, ops
+
+    A, M, A64pad = _funm_northstar(nx, impl, device)
+    h2 = float(np.float32(1.0 / (nx + 1) ** 2))
+    import torch
+
+    rs0 = ops.pad_grid_vec(torch.full((nx * nx,), h2, device=device), nx, nx)
+    recs, gates, fail = {}, {}, []
+    Ac, Mc, counts = _funm_counted(A, M)
+
+    def MA(v):
+        return Mc(Ac(v))
+
+    MA.shape = A.shape
+    (P, launches, wall) = _lsq_run(
+        f"sstep gmres_polynomial_preconditioner {impl}@{nx}",
+        lambda: ops.gmres_polynomial_preconditioner(MA, SS_POLY_DEGREE,
+                                                    seed=rs0))
+    _funm_identity("gmres_polynomial_preconditioner", launches, impl, nlev,
+                   counts, "sstep")
+    recs["build"] = dict(roots=[[float(z.real), float(z.imag)]
+                                for z in P.roots], launches=launches,
+                         wall_s=wall, applications=dict(counts))
+    if impl == "cuda":
+        def MA64(v):
+            return M(A64pad(v))
+
+        P64 = ops.gmres_polynomial_preconditioner(MA64, SS_POLY_DEGREE,
+                                                  seed=rs0.double())
+        dist = _ss_roots_apart(P.roots, P64.roots)
+        fault = None
+        if faults:
+            # the seed not passed through: the float64 build from ones
+            Pf = ops.gmres_polynomial_preconditioner(
+                MA64, SS_POLY_DEGREE, seed=torch.ones_like(rs0.double()))
+            fault = _ss_roots_apart(Pf.roots, P64.roots)
+        recs["build"]["roots_f64"] = [[float(z.real), float(z.imag)]
+                                      for z in P64.roots]
+        _ss_gate(gates, fail, "polynomial roots against float64",
+                 dist, SS_ROOT_RTOL, fault)
+    solves = {
+        "gmres": lambda Mr: F.gmres(Ac, rs0, Ml=Mc, Mr=Mr,
+                                    ortho="cgs2_fused", **SS_POLY_GMRES),
+        "ca_gmres": lambda Mr: F.ca_gmres(Ac, rs0, Ml=Mc, Mr=Mr,
+                                          s=SS_POLY_S, basis="newton",
+                                          **SS_POLY_CA),
+    }
+    for name, solve in solves.items():
+        row = {}
+        for with_p in (False, True):
+            for k in counts:
+                counts[k] = 0
+            r, launches, wall = _lsq_run(
+                f"sstep {name} {'Mr=p(MA)' if with_p else 'no Mr'} "
+                f"{impl}@{nx}", lambda: solve(P if with_p else None))
+            prefix = int(r.niter) if name == "gmres" and impl == "cuda" \
+                else 0
+            if impl == "cuda":
+                _eigen_identity(f"{name} poly={with_p}", launches, nlev,
+                                k1=counts["A"], vcycles=counts["M"],
+                                prefix=prefix, phase="sstep")
+            row["with_p" if with_p else "without"] = dict(
+                niter=int(r.niter), status=int(r.status), wall_s=wall,
+                launches=launches, applications=dict(counts))
+        fault = None
+        if faults:
+            # the degree not passed through: a degree-1 polynomial
+            P1 = ops.gmres_polynomial_preconditioner(MA, 1, seed=rs0)
+            fault = int(solve(P1).niter)
+        _ss_gate(gates, fail, f"{name} outer iterations with p(MA) {impl}",
+                 row["with_p"]["niter"], row["without"]["niter"] - 1, fault)
+        recs[name] = row
+    return dict(recs, gates=gates), fail
+
+
+def _ss_scipy(kind, n):
+    """The five-point Poisson (1/h^2) or the convection-diffusion operator
+    (wind (1, 0.5), eps 1, upwind) of ``ops`` as a scipy CSR matrix on an
+    n-grid (row-major, Dirichlet)."""
+    import scipy.sparse as sp
+
+    if kind == "poisson":
+        h = 1.0 / (n + 1)
+        cc, cu, cd, cl, cr = (4.0 / h ** 2, -1.0 / h ** 2, -1.0 / h ** 2,
+                              -1.0 / h ** 2, -1.0 / h ** 2)
+    else:
+        cc, cu, cd, cl, cr = _cd_raw(n)
+    N = n * n
+    j = np.arange(N) % n
+    left = np.where(j[1:] != 0, cl, 0.0)      # (i, j-1) of row i*n + j
+    right = np.where(j[:-1] != n - 1, cr, 0.0)
+    return sp.diags([np.full(N, cc), right, left, np.full(N - n, cd),
+                     np.full(N - n, cu)], [0, 1, -1, n, -n],
+                    format="csr")
+
+
+def _ss_gallery(device, faults):
+    """(d) the DIA forms at SS_NX^2 against K1 and scipy, CG with block
+    Jacobi on the CSR Poisson and SPAI as Mr of GMRES on the CSR
+    convection-diffusion operator at SS_GAL_NX^2."""
+    import torch
+    from krypy_tpu_torch import functional as F, interop, ops
+
+    nx = SS_NX
+    recs, gates, fail = {}, {}, []
+    rng = np.random.default_rng(SS_SEED)
+    x64 = rng.standard_normal(nx * nx)
+    for kind in ("poisson", "convdiff"):
+        t = time.perf_counter()
+        S = _ss_scipy(kind, nx)
+        D64 = ops.dia_from_scipy(S, device=device)
+        D32 = ops.dia_from_scipy(S.astype(np.float32), device=device)
+        build = time.perf_counter() - t
+        xg = torch.from_numpy(x64).to(device)
+        y = D64(xg).cpu().numpy()
+        want = S @ x64
+        exact = y.tobytes() == want.tobytes()
+        k1 = (ops.poisson_2d(nx, impl="cuda", device=device) if kind ==
+              "poisson" else ops.convection_diffusion_2d(nx, impl="cuda",
+                                                         device=device))
+        x32 = xg.float()
+        y32, yk = D32(x32), k1(x32)
+        dk = float((y32 - yk).abs().max() / yk.abs().max())
+        fault_exact = fault_dk = None
+        if faults:
+            # one diagonal's offset moved by one
+            offs = D64.offsets.copy()
+            offs[-1] += 1
+            bad = interop.dia_from_numpy(D64.dia_data.cpu().numpy(), offs,
+                                         device=device)
+            fault_exact = float(np.abs(bad(xg).cpu().numpy() - want).max())
+            bad32 = interop.dia_from_numpy(D32.dia_data.cpu().numpy(),
+                                           offs, device=device)
+            fault_dk = float((bad32(x32) - yk).abs().max()
+                             / yk.abs().max())
+        dia_ms = _time_ms(lambda: D32(x32), samples=5, per_sample=5)
+        k1_ms = _time_ms(lambda: k1(x32), samples=5, per_sample=5)
+        recs[f"dia {kind}@{nx}"] = dict(
+            build_s=build, bitwise_scipy_f64=exact, k1_max_rel=dk,
+            dia_f32_ms=dia_ms, k1_ms=k1_ms, n_diags=len(D64.offsets))
+        print(f"sstep dia {kind}@{nx}: built in {build:.1f} s, float64 "
+              f"{'bit for bit' if exact else 'NOT bit for bit'} scipy's, "
+              f"float32 against K1 {dk:.3e}; matvec {dia_ms:.4f} ms "
+              f"(K1 {k1_ms:.4f} ms)", flush=True)
+        _ss_gate(gates, fail, f"dia {kind} float64 against scipy, max abs",
+                 0.0 if exact else float(np.abs(y - want).max()), 0.0,
+                 fault_exact)
+        _ss_gate(gates, fail, f"dia {kind} float32 against K1", dk,
+                 SS_DIA_K1_RTOL, fault_dk)
+        del D64, D32, xg, x32, y32, yk, S
+        torch.cuda.empty_cache()
+    n = SS_GAL_NX
+    S = _ss_scipy("poisson", n)
+    csr = ops.sparse_from_scipy(S, device=device)
+    b = torch.from_numpy(rng.standard_normal(n * n)).to(device)
+    row = {}
+    for label, M in (("jacobi", ops.jacobi_preconditioner(csr)),
+                     ("block_jacobi", ops.block_jacobi_preconditioner(
+                         csr, SS_GAL_BLOCK))):
+        r, _, wall = _lsq_run(f"sstep csr cg {label}@{n}",
+                              lambda: F.cg(csr, b, M=M, **SS_GAL_CG))
+        row[label] = dict(niter=int(r.niter), status=int(r.status),
+                          wall_s=wall)
+    fault = None
+    if faults:
+        # the block size not passed through: blocks of one
+        fault = int(F.cg(csr, b, M=ops.block_jacobi_preconditioner(csr, 1),
+                         **SS_GAL_CG).niter)
+    _ss_gate(gates, fail, "csr cg block-Jacobi iterations",
+             row["block_jacobi"]["niter"], row["jacobi"]["niter"] - 1, fault)
+    recs[f"csr cg@{n}"] = row
+    S = _ss_scipy("convdiff", n)
+    csr = ops.sparse_from_scipy(S, device=device)
+    t = time.perf_counter()
+    Ms = ops.spai_preconditioner(csr)
+    setup = time.perf_counter() - t
+    b = torch.ones(n * n, dtype=torch.float64, device=device)
+    row = dict(spai_setup_s=setup, spai_residual=Ms.spai_residual,
+               spai_format="dia" if hasattr(Ms, "dia_data") else "csr")
+    finals = {}
+    pairs = [("jacobi", ops.jacobi_preconditioner(csr)), ("spai", Ms)]
+    if faults:
+        # SPAI's solves left out: its diagonal scaling, Jacobi, in its place
+        pairs.append(("spai fault", ops.jacobi_preconditioner(csr)))
+    for label, M in pairs:
+        r, _, wall = _lsq_run(f"sstep csr gmres {label}@{n}", lambda: F.gmres(
+            csr, b, Mr=M, tol=1e-12, maxiter=SS_SPAI_ITERS))
+        finals[label] = float(r.resnorms[int(r.niter)])
+        row[label] = dict(niter=int(r.niter), final=finals[label],
+                          wall_s=wall)
+    print(f"sstep spai@{n}: setup {setup:.1f} s, ||AM - I||_F/sqrt(N) "
+          f"{Ms.spai_residual:.4f}, GMRES({SS_SPAI_ITERS}) residual "
+          f"{finals['spai']:.3e} (Jacobi {finals['jacobi']:.3e})", flush=True)
+    _ss_gate(gates, fail, "spai gmres residual over jacobi's",
+             finals["spai"] / finals["jacobi"], SS_SPAI_RATIO,
+             finals["spai fault"] / finals["jacobi"] if faults else None)
+    recs[f"spai gmres@{n}"] = row
+    return dict(recs, gates=gates), fail
+
+
+def _ss_profile(device, out_dir):
+    """(``--profile`` with the sstep phase) the CholQR2 panel solve at the
+    north star's N, as one library triangular solve with N right-hand
+    sides (the JAX package's form) and as the port's row-by-row
+    substitution, one synchronised call each after a warm one; then the
+    wall of one monomial CA-GMRES block (s = 4) on the kernel lane with
+    each form, and the block under the profiler with the port's."""
+    import torch
+    from krypy_tpu_torch import functional as F, ops
+    from krypy_tpu_torch.functional import sstep
+
+    nx = SS_NX
+    N = nx * nx
+    gen = torch.Generator(device=device).manual_seed(SS_SEED)
+
+    def triangular(L, Z):
+        return torch.linalg.solve_triangular(L.conj(), Z, upper=False)
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    for s in (4, 8):
+        Z = torch.randn(s, N, generator=gen, device=device)
+        L = torch.linalg.cholesky(Z @ Z.T / N + torch.eye(s, device=device))
+        t_tri, a = wall(lambda: triangular(L, Z))
+        t_sub, b = wall(lambda: sstep._panel_solve(L, Z))
+        diff = float((a - b).abs().max() / a.abs().max())
+        print(f"profile sstep panel solve s={s} N={N}: triangular solve "
+              f"{t_tri:.6f} s, row substitution {t_sub:.6f} s, max rel "
+              f"diff {diff:.3e}", flush=True)
+        del Z, a, b
+    A, M, _ = _funm_northstar(nx, "cuda", device)
+    rs0 = ops.pad_grid_vec(torch.full((N,), float(np.float32(
+        1.0 / (nx + 1) ** 2)), device=device), nx, nx)
+    def block(b):
+        return F.ca_gmres(A, b, s=4, Ml=M, tol=1e-12, maxiter=4)
+
+    keep = sstep._panel_solve
+    sstep._panel_solve = triangular
+    try:
+        # no profiler here: it did not finish this block in 250 s
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        block(rs0)
+        torch.cuda.synchronize()
+        t_tri = time.perf_counter() - t
+    finally:
+        sstep._panel_solve = keep
+    t_sub, _ = wall(lambda: block(rs0))
+    print(f"profile sstep one CA-GMRES block (monomial, s = 4): with the "
+          f"triangular solve {t_tri:.6f} s, with the substitution "
+          f"{t_sub:.6f} s", flush=True)
+    _profile_solve("ca_gmres_block", block, rs0, out_dir)
+    torch.cuda.empty_cache()
+
+
+def sstep_phase(device, faults=False, profile=None):
+    """The s-step lane and the rest of the ``ops`` gallery (``--only
+    sstep``): (a) ``ca_cg`` beside ``cg`` inside ``refine_to`` on bench.py's
+    Poisson, (b) ``ca_gmres`` with each basis and ``restarted_ca_gmres`` on
+    the north star's system, (c) the GMRES-polynomial preconditioner as Mr
+    of GMRES and CA-GMRES, each on both lanes with K1-K3 (and K4-K6)
+    held to the counted applications; (d) the DIA, CSR, block-Jacobi and
+    SPAI gallery.  With ``faults`` (``--sstep-faults``) the kernel lane
+    only, each gate also read on its planted fault, which must fail it.
+    Prints one JSON line and returns it."""
+    import torch
+
+    t0 = time.perf_counter()
+    nx = SS_NX
+    nlev = _eigen_vcycle_levels(nx, device)
+    record = {"device": _smi(), "nx": nx, "runs": {}, "launches": {},
+              "gates": {}, "reduced_from": {
+                  "csr cg, spai gmres": {
+                      "nx": SS_GAL_NX, "from": nx, "why":
+                      "SPAI's host setup over every column (~110 s at "
+                      "4095^2 by its 1023^2 rate); point-Jacobi CG at "
+                      "4095^2 takes thousands of iterations"}}}
+    failed = []
+
+    def attempt(key, fn, *args):
+        t = time.perf_counter()
+        try:
+            rec, fails = fn(*args)
+            record["gates"].update(rec.pop("gates", {}))
+            record["runs"][key] = rec
+            if " cuda@" in key:
+                # the kernel lane's runs: their launches, by run
+                for sub, r in rec.items():
+                    for k2, v in [(sub, r)] + [
+                            (f"{sub} {a}", b) for a, b in r.items()
+                            if isinstance(b, dict)]:
+                        if isinstance(v, dict) and v.get("launches"):
+                            record["launches"][f"{key} {k2}"] = \
+                                v["launches"]
+            failed.extend(f"{key}: {f}" for f in fails)
+        except AssertionError as exc:
+            failed.append(f"{key}: {exc}")
+        finally:
+            torch.cuda.empty_cache()
+            print(f"sstep {key}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+
+    lanes = ("cuda",) if faults else ("cuda", "torch")
+    for impl in lanes:
+        attempt(f"ca_cg {impl}@{nx}", _ss_cacg, nx, impl, device, nlev,
+                faults)
+        attempt(f"ca_gmres {impl}@{nx}", _ss_cagmres, nx, impl, device, nlev,
+                faults)
+        attempt(f"polynomial {impl}@{nx}", _ss_poly, nx, impl, device, nlev,
+                faults)
+    attempt("gallery", _ss_gallery, device, faults)
+    record["phase_s"] = time.perf_counter() - t0
+    if profile:
+        _ss_profile(device, profile)
+    record["failed"] = failed
+    if faults:
+        record["faults_missed"] = [n for n, g in record["gates"].items()
+                                   if g["fault_caught"] is False]
+    print(json.dumps({"sstep_faults" if faults else "sstep": record},
+                     default=str), flush=True)
+    if failed:
+        raise AssertionError("sstep phase: " + "; ".join(failed))
+    return record
+
+
 #: the TPU kernel each CUDA kernel replaces, and its row's timed use
 KERNELS = {
     "stencil5_affine": ("krypy_tpu/kernels/stencil.py:137", "stencil5.cu",
@@ -7804,11 +8531,15 @@ def main(argv=None):
                     help="run ONLY the funm phase's kernel lane with each "
                          "gate also read on a planted fault, which must "
                          "fail it; prints no result line")
+    ap.add_argument("--sstep-faults", action="store_true",
+                    help="run ONLY the sstep phase's kernel lane with each "
+                         "gate also read on a planted fault, which must "
+                         "fail it; prints no result line")
     ap.add_argument("--only",
                     choices=("stencil", "ortho", "baseline", "kernels",
                              "config5", "mesh", "onereduce", "compat",
                              "recycle", "nonsym", "eigen", "lsq",
-                             "shifted", "funm"),
+                             "shifted", "funm", "sstep"),
                     help="run ONLY this phase (K1-K3 or K4-K6 against "
                          "their plain versions, and their times; the "
                          "baseline phase, unpadded K1 and configs 1-3; "
@@ -7826,7 +8557,8 @@ def main(argv=None):
                          "star's system; or the eigensolvers; or the "
                          "least-squares and randomized lane; or the "
                          "Arnoldi and multi-shift lane; or the Chebyshev, "
-                         "matrix-function, block and sketched lanes); "
+                         "matrix-function, block and sketched lanes; or "
+                         "the s-step lane and the unstructured gallery); "
                          "a copy of this script in a checkout of another "
                          "commit times that commit's kernels the same "
                          "way; prints no result line")
@@ -7871,6 +8603,12 @@ def main(argv=None):
     if args.funm_faults:
         funm_phase(device, faults=True)
         return
+    if args.sstep_faults:
+        sstep_phase(device, faults=True)
+        return
+    if args.only == "sstep":
+        sstep_phase(device, profile=args.profile)
+        return
     if args.only == "config5":
         config5_phase(device, smi)
         return
@@ -7883,7 +8621,8 @@ def main(argv=None):
          "mesh": mesh_phase, "onereduce": onereduce_phase,
          "compat": compat_phase, "nonsym": nonsym_phase,
          "eigen": eigen_phase, "lsq": lsq_phase,
-         "shifted": shifted_phase, "funm": funm_phase}[args.only](device)
+         "shifted": shifted_phase, "funm": funm_phase,
+         "sstep": sstep_phase}[args.only](device)
         return
     last = [t0]
 
@@ -7942,6 +8681,8 @@ def main(argv=None):
     mark("shifted")
     fnm = funm_phase(device)
     mark("funm")
+    sst = sstep_phase(device)
+    mark("sstep")
     worlds = mesh_phase(device)
     mark("mesh")
     if args.profile:
@@ -7950,6 +8691,7 @@ def main(argv=None):
         _profile_solve("config4_deflated", c4_solves["cuda"], c4_b,
                        args.profile)
         _profile_deflation(device, C4_NX)
+        _ss_profile(device, args.profile)
 
     rows = []
     for name, (src, cu, key) in KERNELS.items():
@@ -8056,9 +8798,11 @@ def main(argv=None):
                     rows[-1][f"coarse_launches_nonsym {label}@"
                              f"{NONSYM_NX}"] = used["stencil5_coarse"]
         # the least-squares, randomized, Arnoldi, multi-shift, Chebyshev,
-        # matrix-function, block and sketched lanes' kernel-lane runs (lsq,
-        # shifted and funm phases): K1, and K1-K3 of the V-cycles
-        for phase, rec in (("lsq", lsq), ("shifted", shf), ("funm", fnm)):
+        # matrix-function, block, sketched and s-step lanes' kernel-lane
+        # runs (lsq, shifted, funm and sstep phases): K1, K1-K3 of the
+        # V-cycles, and K4-K6 of the polynomial-preconditioned GMRES
+        for phase, rec in (("lsq", lsq), ("shifted", shf), ("funm", fnm),
+                           ("sstep", sst)):
             for run, used in rec["launches"].items():
                 if used.get(name):
                     rows[-1][f"launches_{phase} {run}"] = used[name]

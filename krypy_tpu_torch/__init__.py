@@ -35,7 +35,16 @@ generators, factories and evaluators), ``deflation.Arnoldifyer`` and
 device, the level sets by the port's own marching squares) and
 ``checkpoint`` (the JAX package's ``.npz`` directory form).  That lane
 takes numpy inputs as the reference does and puts them on the card
-(``device=`` to choose another device).
+(``device=`` to choose another device).  Then the nonsymmetric short
+recurrences, the eigensolvers, the least-squares, randomized, multi-shift,
+Chebyshev, matrix-function, block and sketched lanes, and, last, the
+s-step lane (``functional.ca_cg``, ``ca_gmres`` with the monomial, Newton
+and Chebyshev bases, ``restarted_ca_gmres``, ``newton_shifts``,
+``modified_leja``) with the rest of the ``ops`` gallery: the
+GMRES-polynomial preconditioner, the CSR and DIA operators from scipy
+matrices, SPAI and block Jacobi, each with its mesh form.  The port's
+``functional`` and ``ops`` now hold every public name of the JAX
+package's.
 """
 
 from . import config  # noqa: F401  (full-f32 matmul defaults at import)

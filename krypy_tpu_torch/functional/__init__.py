@@ -19,8 +19,9 @@ relation builder ``arnoldi``, the multi-shift ``shifted_cg``,
 ``inv_sqrt_multiply``, ``slq_trace`` and ``slq_logdet``, the block
 solvers ``block_cg`` and ``block_gmres``, and the sketched lane
 ``KronSketch``, ``kron_sketch``, ``sketch_apply``, ``sketched_gmres``,
-``restarted_sketched_gmres`` and ``sketched_eigs``; still to port: the
-s-step lane ``sstep``)."""
+``restarted_sketched_gmres`` and ``sketched_eigs``, and the s-step lane
+``ca_cg``, ``ca_gmres``, ``restarted_ca_gmres``, ``newton_shifts`` and
+``modified_leja``: every name of the JAX package's namespace)."""
 
 from . import policy
 from .arnoldi import ArnoldiResult, arnoldi
@@ -90,6 +91,13 @@ from .shifted import (
     shifted_cg,
     shifted_gmres,
 )
+from .sstep import (
+    ca_cg,
+    ca_gmres,
+    modified_leja,
+    newton_shifts,
+    restarted_ca_gmres,
+)
 from .svd import SvdsResult, svds
 from .tfqmr import tfqmr
 
@@ -156,6 +164,11 @@ __all__ = [
     "sketched_gmres",
     "restarted_sketched_gmres",
     "sketched_eigs",
+    "ca_cg",
+    "ca_gmres",
+    "restarted_ca_gmres",
+    "newton_shifts",
+    "modified_leja",
     "NewtonResult",
     "ritz_deflation_vectors",
     "ritz_pairs",

@@ -21,7 +21,13 @@ data of a fused one-reduce deflation crosses as its numpy rows
 (:func:`fused_deflation_from_numpy`).  A sketch of the sketched lane
 crosses as its numpy factors ``S1``, ``S2`` and ``signs``
 (:func:`kron_sketch_from_numpy`), since torch cannot redraw what
-``jax.random`` drew.  A solver of the
+``jax.random`` drew.  The GMRES-polynomial preconditioner crosses as its
+Leja-ordered roots (:func:`gmres_polynomial_from_numpy`), the DIA
+operator as its ``(dia_data, offsets)`` (:func:`dia_from_numpy`), the
+block-Jacobi preconditioner as its inverted blocks
+(:func:`block_jacobi_from_numpy`, :func:`block_jacobi_to_numpy`) and a
+sparse operator or SPAI inverse back as the scipy matrix it applies
+(:func:`sparse_to_numpy`).  A solver of the
 reference-compatible lane (``linsys``, ``deflation``) crosses back as its
 results (:func:`compat_solver_to_numpy`): its inputs come as numpy
 already, so nothing needs carrying in.
@@ -41,7 +47,10 @@ __all__ = ["from_numpy", "to_numpy", "internals_from_numpy",
            "internals_to_numpy", "basis_from_numpy", "shard_from_numpy",
            "gather_to_numpy", "nls_to_numpy", "auto_state_to_numpy",
            "auto_state_from_numpy", "fused_deflation_from_numpy",
-           "compat_solver_to_numpy", "kron_sketch_from_numpy"]
+           "compat_solver_to_numpy", "kron_sketch_from_numpy",
+           "gmres_polynomial_from_numpy", "dia_from_numpy",
+           "block_jacobi_from_numpy", "block_jacobi_to_numpy",
+           "sparse_to_numpy"]
 
 
 def from_numpy(arr, device):
@@ -201,3 +210,44 @@ def kron_sketch_from_numpy(S1, S2, signs, N=None, *, device):
     return KronSketch(S1=from_numpy(S1, device), S2=from_numpy(S2, device),
                       signs=from_numpy(signs, device),
                       N=int(signs.shape[0] if N is None else N))
+
+
+def gmres_polynomial_from_numpy(op, roots, complex_op=False):
+    """The port's GMRES-polynomial preconditioner of ``op`` with the JAX
+    preconditioner's ``.roots`` (Leja-ordered; ``complex_op`` as the JAX
+    build decided it: a complex seed or basis)."""
+    from .ops import _polynomial_from_roots
+
+    return _polynomial_from_roots(op, np.asarray(roots),
+                                  complex_op=complex_op,
+                                  shape=getattr(op, "shape", None))
+
+
+def dia_from_numpy(dia_data, offsets, scipy_matrix=None, *, device,
+                   mesh=None):
+    """The port's DIA operator from the JAX operator's ``.dia_data`` and
+    ``.offsets`` (on ``device``, or the rank's block of ``mesh``)."""
+    from .ops import _dia_from_numpy
+
+    return _dia_from_numpy(dia_data, offsets, scipy_matrix, device, mesh)
+
+
+def block_jacobi_from_numpy(blocks, N, *, device, mesh=None):
+    """The port's block-Jacobi preconditioner from the JAX one's inverted
+    ``.blocks`` ``(nb, bs, bs)`` of an ``N x N`` operator."""
+    from .ops import _block_jacobi_from_blocks
+
+    return _block_jacobi_from_blocks(np.asarray(blocks), N, device, mesh)
+
+
+def block_jacobi_to_numpy(M):
+    """A block-Jacobi preconditioner's inverted blocks as numpy."""
+    return to_numpy(M.blocks)
+
+
+def sparse_to_numpy(op):
+    """The scipy matrix a CSR, DIA or SPAI operator applies (its
+    ``.scipy_matrix``, else its device CSR read back)."""
+    from .ops import _as_scipy_sparse
+
+    return _as_scipy_sparse(op).tocsr()

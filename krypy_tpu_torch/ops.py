@@ -59,6 +59,11 @@ __all__ = [
     "pad_rows_width",
     "pad_grid_vec",
     "unpad_grid_vec",
+    "gmres_polynomial_preconditioner",
+    "sparse_from_scipy",
+    "dia_from_scipy",
+    "spai_preconditioner",
+    "block_jacobi_preconditioner",
 ]
 
 _IMPLS = ("torch", "cuda")
@@ -1000,3 +1005,546 @@ def multigrid_poisson_preconditioner(
         nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps, impl,
         scale=scale, device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# the polynomial preconditioner and the unstructured gallery
+# ---------------------------------------------------------------------------
+
+
+def _polynomial_plan(roots, complex_op):
+    """The product form's steps: each root alone (``("real", theta)``),
+    or, for a real operator, each conjugate pair (adjacent after
+    ``modified_leja``, Im>0 first) as one real quadratic step
+    ``("pair", 2 Re theta, |theta|^2)``."""
+    if complex_op:
+        return [("real", complex(th), None) for th in roots]
+    plan = []
+    i = 0
+    while i < roots.size:
+        th = roots[i]
+        if abs(th.imag) > 1e-14 * max(1.0, abs(th)):
+            plan.append(("pair", 2.0 * float(th.real), float(abs(th) ** 2)))
+            i += 2
+        else:
+            plan.append(("real", float(th.real), None))
+            i += 1
+    return plan
+
+
+def _polynomial_from_roots(op, roots, *, complex_op=False, shape=None):
+    r"""The GMRES-polynomial preconditioner :math:`p(A) = (I - \pi(A))
+    A^{-1}`, :math:`\pi(z) = \prod_i (1 - z/\theta_i)`, of ``op`` with the
+    given (Leja-ordered) ``roots``, applied in product form: ``len(roots)``
+    applications of ``op`` and no inner product.  ``complex_op`` applies
+    every root with a complex scalar; otherwise conjugate pairs combine in
+    real arithmetic.  Carries ``.roots``, ``.degree`` and ``.shape``."""
+    from .functional.common import as_matvec
+
+    roots = np.asarray(roots, complex)
+    plan = _polynomial_plan(roots, complex_op)
+    op = as_matvec(op)
+
+    def matvec(v):
+        # out accumulates p(A) v, prod carries pi_j(A) v
+        out = torch.zeros_like(v)
+        prod = v
+        for idx, (kind, c1, c2) in enumerate(plan):
+            last = idx == len(plan) - 1
+            if kind == "real":
+                out = out + prod / c1
+                if not last:
+                    prod = prod - op(prod) / c1
+            else:
+                Ap = op(prod)
+                out = out + (c1 * prod - Ap) / c2
+                if not last:
+                    prod = prod - (c1 * Ap - op(Ap)) / c2
+        return out
+
+    matvec.shape = shape
+    matvec.degree = int(roots.size)
+    matvec.roots = roots
+    return matvec
+
+
+def gmres_polynomial_preconditioner(op, degree=8, *, seed=None, n=None,
+                                    stability_check=True):
+    r"""GMRES-polynomial preconditioner :math:`p(A) \approx A^{-1}` for a
+    general (nonsymmetric, complex-spectrum) operator (after Loe & Morgan,
+    2021): the roots of the degree-``degree`` GMRES residual polynomial
+    are the harmonic Ritz values of a ``degree``-step Arnoldi run
+    (``functional.arnoldi``, ``ortho="cgs2"``), Leja-ordered on the host;
+    one application is ``degree`` operator applications and no inner
+    product (:func:`_polynomial_from_roots`).
+
+    :param seed: the Arnoldi start (default: ones in the operator's dtype,
+      on its device).  The JAX package learns that dtype by
+      ``jax.eval_shape``; here one application of ``op`` to a float32 zero
+      vector on the operator's device (``op.device``, its ``.diag``'s, a
+      tensor's own; else ``"cuda"``) reads it.
+    :param n: the problem size where ``op`` has no ``.shape`` and no seed
+      is given.
+    :param stability_check: raise ``ValueError`` where the partial
+      products of the ordered roots grow past 1e8 on the Ritz estimates.
+    :return: matvec with ``.roots``, ``.degree`` and ``.shape``.
+    """
+    from .functional.arnoldi import arnoldi
+    from .functional.common import as_matvec
+    from .functional.eigh import _start_device
+    from .functional.sstep import modified_leja
+
+    shape = getattr(op, "shape", None)
+    if seed is None:
+        if n is None:
+            if shape is None:
+                raise ValueError("n= or seed= required when op has no .shape")
+            n = shape[1]
+        probe = torch.zeros(int(n), dtype=torch.float32,
+                            device=_start_device(op))
+        seed = torch.ones(int(n), dtype=as_matvec(op)(probe).dtype,
+                          device=probe.device)
+    elif not isinstance(seed, torch.Tensor):
+        seed = torch.tensor(np.asarray(seed), device=_start_device(op))
+    seed = seed.reshape(-1)
+
+    rel = arnoldi(op, seed, maxiter=int(degree), ortho="cgs2")
+    k = int(rel.niter)
+    if k < 1:
+        raise ValueError("Arnoldi produced no usable steps")
+    H = rel.H[: k + 1, :k].cpu().numpy().astype(np.complex128)
+    Hk = H[:k, :k]
+    hk = H[k, k - 1]
+    # harmonic Ritz values: eig(Hk + hk^2 f e_k^H), f = Hk^{-H} e_k
+    ek = np.zeros(k)
+    ek[-1] = 1.0
+    f = np.linalg.solve(Hk.conj().T, ek)
+    roots = modified_leja(
+        np.linalg.eigvals(Hk + (abs(hk) ** 2) * np.outer(f, ek)))
+
+    if stability_check:
+        # growth of |pi_j(theta_i)| over the Ritz estimates
+        pi = np.ones(roots.size, complex)
+        growth = 1.0
+        for th in roots:
+            pi *= 1.0 - roots / th
+            growth = max(growth, float(np.max(np.abs(pi))))
+        if growth > 1e8:
+            raise ValueError(
+                f"product-form growth {growth:.1e} at degree {k}: reduce "
+                "degree (the polynomial would amplify round-off past "
+                "single precision)")
+    complex_op = seed.is_complex() or rel.V.is_complex()
+    return _polynomial_from_roots(op, roots, complex_op=complex_op,
+                                  shape=shape)
+
+
+def _quiet_csr(crow, col, values, size):
+    """A torch sparse CSR tensor, without torch's beta and invariant
+    warnings."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, col, values, size=size,
+                                       check_invariants=False)
+
+
+def _csr_to_scipy(t):
+    """A torch sparse CSR tensor back as a scipy CSR matrix."""
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((t.values().cpu().numpy(),
+                          t.col_indices().cpu().numpy(),
+                          t.crow_indices().cpu().numpy()),
+                         shape=tuple(t.shape))
+
+
+def _typed(mat, cache, dtype):
+    """``mat`` in ``dtype`` (kept per dtype), for jnp's promotion of a
+    float64 matrix against a float32 vector, which torch's sparse product
+    does not do."""
+    if mat.dtype == dtype:
+        return mat
+    got = cache.get(dtype)
+    if got is None:
+        got = cache[dtype] = mat.to(dtype)
+    return got
+
+
+def sparse_from_scipy(A, *, device="cuda", mesh=None):
+    """A scipy sparse matrix as a CSR-backed matvec (the counterpart of the
+    JAX package's BCOO matvec): a torch sparse CSR product on ``device``.
+    Carries ``.csr`` (the whole device matrix, from which
+    :func:`block_jacobi_preconditioner` and :func:`spai_preconditioner`
+    read it back, as the JAX package reads ``.bcoo``), ``.diag`` and
+    ``.shape``.
+
+    With ``mesh=`` the operator maps the rank's block of ``x`` to the
+    rank's block of ``A x``: one :func:`~krypy_tpu_torch.parallel.
+    all_gather` of ``x`` per application (where XLA gathers the sharded
+    vector), then the rank's row block times it; ``.diag`` is the rank's
+    block."""
+    from .parallel import all_gather
+
+    device = _device(device) if mesh is None else mesh.device
+    csr = A.tocsr()
+    csr.sum_duplicates()
+    N = csr.shape[0]
+
+    def to_device(m):
+        return _quiet_csr(torch.from_numpy(m.indptr.astype(np.int64)),
+                          torch.from_numpy(m.indices.astype(np.int64)),
+                          torch.from_numpy(m.data), m.shape).to(device)
+
+    mat = to_device(csr)
+    diag = torch.from_numpy(np.asarray(A.diagonal(), csr.data.dtype))
+    rows = slice(0, N) if mesh is None else block_of(N, mesh)
+    local = mat if mesh is None else to_device(csr[rows])
+    cache = {}
+
+    def matvec(x):
+        if mesh is not None:
+            x = all_gather(x, mesh, N)
+        dt = torch.promote_types(local.dtype, x.dtype)
+        return _typed(local, cache, dt) @ x.to(dt)
+
+    matvec.shape = csr.shape
+    matvec.csr = mat
+    matvec.diag = diag[rows].to(device)
+    matvec.mesh = mesh
+    return matvec
+
+
+def _dia_layout(A, max_diags):
+    """``(data, offsets)`` of a square scipy matrix: one row of length N
+    per occupied diagonal (ascending offsets), indexed by column,
+    duplicates summed in the matrix's order as the JAX package's
+    ``np.add.at`` sums them."""
+    coo = A.tocoo()
+    N = coo.shape[0]
+    off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    # the occupied offsets, as np.unique finds them, in O(nnz)
+    occupied = np.bincount(off + (N - 1), minlength=2 * N - 1)
+    uniq = np.nonzero(occupied)[0].astype(np.int64) - (N - 1)
+    if uniq.size > int(max_diags):
+        raise ValueError(
+            f"matrix occupies {uniq.size} diagonals > max_diags={max_diags}:"
+            " reorder for bandwidth (RCM) or use sparse_from_scipy")
+    slot = np.zeros(2 * N - 1, np.int64)
+    slot[uniq + (N - 1)] = np.arange(uniq.size)
+    k = slot[off + (N - 1)]
+    data = np.zeros((uniq.size, N), dtype=coo.data.dtype)
+    if coo.has_canonical_format:
+        data[k, coo.col] = coo.data
+    else:
+        np.add.at(data, (k, coo.col), coo.data)
+    return data, uniq
+
+
+def _dia_operator(data, offsets, N, device, mesh):
+    """The DIA matvec of ``data`` (numpy ``(n_diags, N)``) and its
+    ascending ``offsets``: ``y = sum_k roll(d_k * x, -o_k)``, accumulated
+    in ascending offset order (a float64 product then has scipy's bits:
+    each row's terms in column order).  With ``mesh=`` the rank's block:
+    each offset taken modulo N to its smallest magnitude (a roll by ``-o``
+    is one by ``N - o``), one periodic halo exchange of the ``w`` edge
+    entries of ``x`` each side, ``w`` the largest such magnitude, and the
+    rank's rows of the same sum (the same products in the same order)."""
+    offsets = [int(o) for o in offsets]
+    if mesh is None:
+        dia = torch.from_numpy(data).to(device)
+
+        def matvec(x):
+            dt = torch.promote_types(dia.dtype, x.dtype)
+            prod = dia.to(dt) * x.to(dt)[None, :]
+            acc = torch.zeros_like(prod[0])
+            for i, o in enumerate(offsets):
+                acc = acc + (torch.roll(prod[i], -o) if o else prod[i])
+            return acc
+
+        matvec.dia_data = dia
+        matvec.diag = _dia_diag(dia, offsets, N)
+        return matvec
+
+    from .parallel import halo_exchange
+
+    if N % mesh.size:
+        raise ValueError(f"a DIA operator of N = {N} on {mesh.size} ranks: "
+                         "N must divide over the ranks")
+    n_loc = N // mesh.size
+    near = [o - N if o > N // 2 else (o + N if o < -(N // 2) else o)
+            for o in offsets]
+    w = max((abs(o) for o in near), default=0)
+    if w > n_loc:
+        raise ValueError(f"a DIA operator whose rolls reach {w} entries on "
+                         f"rank blocks of {n_loc}: use fewer ranks")
+    lo = mesh.rank * n_loc
+    cols = np.arange(lo - w, lo + n_loc + w) % N
+    ext = torch.from_numpy(np.ascontiguousarray(data[:, cols])).to(
+        mesh.device)
+
+    def matvec(x):
+        dt = torch.promote_types(ext.dtype, x.dtype)
+        x = x.to(dt)
+        if w:
+            top, bot = halo_exchange(x[:w], x[-w:], mesh, periodic=True)
+            # previous rank's last w entries above, next rank's first w below
+            x = torch.cat([top, x, bot])
+        prod = ext.to(dt) * x[None, :]
+        acc = torch.zeros(n_loc, dtype=dt, device=x.device)
+        for i, o in enumerate(near):
+            acc = acc + prod[i, w + o: w + o + n_loc]
+        return acc
+
+    matvec.dia_data = ext[:, w: w + n_loc]
+    matvec.diag = _dia_diag(matvec.dia_data, offsets, n_loc)
+    matvec.halo = w
+    return matvec
+
+
+def _dia_diag(dia, offsets, n):
+    return (dia[offsets.index(0)] if 0 in offsets
+            else torch.zeros(n, dtype=dia.dtype, device=dia.device))
+
+
+def _dia_from_numpy(dia_data, offsets, scipy_matrix, device, mesh):
+    """The DIA matvec of :func:`dia_from_scipy` from its numpy layout
+    ``(dia_data, offsets)`` (the JAX package's ``.dia_data`` and
+    ``.offsets``), on ``device`` or the rank's block of ``mesh``."""
+    data = np.array(dia_data)
+    offsets = np.array(offsets, np.int64)
+    N = data.shape[1]
+    device = _device(device) if mesh is None else mesh.device
+    matvec = _dia_operator(data, offsets, N, device, mesh)
+    matvec.shape = (N, N)
+    matvec.offsets = offsets
+    matvec.scipy_matrix = scipy_matrix
+    matvec.mesh = mesh
+    return matvec
+
+
+def dia_from_scipy(A, max_diags=512, *, device="cuda", mesh=None):
+    r"""A scipy sparse matrix as a DIAGONAL-format matvec: one dense row per
+    occupied diagonal, applied as :math:`y = \sum_k \mathrm{roll}(d_k
+    \odot x, -o_k)` (an elementwise product and a ``torch.roll`` per
+    diagonal, no gather).  Out-of-band positions are zero, so a roll wraps
+    only zeros, and a true wrap-around entry (periodic couplings) has a
+    diagonal of its own.  In float64 the product has scipy's bits.
+
+    :param max_diags: refuse (``ValueError``) matrices occupying more
+      distinct diagonals (reorder for bandwidth, or use
+      :func:`sparse_from_scipy`).
+    :param mesh: the rank's block of the product from the rank's block of
+      ``x``: one periodic halo exchange per application, no all-reduce
+      (:func:`_dia_operator`).
+    :return: matvec with ``.dia_data`` (``(n_diags, N)``, the rank's
+      columns on a mesh), ``.offsets``, ``.diag``, ``.shape`` and
+      ``.scipy_matrix``.
+    """
+    data, offsets = _dia_layout(A, max_diags)
+    return _dia_from_numpy(data, offsets, A, device, mesh)
+
+
+def _as_scipy_sparse(A):
+    """The unstructured lane's operator forms (a scipy sparse matrix, a
+    matvec carrying ``.scipy_matrix`` or ``.csr``, a dense array or
+    tensor) as a scipy sparse matrix."""
+    import scipy.sparse as sp
+
+    if getattr(A, "scipy_matrix", None) is not None:
+        return A.scipy_matrix
+    if hasattr(A, "csr"):
+        return _csr_to_scipy(A.csr)
+    if hasattr(A, "tocoo"):
+        return A
+    if isinstance(A, torch.Tensor):
+        A = A.cpu().numpy()
+    return sp.csr_matrix(np.asarray(A))
+
+
+def _operator_device(A, device):
+    """``device``, else where ``A`` keeps its tensors, else ``"cuda"``."""
+    if device is not None:
+        return _device(device)
+    for t in (A, getattr(A, "csr", None), getattr(A, "dia_data", None)):
+        if isinstance(t, torch.Tensor):
+            return t.device
+    return _device("cuda")
+
+
+def spai_preconditioner(A, *, pattern="A", ridge=0.0, format="auto",
+                        max_diags=512, device=None, mesh=None):
+    r"""Sparse approximate inverse with a fixed sparsity pattern: :math:`M =
+    \arg\min \|A M - I\|_F` over matrices supported on the pattern, for
+    nonsymmetric unstructured operators.  One small least-squares problem
+    per column, :math:`(A^H A)[J_j, J_j] m_j = (A^H)[J_j, j]`, set up once
+    on the host (columns grouped by support size, one batched
+    ``numpy.linalg.solve`` per group); applied on the device as a DIA
+    matvec (:func:`dia_from_scipy`) where the pattern is banded
+    (``format="auto"``), else CSR (:func:`sparse_from_scipy`), so it adds
+    no collective on a mesh (``mesh=``: that operator's mesh form).
+
+    ``.spai_residual`` is :math:`\|A M - I\|_F / \sqrt{N}`, the minimized
+    objective (0: the exact inverse on the pattern; ~1: the pattern cannot
+    represent an inverse; widen it with ``pattern="A2"``).  M is not
+    Hermitian in general: use it as ``Mr``/``Ml`` of GMRES.
+
+    :param pattern: ``"A"`` (A's support) or ``"A2"`` (that of
+      :math:`|A| + |A|^2`).
+    :param ridge: added to the normal equations' diagonals (a tiny
+      trace-scaled jitter is always added).
+    :param format: ``"auto"``, ``"dia"`` or ``"csr"`` (``"bcoo"``, the
+      JAX package's name, is taken as ``"csr"``).
+    :param device: where the application runs (default: where ``A`` keeps
+      its tensors, else ``"cuda"``).
+    :return: matvec with ``.spai_residual``, ``.scipy_matrix``, ``.shape``
+      and the chosen format's attributes.
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.linalg  # noqa: F401  (sp.linalg.norm)
+
+    if format not in ("auto", "dia", "csr", "bcoo"):
+        raise ValueError(f"unknown format {format!r}")
+    device = _operator_device(A, device) if mesh is None else mesh.device
+    A = sp.csc_matrix(_as_scipy_sparse(A))
+    N = A.shape[0]
+    if pattern == "A":
+        P = A
+    elif pattern == "A2":
+        absA = abs(A)
+        P = (absA + absA @ absA).tocsc()
+    else:
+        raise ValueError(f"unknown pattern {pattern!r}")
+    # the diagonal must be representable
+    P = (P + sp.eye(N, format="csc", dtype=A.dtype)).tocsc()
+
+    S = (A.conj().T @ A).tocsr()
+    Ah = A.conj().T.tocsr()
+
+    def _csr_lookup(mat, rr, cc):
+        """``mat[rr, cc]`` for flat index arrays by one searchsorted over
+        the globally sorted keys ``row * (N + 1) + col`` (absent: 0)."""
+        if mat.nnz == 0:
+            return np.zeros(rr.shape, dtype=mat.data.dtype)
+        mat.sort_indices()
+        nnz_rows = np.repeat(np.arange(mat.shape[0], dtype=np.int64),
+                             np.diff(mat.indptr))
+        keys = nnz_rows * (N + 1) + mat.indices.astype(np.int64)
+        q = rr.astype(np.int64) * (N + 1) + cc.astype(np.int64)
+        pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+        return np.where(keys[pos] == q, mat.data[pos], 0.0)
+
+    indptr, indices = P.indptr, P.indices
+    sizes = np.diff(indptr)
+    data = np.zeros(indptr[-1], dtype=np.promote_types(A.dtype, np.float64))
+    for k in np.unique(sizes):
+        cols = np.nonzero(sizes == k)[0]
+        at = (indptr[cols][:, None] + np.arange(k)[None, :]).ravel()
+        J = indices[at].reshape(cols.size, k)
+        G = _csr_lookup(S, np.repeat(J, k, axis=1).ravel(),
+                        np.tile(J, (1, k)).ravel()).reshape(
+            cols.size, k, k).astype(data.dtype)
+        rhs = _csr_lookup(Ah, J.ravel(), np.repeat(cols, k)).reshape(
+            cols.size, k).astype(data.dtype)
+        tr = np.einsum("bii->b", G).real / k
+        jitter = float(ridge) + 1e-13 * np.maximum(tr, 1.0)
+        G[:, np.arange(k), np.arange(k)] += jitter[:, None]
+        data[at] = np.linalg.solve(G, rhs[..., None])[..., 0].ravel()
+
+    M = sp.csc_matrix((data.astype(A.dtype), indices, indptr), shape=(N, N))
+    resid = sp.linalg.norm(A @ M - sp.eye(N, format="csc", dtype=A.dtype)) \
+        / np.sqrt(N)
+
+    if format == "auto":
+        Mc = M.tocoo()
+        n_diags = np.unique(Mc.col.astype(np.int64)
+                            - Mc.row.astype(np.int64)).size
+        format = "dia" if n_diags <= max_diags else "csr"
+    if format == "dia":
+        mv = dia_from_scipy(M.tocsr(), max_diags=max_diags, device=device,
+                            mesh=mesh)
+    else:
+        mv = sparse_from_scipy(M.tocsr(), device=device, mesh=mesh)
+        mv.scipy_matrix = M.tocsr()
+    mv.spai_residual = float(resid)
+    return mv
+
+
+def _block_entries(A):
+    """``(N, rows, cols, data)`` of the explicit sparsity of ``A``."""
+    if getattr(A, "scipy_matrix", None) is not None:
+        A = A.scipy_matrix
+    elif hasattr(A, "csr"):
+        A = _csr_to_scipy(A.csr)
+    if hasattr(A, "tocoo"):
+        coo = A.tocoo()
+        return coo.shape[0], coo.row, coo.col, coo.data
+    Ad = A.cpu().numpy() if isinstance(A, torch.Tensor) else np.asarray(A)
+    rows, cols = np.nonzero(Ad)
+    return Ad.shape[0], rows, cols, Ad[rows, cols]
+
+
+def _block_jacobi_from_blocks(blocks, N, device, mesh):
+    """The block-Jacobi matvec of the inverted blocks ``(nb, bs, bs)``
+    (numpy; the JAX package's ``.blocks``) of an ``N x N`` operator: one
+    batched product per application.  With ``mesh=`` the rank's rows only
+    (its blocks must not straddle a rank boundary): no collective."""
+    blocks = np.asarray(blocks)
+    nb, bs = blocks.shape[0], blocks.shape[1]
+    rows = slice(0, N) if mesh is None else block_of(N, mesh)
+    if rows.start % bs:
+        raise ValueError(f"block_size={bs} straddles the rank blocks of "
+                         f"N = {N} (the rank's first row is {rows.start})")
+    n = rows.stop - rows.start
+    first = rows.start // bs
+    nloc = -(-n // bs)
+    device = _device(device) if mesh is None else mesh.device
+    inv = torch.from_numpy(np.array(blocks[first: first + nloc])).to(device)
+    pad = nloc * bs - n
+    cache = {}
+
+    def matvec(x):
+        dt = torch.promote_types(inv.dtype, x.dtype)
+        xr = (F.pad(x.to(dt), (0, pad)) if pad else x.to(dt)).reshape(
+            nloc, bs)
+        y = torch.bmm(_typed(inv, cache, dt), xr[:, :, None]).reshape(-1)
+        return y[:n] if pad else y
+
+    matvec.blocks = inv
+    matvec.block_size = bs
+    matvec.shape = (N, N)
+    matvec.mesh = mesh
+    return matvec
+
+
+def block_jacobi_preconditioner(A, block_size=32, *, shift=0.0, device=None,
+                                mesh=None):
+    r"""Block-Jacobi :math:`M = \mathrm{blockdiag}(A)^{-1}` with dense
+    ``block_size`` diagonal blocks, for unstructured operators: the blocks
+    come from the explicit sparsity (a scipy matrix, a matvec carrying
+    ``.scipy_matrix`` or ``.csr``, a dense array), are inverted once on
+    the host (``shift * I`` added per block for indefinite operators; the
+    zero padding of the last block and empty rows get a unit diagonal),
+    and are applied as one batched ``(nb, bs, bs) x (nb, bs)`` product on
+    ``device`` (default: where ``A`` keeps its tensors, else ``"cuda"``).
+    With ``mesh=`` each rank applies its own rows' blocks: no collective.
+
+    :return: matvec with ``.blocks`` (the inverses), ``.block_size`` and
+      ``.shape``.
+    """
+    bs = int(block_size)
+    device = _operator_device(A, device) if mesh is None else None
+    N, rows, cols, data = _block_entries(A)
+    nb = -(-N // bs)
+    blocks = np.zeros((nb, bs, bs), dtype=data.dtype)
+    same = rows // bs == cols // bs
+    r, c, v = rows[same], cols[same], data[same]
+    np.add.at(blocks, (r // bs, r % bs, c % bs), v)
+    if shift:
+        blocks += float(shift) * np.eye(bs, dtype=data.dtype)
+    tail = np.arange(nb * bs) >= N
+    empty = np.abs(blocks).sum(axis=2).reshape(-1) == 0
+    bidx, lidx = np.nonzero((tail | empty).reshape(nb, bs))
+    blocks[bidx, lidx, lidx] = 1.0
+    return _block_jacobi_from_blocks(np.linalg.inv(blocks), N, device, mesh)

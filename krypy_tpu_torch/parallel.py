@@ -15,7 +15,10 @@ places only, both counted (:data:`COLLECTIVES`):
   :func:`krypy_tpu_torch.functional.common.make_inner`, the coefficient
   sums of the sharded CGS2 kernel);
 * :func:`halo_exchange`: the one-row halo of the sharded stencil, the
-  counterpart of the JAX kernel's ``ppermute``.
+  counterpart of the JAX kernel's ``ppermute`` (periodic, the edge
+  segments of the DIA operator's rolls);
+* :func:`all_gather`: the whole vector from the ranks' blocks, where XLA
+  gathers a sharded vector for the CSR operator's product.
 
 Both NCCL's and gloo's all-reduce hand every rank the same bits, so every
 rank reads the same host scalars and takes the same branches: replicated
@@ -63,6 +66,7 @@ __all__ = [
     "gather_vector",
     "all_reduce_sum",
     "halo_exchange",
+    "all_gather",
     "COLLECTIVES",
     "collective_counts",
     "reset_collective_counts",
@@ -71,7 +75,7 @@ __all__ = [
 ]
 
 #: calls of each collective helper (the port's only communication)
-COLLECTIVES = {"all_reduce_sum": 0, "halo_exchange": 0}
+COLLECTIVES = {"all_reduce_sum": 0, "halo_exchange": 0, "all_gather": 0}
 
 #: the meshes of the enclosing ``with mesh:`` blocks, innermost last
 _ACTIVE = []
@@ -278,14 +282,24 @@ def gather_vector(x, mesh):
     the solvers never gather).  Every rank must call it; blocks may be
     uneven, as :func:`block_of` lays them out."""
     x = x.reshape(-1)
-    n = _host_sum(torch.tensor([x.shape[0]]), mesh)
-    step = -(-int(n[0]) // mesh.size)
-    pad = torch.zeros(step, dtype=x.dtype, device=x.device)
-    pad[: x.shape[0]] = x
-    buf = pad.cpu() if mesh.backend != "nccl" and x.is_cuda else pad
+    return _gather(x, mesh, int(_host_sum(torch.tensor([x.shape[0]]),
+                                          mesh)[0]))
+
+
+def _gather(x, mesh, n):
+    """The whole length-``n`` vector from the ranks' blocks (of
+    :func:`block_of`'s layout), on ``x``'s device; CUDA blocks under gloo
+    cross through host memory."""
+    step = -(-n // mesh.size)
+    buf = x
+    if x.shape[0] != step:
+        buf = torch.zeros(step, dtype=x.dtype, device=x.device)
+        buf[: x.shape[0]] = x
+    if mesh.backend != "nccl" and x.is_cuda:
+        buf = buf.cpu()
     parts = [torch.empty_like(buf) for _ in range(mesh.size)]
-    dist.all_gather(parts, buf, group=mesh.group)
-    return torch.cat(parts)[: int(n[0])].to(x.device)
+    dist.all_gather(parts, buf.contiguous(), group=mesh.group)
+    return torch.cat(parts)[:n].to(x.device)
 
 
 def _host_sum(t, mesh):
@@ -382,7 +396,7 @@ class _Halo:
 
 
 def halo_exchange(first_row, last_row, mesh=None, async_op=False, *,
-                  mapped=False):
+                  mapped=False, periodic=False):
     """Send this rank's first row to the rank before it and its last row
     to the rank after it; return ``(top, bottom)``, the previous rank's
     last row and the next rank's first row, zeros where there is no
@@ -400,8 +414,21 @@ def halo_exchange(first_row, last_row, mesh=None, async_op=False, *,
     each way: both edge rows out to pinned host memory in one copy, and
     the received rows back to the device in one copy, or, with
     ``mapped=True``, none: the rows returned are then the pinned receive
-    buffer itself, which a kernel reads in place (K8's)."""
+    buffer itself, which a kernel reads in place (K8's).
+
+    With ``periodic=True`` the ranks form a ring: the first rank's ``top``
+    is the last rank's ``last_row`` and the last rank's ``bottom`` the
+    first rank's ``first_row`` (the rolls of the DIA operator); the rows
+    returned are new tensors, and ``async_op`` and ``mapped`` are not
+    taken."""
     mesh = active_mesh() if mesh is None else mesh
+    if periodic:
+        if async_op or mapped:
+            raise ValueError("a periodic halo exchange is synchronous and "
+                             "returns device rows")
+        out = _ring_exchange(first_row, last_row, mesh)
+        COLLECTIVES["halo_exchange"] += 1
+        return out
     key = (first_row.shape[-1], first_row.dtype, first_row.device)
     bufs = mesh.halo_buffers.get(key)
     if bufs is None:
@@ -424,6 +451,40 @@ def halo_exchange(first_row, last_row, mesh=None, async_op=False, *,
     COLLECTIVES["halo_exchange"] += 1
     handle = _Halo(works, bufs, mapped)
     return handle if async_op else handle.wait()
+
+
+def _ring_exchange(first_row, last_row, mesh):
+    """``(previous rank's last_row, next rank's first_row)`` around the
+    ring of ranks: two shifts, each one send and one receive per rank, so
+    that two ranks, each the other's neighbour on both sides, match their
+    messages unambiguously.  CUDA rows under gloo cross through host
+    memory."""
+    if mesh.size == 1:
+        return last_row.clone(), first_row.clone()
+    staged = mesh.backend != "nccl" and first_row.is_cuda
+    prev = dist.get_global_rank(mesh.group, (mesh.rank - 1) % mesh.size)
+    nxt = dist.get_global_rank(mesh.group, (mesh.rank + 1) % mesh.size)
+    got = []
+    for send, to, frm in ((last_row, nxt, prev), (first_row, prev, nxt)):
+        send = send.contiguous()
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, to, mesh.group),
+                dist.P2POp(dist.irecv, recv, frm, mesh.group)]):
+            w.wait()
+        got.append(recv.to(first_row.device))
+    return tuple(got)
+
+
+def all_gather(x, mesh, n):
+    """The whole vector of length ``n`` from every rank's block of it
+    (blocks laid out by :func:`block_of`, which may be uneven), on ``x``'s
+    device: the solvers' one gather, the CSR operator's per application.
+    Counted in ``COLLECTIVES["all_gather"]``."""
+    COLLECTIVES["all_gather"] += 1
+    return _gather(x, mesh, n)
 
 
 def file_rendezvous(workdir):

@@ -2031,3 +2031,191 @@ def test_sketch_lane_on_the_card(cuda_device):
         res = float(torch.linalg.vector_norm(Au - e.theta[j].item() * u)) \
             / abs(e.theta[j].item())
         assert abs(res - float(e.pair_resnorms[j])) <= 1e-2 * res
+
+
+def _sstep_cases(device):
+    """The s-step lane's solves on ``device`` (float64 on a dense
+    nonsymmetric matrix and the 63^2 Poisson with its V-cycle), keyed by
+    name: each returns its result."""
+    r = np.random.RandomState(0)
+    A = np.diag(np.linspace(1, 10, 80)) + 0.1 * r.randn(80, 80)
+    Q, _ = np.linalg.qr(r.randn(80, 80))
+    S = Q @ np.diag(np.linspace(1, 50, 80)) @ Q.T
+    b = r.randn(80)
+    At, St, bt = (torch.tensor(v, device=device) for v in (A, S, b))
+    lap = ops.poisson_2d(63, device=device)
+    Mg = ops.multigrid_poisson_preconditioner(63, coarsest=7, device=device)
+    ones = torch.ones(63 * 63, dtype=torch.float64, device=device)
+    ev = np.linalg.eigvals(A)
+    return {
+        "ca_cg": lambda: F.ca_cg(St, bt, s=4, tol=1e-10, maxiter=400),
+        "ca_cg_vcycle": lambda: F.ca_cg(lap, ones, s=4, M=Mg, tol=1e-10,
+                                        maxiter=64),
+        "monomial": lambda: F.ca_gmres(At, bt, s=4, tol=1e-12, maxiter=60),
+        "newton": lambda: F.ca_gmres(At, bt, s=4, basis="newton", tol=1e-12,
+                                     maxiter=60),
+        "chebyshev": lambda: F.ca_gmres(At, bt, s=8, basis="chebyshev",
+                                        shifts=ev, tol=1e-12, maxiter=60),
+        "vcycle": lambda: F.ca_gmres(lap, ones, s=4, Ml=Mg, tol=1e-10,
+                                     maxiter=64),
+        "restarted": lambda: F.restarted_ca_gmres(
+            At, bt, s=4, maxiter=12, max_restarts=10, tol=1e-10),
+    }
+
+
+@pytest.mark.parametrize("name", ["ca_cg", "ca_cg_vcycle", "monomial",
+                                  "newton", "chebyshev", "vcycle",
+                                  "restarted"])
+def test_sstep_lane_on_the_card_matches_its_cpu_run(cuda_device, name):
+    """Each s-step solve on CUDA tensors against the same solve on the
+    CPU, float64: counts and statuses equal, iterates to ``1e-9`` of
+    their largest entry, histories to ``1e-9`` absolute (cuBLAS and the
+    CPU's BLAS sum in other orders; the s-step blocks carry a few hundred
+    ulps each), the result on the card."""
+    got = _sstep_cases(cuda_device)[name]()
+    want = _sstep_cases("cpu")[name]()
+    assert got.x.device == cuda_device
+    assert int(got.niter) == int(want.niter)
+    assert int(got.status) == int(want.status) == F.CONVERGED
+    xw = want.x.numpy()
+    np.testing.assert_allclose(got.x.cpu().numpy(), xw, rtol=0,
+                               atol=1e-9 * np.abs(xw).max())
+    np.testing.assert_allclose(got.resnorms.cpu().numpy(),
+                               want.resnorms.numpy(), rtol=0, atol=1e-9)
+
+
+def test_newton_shifts_on_the_card(cuda_device):
+    r = np.random.RandomState(11)
+    A = np.diag(np.linspace(1, 10, 80)) + 0.05 * r.randn(80, 80)
+    b = r.randn(80)
+    got = F.newton_shifts(torch.tensor(A, device=cuda_device),
+                          torch.tensor(b, device=cuda_device), 4)
+    want = F.newton_shifts(torch.tensor(A), torch.tensor(b), 4)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+    # a numpy right-hand side goes to the card
+    res = F.ca_gmres(torch.tensor(A, device=cuda_device), b, s=4,
+                     maxiter=8)
+    assert res.x.device.type == "cuda"
+
+
+def test_sstep_on_the_card_through_the_kernels(cuda_device):
+    """``ca_cg`` with the padded V-cycle and ``ca_gmres`` (Newton) on the
+    north star's operator at 255^2 through K1-K3, float32: one K1 per
+    operator application and per V-cycle level, converged to the float32
+    tolerance in float64."""
+    nx = 255
+    A = ops.poisson_2d(nx, pad_cols=True, impl="cuda", device=cuda_device)
+    M = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        device=cuda_device)
+    A64 = ops.poisson_2d(nx, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        nx * nx)).to(cuda_device)
+    b = ops.pad_grid_vec(A64(x), nx, nx).float()
+    calls = {"A": 0, "M": 0}
+
+    def Ac(v):
+        calls["A"] += 1
+        return A(v)
+
+    def Mc(v):
+        calls["M"] += 1
+        return M(v)
+
+    kernels.reset_launch_counts()
+    r = F.ca_cg(Ac, b, s=4, M=Mc, tol=1e-5, maxiter=40)
+    launches = kernels.launch_counts()
+    assert r.converged and r.x.dtype == torch.float32
+    # 255^2 has one kernel level of the padded V-cycle above its coarse
+    # form: K1 twice, K2 and K3 once, the coarse form once per V-cycle
+    assert launches["stencil5_coarse"] == calls["M"]
+    assert launches["stencil5_affine"] >= calls["A"]
+    xs = ops.unpad_grid_vec(r.x, nx, nx).double()
+    bs = ops.unpad_grid_vec(b, nx, nx).double()
+    assert float(torch.linalg.vector_norm(bs - A64(xs))
+                 / torch.linalg.vector_norm(bs)) <= 1e-4
+    h2 = 1.0 / (nx + 1) ** 2
+    cd = ops.convection_diffusion_2d(nx, wind=(h2, 0.5 * h2), eps=h2,
+                                     pad_cols=True, impl="cuda",
+                                     device=cuda_device)
+    Ml = ops.multigrid_poisson_preconditioner(
+        nx, coarsest=31, coarse_sweeps=60, pad_cols=True, impl="cuda",
+        scale=1.0 / h2, device=cuda_device)
+    rhs = ops.pad_grid_vec(torch.ones(nx * nx, device=cuda_device), nx, nx)
+    g = F.ca_gmres(cd, rhs, s=8, basis="newton", Ml=Ml, tol=1e-4, maxiter=48)
+    assert g.converged and bool(torch.isfinite(g.x).all())
+
+
+def test_gallery_on_the_card_matches_its_cpu_build(cuda_device):
+    """The five constructors on the card against their CPU builds: the
+    polynomial preconditioner's roots (float64 Arnoldi on cuBLAS) and
+    action, the CSR and DIA products (DIA bit for bit: scipy's sums in
+    its order), the block-Jacobi and SPAI applications."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    n = 300
+    Am = np.diag(np.linspace(1.0, 50.0, n)) + 0.3 * rng.standard_normal(
+        (n, n)) / np.sqrt(n)
+    seed = rng.standard_normal(n)
+    Pg = ops.gmres_polynomial_preconditioner(
+        torch.tensor(Am, device=cuda_device), 8,
+        seed=torch.tensor(seed, device=cuda_device))
+    Pc = ops.gmres_polynomial_preconditioner(torch.tensor(Am), 8,
+                                             seed=torch.tensor(seed))
+    np.testing.assert_allclose(Pg.roots, Pc.roots, rtol=1e-9,
+                               atol=1e-9 * np.abs(Pc.roots).max())
+    v = rng.standard_normal(n)
+    np.testing.assert_allclose(
+        Pg(torch.tensor(v, device=cuda_device)).cpu().numpy(),
+        Pc(torch.tensor(v)).numpy(), rtol=1e-10, atol=1e-12)
+    N = 4096
+    rows = np.repeat(np.arange(N), 6)
+    cols = (rows + rng.integers(1, 24, rows.size)) % N
+    W = sp.coo_matrix((rng.uniform(0.5, 2.0, rows.size), (rows, cols)),
+                      shape=(N, N))
+    A = (sp.diags(np.asarray(W.sum(axis=1)).ravel() + 1.0) - W).tocsr()
+    x = rng.standard_normal(N)
+    xg = torch.tensor(x, device=cuda_device)
+    dia = ops.dia_from_scipy(A, device=cuda_device)
+    assert dia(xg).cpu().numpy().tobytes() == (A @ x).tobytes()
+    csr = ops.sparse_from_scipy(A, device=cuda_device)
+    np.testing.assert_allclose(csr(xg).cpu().numpy(), A @ x, rtol=0,
+                               atol=1e-13 * np.abs(A @ x).max())
+    for build in (lambda dev: ops.block_jacobi_preconditioner(A, 32,
+                                                              device=dev),
+                  lambda dev: ops.spai_preconditioner(A, device=dev)):
+        g, c = build(cuda_device), build("cpu")
+        np.testing.assert_allclose(g(xg).cpu().numpy(),
+                                   c(torch.tensor(x)).numpy(), rtol=1e-12,
+                                   atol=1e-14)
+    # from scipy with no device given: on the card
+    assert ops.block_jacobi_preconditioner(A, 32).blocks.is_cuda
+    assert ops.spai_preconditioner(A).dia_data.is_cuda
+
+
+def test_new_entry_points_raise_where_the_operator_cannot_run(cuda_device):
+    """A CUDA call whose operator lives on the CPU raises (a device
+    mismatch) instead of falling back to the CPU."""
+    import scipy.sparse as sp
+
+    A = sp.diags([np.full(64, 4.0), -np.ones(63), -np.ones(63)],
+                 [0, 1, -1]).tocsr()
+    b = torch.ones(64, dtype=torch.float64, device=cuda_device)
+    cpu_ops = {"dia": ops.dia_from_scipy(A, device="cpu"),
+               "csr": ops.sparse_from_scipy(A, device="cpu")}
+    for op in cpu_ops.values():
+        for call in (lambda: F.ca_cg(op, b, maxiter=8),
+                     lambda: F.ca_gmres(op, b, maxiter=8),
+                     lambda: F.restarted_ca_gmres(op, b, maxiter=8),
+                     lambda: F.newton_shifts(op, b, 2)):
+            with pytest.raises(RuntimeError):
+                call()
+        with pytest.raises(RuntimeError):
+            ops.gmres_polynomial_preconditioner(op, 4, seed=b)
+    M = ops.block_jacobi_preconditioner(A, 16, device="cpu")
+    with pytest.raises(RuntimeError):
+        M(b)
+    S = ops.spai_preconditioner(A, device="cpu")
+    with pytest.raises(RuntimeError):
+        S(b)

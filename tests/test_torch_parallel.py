@@ -23,6 +23,7 @@ histories, coefficients) must be the same bits on every rank.
 is the rank process (:func:`run_ranks` starts it).
 """
 
+import contextlib
 import functools
 import importlib.util
 import os
@@ -141,6 +142,25 @@ FL_T, FL_CD_T, FL_MAXDIM = 1e-3, 1e-2, 24
 FL_CHEB = dict(tol=1e-5, maxiter=400, check_every=8)
 FL_BCG_TOL, FL_BGM_TOL = 1e-6, 1e-5
 FL_SKETCH_SEED, FL_SKETCH_M = 3, 30
+
+#: the s-step and unstructured-gallery cases on the mesh, float64, in
+#: LANE16_WORLDS: tests/test_sstep.py's sharded ca_cg (s = 4, Jacobi) and
+#: ca_gmres (s = 4, Jacobi on the left; and the Newton basis) at the
+#: parity grid through K8's plain version; the all-reduces of a block,
+#: from two runs of SS_COUNT_BLOCKS blocks each (tol 0); the DIA, CSR,
+#: block-Jacobi and SPAI cases of tests/test_preconditioners.py: DIA on
+#: the graph Laplacian (N = 4096) and the tridiagonal (float32) against
+#: scipy, CG with point and block Jacobi (block 32) on the CSR graph
+#: Laplacian (N = 2048, 64 iterations), GMRES(16, cgs2) with and without
+#: SPAI on the DIA nonsymmetric graph operator (N = 4096)
+SS_S, SS_TOL, SS_GM_TOL = 4, 1e-10, 1e-8
+SS_COUNT_BLOCKS = (2, 4)
+#: all-reduces per block: CA-CG's conjugation, fused Gram and M-norm;
+#: CA-GMRES's two Gram-Schmidt passes (one 32-row panel each while the
+#: basis has at most 32 rows), the two CholQR2 Grams and the explicit
+#: residual's norm, and the Newton basis' s norms
+SS_BLOCK_REDUCES = {"ca_cg": 3, "ca_gmres": 5, "ca_gmres_newton": 5 + SS_S}
+GAL_DIA_N, GAL_CSR_N, GAL_CG_ITERS, GAL_GM_ITERS = 4096, 2048, 64, 16
 
 #: seconds: each collective, and the whole world
 DIST_TIMEOUT, WORLD_TIMEOUT = 60, 240
@@ -436,6 +456,139 @@ def _funm_lane_cases(out, mesh):
                 out[f"fl_{key}_status"] = np.int64(res.status)
 
 
+def _ss_problem(mesh=None):
+    """The s-step cases' Poisson (K8's plain version on a mesh), its
+    Jacobi preconditioner and b = ones (the rank's blocks on a mesh)."""
+    dev = "cpu" if mesh is None else mesh.device
+    lap = ops.poisson_2d(GM_NX, impl="cuda", mesh=mesh, device=dev)
+    b = np.ones(GM_NX * GM_NX)
+    b = torch.tensor(b) if mesh is None else parallel.shard_vector(b, mesh)
+    return lap, ops.jacobi_preconditioner(lap), b
+
+
+def _ss_solves(lap, Mj, b, maxiter=None, tol=None):
+    """Each s-step solve, ``{key: thunk}``; ``maxiter``/``tol`` override
+    the parity runs' (the counted runs: tol 0, a fixed number of
+    blocks)."""
+    def kw(m, t):
+        return dict(maxiter=m if maxiter is None else maxiter,
+                    tol=t if tol is None else tol, s=SS_S)
+
+    return {
+        "ca_cg": lambda: F.ca_cg(lap, b, M=Mj, **kw(500, SS_TOL)),
+        "ca_gmres": lambda: F.ca_gmres(lap, b, Ml=Mj, **kw(512, SS_GM_TOL)),
+        "ca_gmres_newton": lambda: F.ca_gmres(
+            lap, b, Ml=Mj, basis="newton", **kw(512, SS_GM_TOL)),
+    }
+
+
+def _sstep_lane_cases(out, mesh):
+    """The s-step cases on this rank: the parity solves, then each solve's
+    all-reduces at SS_COUNT_BLOCKS blocks."""
+    lap, Mj, b = _ss_problem(mesh)
+    with mesh:
+        for key, run in _ss_solves(lap, Mj, b).items():
+            _result(out, f"ss_{key}", run(), mesh)
+        for blocks in SS_COUNT_BLOCKS:
+            for key, run in _ss_solves(lap, Mj, b, maxiter=blocks * SS_S,
+                                       tol=0.0).items():
+                parallel.reset_collective_counts()
+                res = run()
+                out[f"ss_{key}_reduces_{blocks}"] = np.int64(
+                    parallel.collective_counts()["all_reduce_sum"])
+                out[f"ss_{key}_niter_{blocks}"] = np.int64(res.niter)
+
+
+def _gallery_problems():
+    """The gallery cases' scipy matrices (every rank builds them alike)."""
+    import scipy.sparse as sp
+
+    def graph_laplacian(N, band=40, deg=8, seed=11):
+        rng = np.random.default_rng(seed)
+        rows = np.repeat(np.arange(N), deg)
+        cols = (rows + rng.integers(1, band, size=rows.size)) % N
+        W = sp.coo_matrix((rng.uniform(0.5, 2.0, rows.size), (rows, cols)),
+                          shape=(N, N))
+        W = W + W.T
+        L = sp.diags(np.asarray(W.sum(axis=1)).ravel()) - W
+        return (L + 1e-2 * sp.eye(N)).tocsr()
+
+    def nonsym(N, seed=3):
+        rng = np.random.default_rng(seed)
+        rows = np.repeat(np.arange(N), 6)
+        cols = (rows + rng.integers(1, 24, rows.size)) % N
+        W = sp.coo_matrix((rng.uniform(0.5, 2.0, rows.size), (rows, cols)),
+                          shape=(N, N))
+        deg = np.asarray(W.sum(axis=1)).ravel() + np.asarray(
+            W.sum(axis=0)).ravel()
+        return (sp.diags(deg) - 1.7 * W - 0.3 * W.T
+                + 0.5 * sp.eye(N)).tocsr()
+
+    N = GAL_DIA_N
+    tri = sp.diags([np.full(N, 4.0), -np.ones(N - 1), -np.ones(N - 1)],
+                   [0, 1, -1]).tocsr()
+    return {"lap_dia": graph_laplacian(N), "tri": tri,
+            "lap_csr": graph_laplacian(GAL_CSR_N), "nonsym": nonsym(N)}
+
+
+def _gallery_solves(mats, mesh=None):
+    """The gallery's solves on one device or on the mesh (operators in
+    their mesh forms), each with its collectives: ``{key: (result,
+    counts)}``; and the DIA products, ``{key: (y, counts)}``."""
+    dev = "cpu" if mesh is None else None
+
+    def vec(x):
+        return torch.tensor(x) if mesh is None else \
+            parallel.shard_vector(x, mesh)
+
+    csr = ops.sparse_from_scipy(mats["lap_csr"], device=dev or "cpu",
+                                mesh=mesh)
+    dia_ns = ops.dia_from_scipy(mats["nonsym"], device=dev or "cpu",
+                                mesh=mesh)
+    spai = ops.spai_preconditioner(mats["nonsym"], device=dev, mesh=mesh)
+    runs = {
+        "cg_jacobi": lambda: F.cg(csr, vec(np.ones(GAL_CSR_N)),
+                                  M=ops.jacobi_preconditioner(csr), tol=0.0,
+                                  maxiter=GAL_CG_ITERS),
+        "cg_block_jacobi": lambda: F.cg(
+            csr, vec(np.ones(GAL_CSR_N)),
+            M=ops.block_jacobi_preconditioner(csr, 32, mesh=mesh),
+            tol=0.0, maxiter=GAL_CG_ITERS),
+        "gmres_plain": lambda: F.gmres(
+            dia_ns, vec(np.ones(GAL_DIA_N, np.float32)), tol=1e-6,
+            maxiter=GAL_GM_ITERS, ortho="cgs2"),
+        "gmres_spai": lambda: F.gmres(
+            dia_ns, vec(np.ones(GAL_DIA_N, np.float32)), Mr=spai, tol=1e-6,
+            maxiter=GAL_GM_ITERS, ortho="cgs2"),
+    }
+    x = np.random.default_rng(3).standard_normal(GAL_DIA_N)
+    products = {
+        "lap_dia": lambda: ops.dia_from_scipy(
+            mats["lap_dia"], device=dev or "cpu", mesh=mesh)(vec(x)),
+        "tri": lambda: ops.dia_from_scipy(
+            mats["tri"], device=dev or "cpu", mesh=mesh)(
+                vec(np.ones(GAL_DIA_N, np.float32))),
+    }
+    out = {}
+    with mesh if mesh is not None else contextlib.nullcontext():
+        for key, run in {**runs, **products}.items():
+            parallel.reset_collective_counts()
+            out[key] = (run(), parallel.collective_counts())
+    return out
+
+
+def _gallery_cases(out, mesh):
+    """The unstructured gallery's mesh forms on this rank."""
+    mats = _gallery_problems()
+    for key, (got, counts) in _gallery_solves(mats, mesh).items():
+        for name, n in counts.items():
+            out[f"gal_{key}_{name}"] = np.int64(n)
+        if isinstance(got, torch.Tensor):
+            out[f"gal_{key}_y"] = interop.gather_to_numpy(got, mesh)
+        else:
+            _result(out, f"gal_{key}", got, mesh)
+
+
 def _result(out, key, res, mesh):
     """Store a solve's gathered x, its residual history and counts."""
     out[f"{key}_x"] = interop.gather_to_numpy(res.x, mesh)
@@ -607,6 +760,8 @@ def rank_cases(mesh):
     if P in LANE16_WORLDS:
         _lane16_cases(out, mesh)
         _funm_lane_cases(out, mesh)
+        _sstep_lane_cases(out, mesh)
+        _gallery_cases(out, mesh)
 
     # the dryrun's deflation and recycling lanes (nx = 4P, ny = 8)
     nx, ny = 4 * P, 8
@@ -1086,18 +1241,18 @@ def test_nonsym_on_mesh_matches_one_device(worlds, name, P):
                == r[f"{key}_resnorms"].tobytes() for q in ranks)
 
 
-def _mesh_close(r, key, res, rtol=1e-8):
+def _mesh_close(r, key, res, rtol=1e-8, atol=1e-14, x_rtol=1e-8):
     """The one-device iteration count and status, the residual history
-    within ``rtol`` (the same bits on every rank is checked by the
-    callers), the iterate to ``1e-8`` of its largest entry."""
+    within ``rtol`` and ``atol`` (the same bits on every rank is checked
+    by the callers), the iterate to ``x_rtol`` of its largest entry."""
     assert int(r[f"{key}_niter"]) == int(res.niter)
     assert int(r[f"{key}_status"]) == int(res.status)
     np.testing.assert_allclose(r[f"{key}_resnorms"],
                                interop.to_numpy(res.resnorms),
-                               rtol=rtol, atol=1e-14)
+                               rtol=rtol, atol=atol)
     x = interop.to_numpy(res.x).reshape(-1)
     np.testing.assert_allclose(r[f"{key}_x"], x, rtol=0,
-                               atol=1e-8 * np.max(np.abs(x)))
+                               atol=x_rtol * np.max(np.abs(x)))
 
 
 @pytest.mark.parametrize("P", LANE16_WORLDS)
@@ -1273,6 +1428,117 @@ def test_funm_lane_on_mesh_matches_jax(worlds, key, P):
         assert reduces == FL_FIXED["cheb"] + blocks
     # one device makes no all-reduce
     assert one_reduces == 0 and reduces > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _ss_jax(P):
+    """The s-step solves of the JAX package under ``with mesh:`` on
+    ``make_mesh(P)`` (one jit each) and the port's on one device."""
+    import jax
+    import jax.numpy as jnp
+    from krypy_tpu import functional as JF, ops as jops, parallel as jp
+
+    mesh = _jmesh(P)
+    one = {k: run() for k, run in _ss_solves(*_ss_problem()).items()}
+    lap = _jax_operator("poisson", GM_NX, GM_NX, mesh, impl="jnp")
+    Mj = jops.jacobi_preconditioner(lap)
+    b = jp.shard_vector(jnp.ones(GM_NX * GM_NX), mesh)
+    with mesh:
+        want = {
+            "ca_cg": jax.jit(lambda v: JF.ca_cg(
+                lap, v, s=SS_S, M=Mj, tol=SS_TOL, maxiter=500))(b),
+            "ca_gmres": jax.jit(lambda v: JF.ca_gmres(
+                lap, v, s=SS_S, Ml=Mj, tol=SS_GM_TOL, maxiter=512))(b),
+            "ca_gmres_newton": jax.jit(lambda v: JF.ca_gmres(
+                lap, v, s=SS_S, Ml=Mj, basis="newton", tol=SS_GM_TOL,
+                maxiter=512))(b)}
+    return {k: (want[k], one[k]) for k in want}
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+@pytest.mark.parametrize("key", list(SS_BLOCK_REDUCES))
+def test_sstep_on_mesh_matches_jax(worlds, key, P):
+    """tests/test_sstep.py's sharded ``ca_cg`` and ``ca_gmres`` (and the
+    Newton basis) under ``with mesh:``: against the JAX package on
+    ``make_mesh(P)`` and the port on one device, counts and statuses
+    equal, iterates to ``1e-8`` of their largest entry, histories within
+    the mesh limit of PERF.md §2 (``NS_HISTORY_RTOL``; ``atol`` 1e-12: the
+    last entry is the explicit residual at ~1e-12, whose own rounding,
+    eps ||A|| ||x|| / ||b||, is ~1e-13), every rank's history the same
+    bits; then the all-reduces of a block."""
+    want, one = _ss_jax(P)[key]
+    ranks = worlds[P]
+    r = ranks[0]
+    tag = f"ss_{key}"
+    assert int(r[f"{tag}_status"]) == F.CONVERGED
+    _mesh_close(r, tag, one, rtol=NS_HISTORY_RTOL, atol=1e-12)
+    _mesh_close(r, tag, SimpleNamespace(
+        niter=int(want.niter), status=int(want.status),
+        resnorms=torch.tensor(np.asarray(want.resnorms)),
+        x=torch.tensor(np.asarray(want.x))), rtol=NS_HISTORY_RTOL,
+        atol=1e-12)
+    assert all(q[f"{tag}_resnorms"].tobytes()
+               == r[f"{tag}_resnorms"].tobytes() for q in ranks)
+    lo, hi = SS_COUNT_BLOCKS
+    for blocks in SS_COUNT_BLOCKS:
+        assert int(r[f"{tag}_niter_{blocks}"]) == blocks * SS_S
+    per_block = (int(r[f"{tag}_reduces_{hi}"])
+                 - int(r[f"{tag}_reduces_{lo}"])) // (hi - lo)
+    assert per_block == SS_BLOCK_REDUCES[key]
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+def test_dia_on_mesh_takes_neighbour_exchanges_only(worlds, P):
+    """tests/test_preconditioners.py:274 and :304: the DIA product of the
+    rank's block is scipy's to the bit (the graph Laplacian, float64, its
+    wrapping couplings taken as short rolls around the ring of ranks) and
+    the one device's (the tridiagonal, float32), through ONE periodic halo
+    exchange and no all-reduce or all-gather."""
+    mats = _gallery_problems()
+    one = _gallery_solves(mats)
+    x = np.random.default_rng(3).standard_normal(GAL_DIA_N)
+    r = worlds[P][0]
+    assert r["gal_lap_dia_y"].tobytes() == (mats["lap_dia"] @ x).tobytes()
+    assert r["gal_tri_y"].tobytes() == interop.to_numpy(
+        one["tri"][0]).tobytes()
+    for key in ("lap_dia", "tri"):
+        assert int(r[f"gal_{key}_halo_exchange"]) == 1
+        assert int(r[f"gal_{key}_all_reduce_sum"]) == 0
+        assert int(r[f"gal_{key}_all_gather"]) == 0
+
+
+@pytest.mark.parametrize("P", LANE16_WORLDS)
+def test_csr_block_jacobi_and_spai_add_no_all_reduce(worlds, P):
+    """tests/test_preconditioners.py:247 and :398: CG with block Jacobi
+    makes as many all-reduces as with point Jacobi (its blocks are the
+    rank's own), GMRES with SPAI (a DIA operator) as many as without; the
+    CSR operator takes one all-gather of x per application.  Each solve
+    against the one device's within the mesh limit (the GMRES runs are
+    float32, as the JAX test's: histories to ``1e-4`` and iterates to
+    ``1e-5`` of their largest entry, float32's sums in another order)."""
+    one = _gallery_solves(_gallery_problems())
+    ranks = worlds[P]
+    r = ranks[0]
+    for key in ("cg_jacobi", "cg_block_jacobi", "gmres_plain",
+                "gmres_spai"):
+        f32 = key.startswith("gmres")
+        _mesh_close(r, f"gal_{key}", one[key][0],
+                    rtol=1e-4 if f32 else NS_HISTORY_RTOL,
+                    x_rtol=1e-5 if f32 else 1e-8)
+        assert all(q[f"gal_{key}_resnorms"].tobytes()
+                   == r[f"gal_{key}_resnorms"].tobytes() for q in ranks)
+    assert int(r["gal_cg_jacobi_niter"]) == GAL_CG_ITERS
+    assert int(r["gal_cg_block_jacobi_all_reduce_sum"]) == \
+        int(r["gal_cg_jacobi_all_reduce_sum"])
+    assert int(r["gal_gmres_spai_all_reduce_sum"]) == \
+        int(r["gal_gmres_plain_all_reduce_sum"])
+    # CG's matvecs: the initial residual and one per iteration
+    for key in ("cg_jacobi", "cg_block_jacobi"):
+        assert int(r[f"gal_{key}_all_gather"]) >= int(r[f"gal_{key}_niter"])
+        assert int(r[f"gal_{key}_halo_exchange"]) == 0
+    assert int(r["gal_gmres_spai_all_gather"]) == 0
+    # one device makes no collective
+    assert all(n == 0 for _, counts in one.values() for n in counts.values())
 
 
 @pytest.mark.parametrize("P", LANE16_WORLDS)

@@ -570,9 +570,9 @@ def test_northstar_shifted_gmres_through_k1_matches_jax():
 
 def test_functional_exports_the_slice_names_as_jax():
     """The slice's 14 names are in ``krypy_tpu_torch.functional.__all__``
-    as in the JAX package's, read by ``ast`` from both ``__init__``s; the
-    names the port still lacks are those of the unported module,
-    ``sstep``."""
+    as in the JAX package's, read by ``ast`` from both ``__init__``s; since
+    the s-step lane was ported the port lacks none of the JAX package's
+    names."""
     import ast
     import pathlib
 
@@ -591,8 +591,6 @@ def test_functional_exports_the_slice_names_as_jax():
                    "SvdsResult", "svds", "ShiftedResult", "shifted_cg",
                    "shifted_gmres", "restarted_shifted_gmres"}
     assert slice_names <= jax_names and slice_names <= port_names
-    assert jax_names - port_names == {"ca_cg", "ca_gmres",
-                                      "restarted_ca_gmres", "modified_leja",
-                                      "newton_shifts"}
+    assert jax_names - port_names == set()
     for name in slice_names:
         assert getattr(F, name) is not None
